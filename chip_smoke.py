@@ -12,15 +12,21 @@ Phases, in order; any failure exits non-zero:
 2. hold each kernel against its plain PyTorch version on the card, at
    the served shapes and at edge shapes (f32 2e-5/2e-5, bf16 3e-2/3e-2),
    and time kernel, plain version and one PyTorch library call;
-3. check the port's forward on the card against its plain CPU path on
-   the smoke configs, build both cascade stages at full published width
-   (xlstm-125m 12L x 768, llama3.2-1b 16L x 2048, seeded random
-   weights) and profile them at batch sizes 1-16 on ``h100-1``;
+3. check the port's forward, and its prefill + greedy decode, on the
+   card against its plain CPU path on the smoke configs, build both
+   cascade stages at full published width (xlstm-125m 12L x 768,
+   llama3.2-1b 16L x 2048, seeded random weights) and profile them at
+   batch sizes 1-16 on ``h100-1``;
 4. serve a Poisson trace through the two-stage executor, with every
    kernel launch counter zeroed just before and read just after, and
    check every answer;
 5. trace one batch per stage with torch.profiler: the device's busy
-   share of the stage's batch latency and the kernels that fill it.
+   share of the stage's batch latency and the kernels that fill it;
+6. decode with the full-width llama3.2-1b: prefill 8 prompts of 512
+   tokens into a 1024-slot cache and take 64 greedy decode steps, with
+   the counters zeroed before and read after the prefill and the steps;
+   hold every step's logits against the port's forward over the same
+   576 tokens, and time and trace a step.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -29,6 +35,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +64,7 @@ from repro_torch.core.profiler import (  # noqa: E402
 )
 from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -71,6 +79,9 @@ SERVE_BATCH = 8                 # StageConfig.batch_size of the served run
 SERVE_QPS, SERVE_S, SLO_S = 20.0, 10.0, 0.25
 PROFILE_BATCHES = (1, 2, 4, 8, 16)
 STAGES = ("xlstm-125m", "llama3.2-1b")
+DECODE_BATCH, PROMPT, SMAX, STEPS = 8, 512, 1024, 64
+COUNTERS = {"rmsnorm": rms_mod.counter, "flash_attention": fa_mod.counter,
+            "decode_attention": da_mod.counter}
 
 
 def launches_per_forward(cfg) -> dict:
@@ -86,6 +97,15 @@ def launches_per_forward(cfg) -> dict:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def counts() -> dict:
+    return {name: c.count for name, c in COUNTERS.items()}
+
+
+def reset_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()
 
 
 def nvidia_smi() -> str:
@@ -170,6 +190,36 @@ def check_flash(gen: torch.Generator) -> None:
                 f"max_abs_err={err:.3e}  ok")
 
 
+DECODE_CASES = (
+    # (b, smax, h, kv, d, valid lengths, window)
+    (1, 512, 4, 4, 64, (1, 511, 512), 0),
+    (2, 1024, 8, 2, 64, (1, 511, 512), 0),
+    (4, 512, 4, 1, 128, (1, 511, 512), 0),
+    (1, 512, 4, 4, 64, (400,), 128),
+    (2, 1024, 8, 2, 64, (400,), 128),
+    (4, 512, 4, 1, 128, (400,), 128),
+    (8, 1024, 32, 8, 64, (1, 513, 1024), 0),   # llama3.2-1b served shape
+    (2, 600, 32, 8, 64, (1, 577, 600), 0),     # Smax of no block multiple
+)
+
+
+def check_decode(gen: torch.Generator) -> None:
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, smax, h, kv, d, vls, window in DECODE_CASES:
+            q = rand(gen, (b, 1, h, d), dtype)
+            k = rand(gen, (b, smax, kv, d), dtype)
+            v = rand(gen, (b, smax, kv, d), dtype)
+            for vl in vls:
+                got = da_mod.decode_attention(q, k, v, vl, window=window)
+                torch.cuda.synchronize()
+                exp = ref.decode_attention_ref(q, k, v, vl, window=window)
+                name = (f"B={b} Smax={smax} {h}/{kv}h D={d} vl={vl} "
+                        f"window={window}")
+                err = assert_close(got, exp, dtype, f"decode {name} {dtype}")
+                log(f"  decode   {name:42s} {str(dtype):14s} "
+                    f"max_abs_err={err:.3e}  ok")
+
+
 def kernel_record(name, source, replaces, kernel_fn, plain_fn, library_fn,
                   nbytes, nops, dtype) -> dict:
     got, exp = kernel_fn(), plain_fn()
@@ -225,11 +275,91 @@ def time_kernels(gen: torch.Generator) -> list:
             qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
         nbytes=(q.numel() + k.numel() + v.numel() + q.numel()) * esz,
         nops=b * h * pairs * 2 * (hd + hd), dtype=dtype))
+
+    # decode: DECODE_BATCH sequences, a full cache of SMAX slots
+    b, smax, vl = DECODE_BATCH, SMAX, SMAX
+    q = rand(gen, (b, 1, h, hd), dtype)
+    k = rand(gen, (b, smax, kv, hd), dtype)
+    v = rand(gen, (b, smax, kv, hd), dtype)
+    # the library call's own layout (B, heads, S, D), made outside the
+    # timing, and the slot mask as a boolean attention mask
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    slots = (torch.arange(smax, device="cuda") < vl)[None, None, None, :]
+    records.append(kernel_record(
+        "decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:72",
+        lambda: da_mod.decode_attention(q, k, v, vl),
+        lambda: ref.decode_attention_ref(q, k, v, vl),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=slots, enable_gqa=True).transpose(1, 2),
+        nbytes=(q.numel() + 2 * b * vl * kv * hd + q.numel()) * esz,
+        nops=b * h * vl * 2 * (hd + hd), dtype=dtype))
+    dev_us = device_us(lambda: da_mod.decode_attention(q, k, v, vl))
+    log(f"  decode_attention at valid_len {vl}: device time per call "
+        + ", ".join(f"{us:.2f} us {name}" for name, us in dev_us.items()))
     for r in records:
-        log(f"  {r['name']:15s} kernel {r['ms']:.4f} ms  plain "
+        log(f"  {r['name']:16s} kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     return records
+
+
+def cuda_events(fn, calls: int = 1) -> list:
+    """The CUDA kernels of a torch.profiler trace of ``calls`` calls of
+    ``fn``, which runs once before, outside the trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_us(fn, calls: int = 20) -> dict:
+    """Device time per call of each CUDA kernel ``fn`` launches (the
+    CUDA-event time of back-to-back calls includes the host's dispatch
+    where that is slower)."""
+    return {kernel_name(e.key): e.self_device_time_total / calls
+            for e in cuda_events(fn, calls)}
+
+
+def report_trace(label: str, kernels: list, wall_ms: float,
+                 per_launch: tuple) -> None:
+    """Log the device's busy share of ``wall_ms`` (the same work timed
+    without the profiler), the six kernels with the most device time,
+    and the device time per launch of the kernels whose names start
+    with one of ``per_launch``."""
+    if not kernels:
+        log(f"  {label}: device time not measured (the profiler "
+            f"recorded no CUDA kernel)")
+        return
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"  {label}: {sum(e.count for e in kernels)} kernel launches, "
+        f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
+        f"({busy_ms / wall_ms:.1%}; idle {1 - busy_ms / wall_ms:.1%})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
+    per_name: dict = {}
+    for e in kernels:
+        name = kernel_name(e.key)
+        if name.startswith(per_launch):
+            us, n = per_name.get(name, (0.0, 0))
+            per_name[name] = (us + e.self_device_time_total, n + e.count)
+    for name, (us, n) in per_name.items():
+        log(f"    {name}: {us / n:.2f} us of device time per launch")
+
+
+def kernel_name(key: str) -> str:
+    """The function name of a profiler's kernel key, e.g.
+    ``decode_split_kernel`` of ``void (anonymous namespace)::
+    decode_split_kernel<float, 2>(float const*, ...)``."""
+    name = re.search(r"(\w+)(<|\(|$)", key.split("::")[-1])
+    return name.group(1) if name else key[:40]
 
 
 # ---------------------------------------------------------------- phase 3
@@ -256,6 +386,46 @@ def check_forward_against_cpu() -> None:
                                    msg=lambda m: f"{arch} forward: {m}")
         log(f"  {arch:15s} smoke forward cuda vs cpu: max_abs_err="
             f"{err:.3e} (tol 1e-4)  ok")
+
+
+def check_decode_against_cpu() -> None:
+    """The port's prefill + greedy decode through the kernels on the card
+    agrees with its plain path on the CPU, same parameters and tokens,
+    smoke configs: llama3.2-1b, and llama3.2-1b-sw with a prompt longer
+    than its 64-slot window and steps that wrap the ring."""
+    for arch, prompt, steps in (("llama3.2-1b", 9, 3),
+                                ("llama3.2-1b-sw", 96, 40)):
+        cfg = get_smoke(arch)
+        cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg,
+                                                                    "cuda")
+        params = cpu_model.init(torch.Generator().manual_seed(0))
+        gpu_params = _tree_to(params, "cuda")
+        tok = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, prompt), dtype=np.int64))
+        smax = prompt + steps
+        err = 0.0
+        with torch.inference_mode():
+            exp, state = cpu_model.prefill(params, {"tokens": tok}, smax)
+            got, gpu_state = gpu_model.prefill(
+                gpu_params, {"tokens": tok.to("cuda")}, smax)
+            for i in range(steps + 1):
+                got = got.cpu()
+                err = max(err, float((got - exp).abs().max()))
+                torch.testing.assert_close(
+                    got, exp, atol=1e-4, rtol=1e-4,
+                    msg=lambda m: f"{arch} decode step {i}: {m}")
+                if not torch.equal(got.argmax(-1), exp.argmax(-1)):
+                    raise RuntimeError(f"{arch}: greedy tokens differ at "
+                                       f"step {i}")
+                if i == steps:
+                    break
+                nxt = exp.argmax(-1)
+                exp, state = cpu_model.decode_step(params, nxt, prompt + i,
+                                                   state)
+                got, gpu_state = gpu_model.decode_step(
+                    gpu_params, nxt.to("cuda"), prompt + i, gpu_state)
+        log(f"  {arch:15s} smoke prefill {prompt} + {steps} decode steps "
+            f"cuda vs cpu: max_abs_err={err:.3e} (tol 1e-4)  ok")
 
 
 def _tree_to(tree, device):
@@ -326,11 +496,9 @@ def serve(stages) -> dict:
             0, vocab_a, SEQ, dtype=np.int32)
 
     try:
-        rms_mod.counter.reset()
-        fa_mod.counter.reset()
+        reset_counts()
         lat = ex.serve_trace(arrivals, payload)
-        launches = {"rmsnorm": rms_mod.counter.count,
-                    "flash_attention": fa_mod.counter.count}
+        launches = counts()
         outs = ex.outputs()
         sizes = ex.batch_sizes()
     finally:
@@ -355,6 +523,7 @@ def serve(stages) -> dict:
     per_fwd = {a: launches_per_forward(stages[a].cfg) for a in STAGES}
     expect = {name: sum(per_fwd[a][name] * n_batches[a] for a in STAGES)
               for name in ("rmsnorm", "flash_attention")}
+    expect["decode_attention"] = 0
     if launches != expect:
         raise RuntimeError(f"kernel launches during serving {launches} != "
                            f"{expect} expected from {n_batches} batches")
@@ -376,34 +545,100 @@ def trace(stages, store) -> None:
     """Device time of one batch of SERVE_BATCH per stage, summed over the
     CUDA kernels torch.profiler records, against the stage's profiled
     batch latency (taken without the profiler)."""
-    from torch.profiler import ProfilerActivity, profile
     for arch in STAGES:
         st = stages[arch]
-        st.profile_fn(SERVE_BATCH)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            st.profile_fn(SERVE_BATCH)
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not kernels:
-            log(f"  {arch}: device time not measured (the profiler "
-                f"recorded no CUDA kernel)")
-            continue
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        wall_ms = store.get(arch).batch_latency("h100-1", SERVE_BATCH) * 1e3
-        log(f"  {arch} b={SERVE_BATCH}: {sum(e.count for e in kernels)} "
-            f"kernel launches, device busy {busy_ms:.3f} ms of a "
-            f"{wall_ms:.3f} ms batch ({busy_ms / wall_ms:.1%}; idle "
-            f"{1 - busy_ms / wall_ms:.1%})")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"    {e.self_device_time_total / 1e3:8.3f} ms  "
-                f"x{e.count:<5d} {e.key[:90]}")
-        for name in ("rmsnorm_kernel", "flash_fwd_kernel"):
-            ev = [e for e in kernels if name in e.key]
-            if ev:
-                per = sum(e.self_device_time_total for e in ev) / \
-                    sum(e.count for e in ev)
-                log(f"    {name}: {per:.2f} us of device time per launch")
+        report_trace(
+            f"{arch} batch of {SERVE_BATCH}",
+            cuda_events(lambda: st.profile_fn(SERVE_BATCH)),
+            store.get(arch).batch_latency("h100-1", SERVE_BATCH) * 1e3,
+            ("rmsnorm_kernel", "flash_fwd_kernel"))
+
+
+# ---------------------------------------------------------------- phase 6
+
+def decode_full_width(st) -> dict:
+    """Greedy decode with the full-width llama3.2-1b stage: prefill
+    DECODE_BATCH prompts of PROMPT tokens into SMAX slots, then STEPS
+    decode steps, each step's logits held against the port's forward
+    over the same PROMPT + STEPS tokens. Returns the steps' launches."""
+    model, params, cfg = st.model, st.params, st.cfg
+    per_fwd = launches_per_forward(cfg)
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (DECODE_BATCH, PROMPT))).to("cuda")
+    def prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.prefill(params, {"tokens": prompt}, SMAX)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    with torch.inference_mode():
+        # the first call at these shapes (cold) and the best of 3 after
+        # it, each with the counters zeroed just before and read after
+        cold_s, _ = prefill()
+        warm_s = []
+        want = {**per_fwd, "decode_attention": 0}
+        for _ in range(3):
+            reset_counts()
+            t, (logits, state) = prefill()
+            pre = counts()
+            if pre != want:
+                raise RuntimeError(f"prefill launches {pre} != {want}")
+            warm_s.append(t)
+        outs, toks = [logits], [logits.argmax(-1)]
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(STEPS):
+            logits, state = model.decode_step(params, toks[-1], PROMPT + i,
+                                              state)
+            outs.append(logits)
+            toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        steps = counts()
+        n_attn = per_fwd["flash_attention"]
+        want = {"rmsnorm": per_fwd["rmsnorm"] * STEPS, "flash_attention": 0,
+                "decode_attention": n_attn * STEPS}
+        if steps != want:
+            raise RuntimeError(f"decode launches {steps} != {want}")
+
+        seq = torch.cat([prompt] + toks[:STEPS], dim=1)      # 576 tokens
+        full, _ = model.forward(params, {"tokens": seq})
+        err, agree = 0.0, 0
+        for i, out in enumerate(outs):      # position PROMPT - 1 + i
+            ref_logits = full[:, PROMPT - 1 + i]
+            got = out[:, 0]
+            if not bool(torch.isfinite(got).all()) or \
+                    got.shape != (DECODE_BATCH, cfg.vocab_size):
+                raise RuntimeError(f"decode step {i}: bad logits "
+                                   f"{tuple(got.shape)}")
+            err = max(err, float((got - ref_logits).abs().max()))
+            torch.testing.assert_close(
+                got, ref_logits, atol=5e-4, rtol=1e-3,
+                msg=lambda m: f"decode step {i} vs forward: {m}")
+            agree += int((toks[i][:, 0] == ref_logits.argmax(-1)).sum())
+        del full
+
+        step_ms = decode_s / STEPS * 1e3
+        log(f"  prefill B={DECODE_BATCH} x {PROMPT} tokens into {SMAX} "
+            f"slots: {min(warm_s) * 1e3:.3f} ms (best of 3 warm calls; "
+            f"the first, cold call {cold_s * 1e3:.3f} ms); launches {pre}")
+        log(f"  {STEPS} greedy decode steps: {step_ms:.3f} ms per step, "
+            f"{DECODE_BATCH * STEPS / decode_s:.1f} tokens/s; launches "
+            f"{steps} (expected {want})")
+        log(f"  logits of prefill and every step vs forward over "
+            f"{seq.shape[1]} tokens: max_abs_err={err:.3e} (atol 5e-4, "
+            f"rtol 1e-3); greedy tokens equal to the forward's argmax: "
+            f"{agree} of {DECODE_BATCH * len(outs)}")
+
+        # the step after the last, at valid_len PROMPT + STEPS + 1 (run
+        # twice at that position: the second writes the same slot)
+        tok, pos = toks[-1], PROMPT + STEPS
+        report_trace(
+            f"one decode step at valid_len {pos + 1}",
+            cuda_events(lambda: model.decode_step(params, tok, pos, state)),
+            step_ms, ("decode_",))
+    return steps
 
 
 def main() -> int:
@@ -434,16 +669,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_rmsnorm(gen)
     check_flash(gen)
+    check_decode(gen)
     records = time_kernels(gen)
 
-    log("[3] forward against the CPU path; full-width stages, profile")
+    log("[3] forward and decode against the CPU path; full-width stages, "
+        "profile")
     check_forward_against_cpu()
+    check_decode_against_cpu()
     stages, store = build_and_profile()
 
     log("[4] serve the cascade")
     launches = serve(stages)
     log("[5] trace one batch per stage")
     trace(stages, store)
+    log("[6] full-width llama3.2-1b: prefill and greedy decode")
+    decode_launches = decode_full_width(stages["llama3.2-1b"])
+    # each kernel's launches come from the path that runs it
+    launches["decode_attention"] = decode_launches["decode_attention"]
     for r in records:
         r["launches"] = launches[r["name"]]
     if not all(r["launches"] > 0 for r in records):

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-``rmsnorm`` (fused norm) and ``flash_attention`` (prefill/score
-attention) are CUDA C++ for ``sm_90a`` under ``csrc/``, built by
-``_build`` at first use; ``ref`` holds the plain PyTorch versions and
-``ops`` is the dispatch layer the models call.
+``rmsnorm`` (fused norm), ``flash_attention`` (prefill/score
+attention) and ``decode_attention`` (one token against a KV cache) are
+CUDA C++ for ``sm_90a`` under ``csrc/``, built by ``_build`` at first
+use; ``ref`` holds the plain PyTorch versions and ``ops`` is the
+dispatch layer the models call.
 """

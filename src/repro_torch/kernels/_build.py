@@ -39,6 +39,10 @@ SIGNATURES = {
     #  scale, stream) -> cudaError_t
     "flash_attention_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _F, _P), _I),
+    # (q, k, v, out, ml, acc, dtype, b, smax, h, kv, d, dv, lo, hi,
+    #  splits, chunk, scale, stream) -> cudaError_t
+    "decode_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _F, _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -2,8 +2,8 @@
 
 A CUDA tensor goes to the hand-written kernel, or the call raises; a CPU
 tensor goes to the plain version. There is no switch and no fallback.
-The TPU's block-divisibility gate on attention has no counterpart: the
-CUDA kernel masks ragged edges itself.
+The TPU's block-divisibility gates on attention have no counterpart: the
+CUDA kernels mask ragged edges themselves.
 """
 
 from __future__ import annotations
@@ -14,25 +14,30 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor], compute_dtype: torch.dtype,
-              kind: Optional[str] = None, window: int = 0) -> torch.Tensor:
+              kind: Optional[str] = None, window: int = 0,
+              valid_len=None) -> torch.Tensor:
     """General attention entry point, q: (B,Sq,H,D), k/v: (B,Sk,KV,D[v]).
 
     ``kind`` describes the mask structurally: ``"causal"`` or ``"full"``
-    go to the flash kernel. An explicit irregular ``mask`` (kind None) is
-    served by the plain version on the CPU only.
+    go to the flash kernel; ``"decode"`` (one query token against a
+    cache whose first ``valid_len`` slots count) goes to the decode
+    kernel. An explicit irregular ``mask`` (kind None) is served by the
+    plain version on the CPU only.
     """
-    if kind == "decode":
-        raise NotImplementedError(
-            "decode attention (KV cache) arrives with the decode slice")
     q = q.to(compute_dtype).contiguous()
     k = k.to(compute_dtype).contiguous()
     v = v.to(compute_dtype).contiguous()
+    if kind == "decode":
+        if valid_len is None:
+            raise ValueError("decode attention needs valid_len")
+        return decode_attention(q, k, v, valid_len, window=window)
     if kind in ("causal", "full") and mask is None:
         return flash_attention(q, k, v, causal=(kind == "causal"),
                                window=window)

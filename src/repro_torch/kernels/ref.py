@@ -78,3 +78,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = (causal_mask_ref(sq, sk, window, offset=sk - sq, device=q.device)
             if causal else None)
     return attention_ref(q, k, v, mask, scale)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid_len, window: int = 0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of the decode kernel. q: (B,1,H,D); k,v:
+    (B,Smax,KV,D[v]); valid_len: scalar or (B,), the populated cache
+    slots (the new token is at index valid_len-1)."""
+    smax = k.shape[1]
+    vl = torch.as_tensor(valid_len, device=q.device)
+    if vl.dim() == 0:
+        vl = vl.expand(q.shape[0])
+    kj = torch.arange(smax, device=q.device)[None, :]
+    mask = kj < vl[:, None]
+    if window > 0:
+        mask &= (vl[:, None] - 1 - kj) < window
+    return attention_ref(q, k, v, mask[:, None, None, :], scale)

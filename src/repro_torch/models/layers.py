@@ -2,9 +2,10 @@
 ``<layer>(params, cfg, x, ...)`` pairs over plain parameter dicts.
 
 The parts of the reference's ``repro/models/layers.py`` that the served
-cascade runs: RMSNorm, RoPE, cache-free GQA self-attention (with
-``qkv_bias`` and the structural sliding window), the SwiGLU / GELU MLP,
-and the xLSTM mLSTM (chunkwise) and sLSTM (sequential) cells. Parameter
+cascade and the dense decode path run: RMSNorm, RoPE, GQA self-attention
+(with ``qkv_bias``, the structural sliding window and the KV cache of
+prefill and decode), the SwiGLU / GELU MLP, and the xLSTM mLSTM
+(chunkwise) and sLSTM (sequential) cells. Parameter
 names, shapes and layouts are the reference's, so a JAX parameter tree
 converts one to one (:mod:`repro_torch.convert`). Norms and attention go
 through :mod:`repro_torch.kernels.ops`; the cells are plain torch (the
@@ -14,7 +15,7 @@ reference has no Pallas kernel for them either).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -70,7 +71,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# GQA self-attention (no KV cache: the decode slice adds it)
+# GQA self-attention
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig,
@@ -92,10 +93,32 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig,
 
 
 def attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
-              positions: torch.Tensor, kind: str = "causal") -> torch.Tensor:
-    """Self-attention over x (B,S,d). ``kind`` describes the mask
-    structurally ("causal" | "full") so no S^2 mask is materialized; the
-    config's sliding window applies to the causal kind."""
+              positions: torch.Tensor, kind: str = "causal",
+              cache: Optional[Params] = None,
+              cache_pos: Optional[int] = None
+              ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Self-attention over x (B,S,d). Returns (output, cache or None).
+
+    ``kind`` describes the mask structurally ("causal" | "full") so no
+    S^2 mask is materialized; the config's sliding window applies to the
+    causal kind. With ``cache`` (dict k, v of (B,Smax,KV,hd)):
+
+    * ``cache_pos`` None (prefill): the fresh k/v are written at slot 0,
+      or, for a sliding-window cache shorter than the prompt, the last
+      Smax of them into ring slots ``arange(s - Smax, s) % Smax``;
+      attention runs over the fresh k/v.
+    * ``cache_pos`` an int (decode one token at that position): the new
+      k/v go to slot ``cache_pos % Smax`` of a sliding-window ring, else
+      to ``cache_pos`` clamped to ``Smax - 1`` (the reference's
+      ``dynamic_update_slice`` clamps so); the token attends over the
+      first ``min(cache_pos + 1, Smax)`` slots with no structural
+      window, since the ring already holds only the window.
+
+    The cache is written in place: ``cache``'s tensors are views into the
+    segment's stacked ``(repeat, B, Smax, KV, hd)`` tensors, so no step
+    copies the cache (the reference's functional update returns a new
+    one). The returned cache is ``cache`` itself.
+    """
     cd = cfg.cdtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
@@ -106,9 +129,36 @@ def attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
         v = v + params["bv"].to(cd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = ops.attention(q, k, v, None, cd, kind=kind,
-                        window=cfg.sliding_window)          # (B,S,H,hd)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(cd))
+
+    window, valid_len = cfg.sliding_window, None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        smax = ck.shape[1]
+        if cache_pos is not None:
+            slot = cache_pos % smax if cfg.sliding_window > 0 \
+                else min(cache_pos, smax - 1)
+            ck[:, slot] = k[:, 0].to(ck.dtype)
+            cv[:, slot] = v[:, 0].to(cv.dtype)
+            k, v = ck.to(cd), cv.to(cd)
+            valid_len = min(cache_pos + 1, smax)
+            kind, window = "decode", 0
+        else:
+            s = k.shape[1]
+            if smax >= s:
+                ck[:, :s] = k.to(ck.dtype)
+                cv[:, :s] = v.to(cv.dtype)
+            else:
+                if cfg.sliding_window <= 0:
+                    raise ValueError(
+                        f"full-attention cache too small: smax={smax} < "
+                        f"prompt length {s} (did you forget the modality "
+                        f"prefix when sizing the cache?)")
+                slots = torch.arange(s - smax, s, device=ck.device) % smax
+                ck[:, slots] = k[:, -smax:].to(ck.dtype)
+                cv[:, slots] = v[:, -smax:].to(cv.dtype)
+    out = ops.attention(q, k, v, None, cd, kind=kind, window=window,
+                        valid_len=valid_len)                # (B,S,H,hd)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(cd)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,23 @@
-"""Model assembly for the served families: init and the scoring forward,
-driven by ``ArchConfig``.
+"""Model assembly for the served families: init, the scoring forward and
+the decode path, driven by ``ArchConfig``.
 
 The counterpart of the reference's ``repro/models/model.py`` for the
 dense-attention and xLSTM families. Parameters keep the reference's tree:
 ``segments`` is a tuple over segments of a tuple over the pattern's
 blocks, each a dict whose tensors carry a leading ``repeat`` axis; the
 forward walks that axis with a Python loop where the reference scans.
+The cache (:mod:`repro_torch.models.kvcache`) has the same structure and
+is updated in place.
 
 Entry points:
   build_model(cfg, device)                    -> Model
   Model.init(generator)                       -> params
   Model.forward(params, batch)                -> (logits (B,S,V) f32, aux)
+  Model.prefill(params, batch, smax)          -> (last logits (B,1,V), cache)
+  Model.decode_step(params, token, pos, cache) -> (logits (B,1,V), cache)
+
+Only the dense-attention family decodes so far; an xLSTM stack's
+recurrent-state decode arrives with its own slice.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig, Block, Segment
+from repro_torch.models.kvcache import init_cache
 
 Params = Dict[str, Any]
 
@@ -70,11 +78,14 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, block: Block,
 
 
 def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
-                 positions: torch.Tensor,
-                 mask_kind: Optional[str]) -> torch.Tensor:
+                 positions: torch.Tensor, mask_kind: Optional[str],
+                 cache: Optional[Params] = None,
+                 cache_pos: Optional[int] = None) -> torch.Tensor:
+    """One block; an attention block with ``cache`` writes it in place."""
     h = L.rmsnorm(p["norm1"], cfg, x)
     if block.kind == "attn":
-        out = L.attention(p["core"], cfg, h, positions, kind=mask_kind)
+        out, _ = L.attention(p["core"], cfg, h, positions, kind=mask_kind,
+                             cache=cache, cache_pos=cache_pos)
     elif block.kind == "mlstm":
         out = L.mlstm_block(p["core"], cfg, h)
     else:
@@ -104,13 +115,26 @@ def _stack(layers):
 
 def _run_segment(params_stack, cfg: ArchConfig, seg: Segment,
                  x: torch.Tensor, positions: torch.Tensor,
-                 mask_kind: Optional[str]) -> torch.Tensor:
-    """Python loop over the repeat axis (the reference scans it)."""
+                 mask_kind: Optional[str], cache_stack=None,
+                 cache_pos: Optional[int] = None) -> torch.Tensor:
+    """Python loop over the repeat axis (the reference scans it). Layer r
+    of block bi gets the views ``cache_stack[bi][...][r]``."""
     for r in range(seg.repeat):
         for bi, block in enumerate(seg.blocks):
+            cache = None if cache_stack is None \
+                else _index(cache_stack[bi], r)
             x = _apply_block(_index(params_stack[bi], r), cfg, block, x,
-                             positions, mask_kind)
+                             positions, mask_kind, cache, cache_pos)
     return x
+
+
+def _check_decodes(cfg: ArchConfig) -> None:
+    for seg in cfg.segments:
+        for blk in seg.blocks:
+            if blk.kind != "attn":
+                raise NotImplementedError(
+                    f"{cfg.name}: decoding {blk.kind} blocks (recurrent "
+                    f"state) arrives with the xLSTM decode slice")
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +192,38 @@ class Model:
             x = _run_segment(ps, cfg, seg, x, positions, "causal")
         logits = self._head(params, x)
         return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                smax: int) -> Tuple[torch.Tensor, Any]:
+        """Process the prompt ``batch["tokens"]`` (B,S) into a fresh cache
+        of ``smax`` slots. Returns (last-position logits (B,1,V) f32,
+        (cache, None))."""
+        cfg = self.cfg
+        _check_decodes(cfg)
+        x = self._embed_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        cache, cross = init_cache(cfg, x.shape[0], smax, device=x.device)
+        for seg, ps, cs in zip(cfg.segments, params["segments"], cache):
+            x = _run_segment(ps, cfg, seg, x, positions, "causal",
+                             cache_stack=cs)
+        # the kernels take contiguous rows: the last position's is a copy
+        return self._head(params, x[:, -1:].contiguous()), (cache, cross)
+
+    def decode_step(self, params: Params, token: torch.Tensor, pos: int,
+                    cache_state) -> Tuple[torch.Tensor, Any]:
+        """One decode step. token: (B,1) int; pos: the token's position
+        (0-based) as a host int. Returns (logits (B,1,V) f32, cache
+        state); the cache is updated in place and returned."""
+        cfg = self.cfg
+        _check_decodes(cfg)
+        pos = int(pos)
+        cache, cross = cache_state
+        x = self._embed_inputs(params, {"tokens": token})
+        positions = torch.full((1, 1), pos, device=x.device)
+        for seg, ps, cs in zip(cfg.segments, params["segments"], cache):
+            x = _run_segment(ps, cfg, seg, x, positions, "decode",
+                             cache_stack=cs, cache_pos=pos)
+        return self._head(params, x), (cache, cross)
 
 
 def build_model(cfg: ArchConfig,

@@ -11,9 +11,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -83,3 +86,95 @@ def test_kernels_reject_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         fa_mod.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                                q.transpose(1, 2))
+
+
+@pytest.mark.parametrize("b,smax,h,kv,d,dv,vl,window", [
+    (1, 512, 4, 4, 64, 64, 1, 0),
+    (2, 1024, 8, 2, 64, 64, 511, 0),
+    (4, 512, 4, 1, 128, 128, 512, 0),
+    (2, 512, 4, 2, 64, 64, 400, 128),
+    (8, 1024, 32, 8, 64, 64, 1024, 0),     # llama3.2-1b served shape
+    (8, 1024, 32, 8, 64, 64, 513, 0),
+    (2, 600, 8, 2, 64, 64, 577, 0),        # Smax of no block multiple
+    (1, 300, 16, 1, 32, 64, 300, 64),      # G = 16, D != Dv
+    (3, 64, 4, 2, 64, 64, 0, 0),           # no valid key: 0
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(gen, b, smax, h, kv, d, dv, vl, window,
+                                     dtype):
+    q = _rand(gen, (b, 1, h, d), dtype)
+    k = _rand(gen, (b, smax, kv, d), dtype)
+    v = _rand(gen, (b, smax, kv, dv), dtype)
+    before = da_mod.counter.count
+    got = da_mod.decode_attention(q, k, v, vl, window=window)
+    torch.cuda.synchronize()
+    assert da_mod.counter.count == before + 1
+    assert got.dtype == dtype and got.shape == (b, 1, h, dv)
+    exp = ref.decode_attention_ref(q, k, v, vl, window=window)
+    torch.testing.assert_close(got.float(), exp.float(), **TOL[dtype])
+
+
+def test_decode_kernel_reads_no_slot_past_valid_len(gen):
+    q = _rand(gen, (2, 1, 8, 64), torch.float32)
+    k = _rand(gen, (2, 256, 2, 64), torch.float32)
+    v = _rand(gen, (2, 256, 2, 64), torch.float32)
+    exp = da_mod.decode_attention(q, k, v, 100)
+    k[:, 100:], v[:, 100:] = float("nan"), float("nan")
+    torch.testing.assert_close(da_mod.decode_attention(q, k, v, 100), exp,
+                               rtol=0, atol=0)
+
+
+def test_decode_kernel_rejects_what_it_does_not_take(gen):
+    q = _rand(gen, (1, 1, 4, 64), torch.float32)
+    k = _rand(gen, (1, 128, 2, 64), torch.float32)
+    with pytest.raises(TypeError, match="host int"):
+        da_mod.decode_attention(q, k, k, torch.tensor(5, device="cuda"))
+    with pytest.raises(ValueError, match="valid_len"):
+        da_mod.decode_attention(q, k, k, 129)
+    with pytest.raises(ValueError, match="contiguous"):
+        da_mod.decode_attention(q, k[:, ::2], k[:, ::2], 5)
+    with pytest.raises(TypeError):
+        da_mod.decode_attention(q, k.bfloat16(), k.bfloat16(), 5)
+    q17 = _rand(gen, (1, 1, 17, 64), torch.float32)
+    with pytest.raises(ValueError, match="q heads per kv head"):
+        da_mod.decode_attention(q17, k[:, :, :1].contiguous(),
+                                k[:, :, :1].contiguous(), 5)
+    q12 = _rand(gen, (1, 1, 4, 12), torch.float32)
+    k12 = _rand(gen, (1, 128, 2, 12), torch.float32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        da_mod.decode_attention(q12, k12, k12, 5)
+
+
+@pytest.mark.parametrize("arch,prompt,steps,smax", [
+    ("llama3.2-1b", 9, 3, 16),
+    ("llama3.2-1b-sw", 96, 40, 160),       # ring tail, then the ring wraps
+])
+def test_decode_path_on_the_card_matches_the_cpu(gen, arch, prompt, steps,
+                                                 smax):
+    cfg = get_smoke(arch)
+    cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card_params = _to(params, "cuda")
+    tok = torch.randint(0, cfg.vocab_size, (2, prompt),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        exp, state = cpu.prefill(params, {"tokens": tok}, smax)
+        got, card_state = card.prefill(card_params,
+                                       {"tokens": tok.cuda()}, smax)
+        before = da_mod.counter.count
+        for i in range(steps):
+            torch.testing.assert_close(got.cpu(), exp, atol=1e-4, rtol=1e-4)
+            nxt = exp.argmax(-1)
+            exp, state = cpu.decode_step(params, nxt, prompt + i, state)
+            got, card_state = card.decode_step(card_params, nxt.cuda(),
+                                               prompt + i, card_state)
+        torch.testing.assert_close(got.cpu(), exp, atol=1e-4, rtol=1e-4)
+    assert da_mod.counter.count - before == steps * cfg.num_layers
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device)

@@ -18,9 +18,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
@@ -136,29 +139,38 @@ def test_explicit_mask_matches_reference(mask_shape):
 def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     x = torch.randn(4, 64, generator=torch.Generator().manual_seed(0))
     q = torch.randn(1, 8, 2, 16, generator=torch.Generator().manual_seed(1))
-    before = (rms_mod.counter.count, fa_mod.counter.count)
+    before = (rms_mod.counter.count, fa_mod.counter.count,
+              da_mod.counter.count)
     torch.testing.assert_close(ops.rmsnorm(x, torch.ones(64)),
                                ref.rmsnorm_ref(x, torch.ones(64)),
                                rtol=0, atol=0)
     torch.testing.assert_close(
         ops.attention(q, q, q, None, torch.float32, kind="causal"),
         ref.flash_attention_ref(q, q, q), rtol=0, atol=0)
-    assert (rms_mod.counter.count, fa_mod.counter.count) == before
+    torch.testing.assert_close(
+        ops.attention(q[:, :1], q, q, None, torch.float32, kind="decode",
+                      valid_len=5),
+        ref.decode_attention_ref(q[:, :1], q, q, 5), rtol=0, atol=0)
+    assert (rms_mod.counter.count, fa_mod.counter.count,
+            da_mod.counter.count) == before
 
 
 @pytest.mark.parametrize("call", [
     lambda t: rms_mod.rmsnorm(t, t[0]),
     lambda t: fa_mod.flash_attention(t[None, :, None], t[None, :, None],
                                      t[None, :, None]),
-], ids=["rmsnorm", "flash_attention"])
+    lambda t: da_mod.decode_attention(t[None, :1, None], t[None, :, None],
+                                      t[None, :, None], 8),
+], ids=["rmsnorm", "flash_attention", "decode_attention"])
 def test_other_devices_raise_instead_of_falling_back(call):
     with pytest.raises(ValueError, match="unsupported device"):
         call(torch.empty((8, 8), device="meta"))
 
 
 @pytest.mark.parametrize("call,what", [
-    (lambda: ops.attention(*(torch.zeros(1, 1, 2, 8),) * 3, None,
-                           torch.float32, kind="decode"), "decode slice"),
+    (lambda: build_model(get_smoke("xlstm-125m"), "cpu").decode_step(
+        None, torch.zeros((1, 1), dtype=torch.long), 0, (None, None)),
+     "xLSTM decode slice"),
     (lambda: ops.mamba_chunk(*(None,) * 6), "SSM/hybrid slice"),
 ], ids=["decode", "mamba"])
 def test_later_slices_raise_not_implemented(call, what):
@@ -177,11 +189,13 @@ def test_every_cuda_source_is_built_and_every_export_declared():
     """One nvcc call builds every csrc/*.cu; each C entry point the
     wrappers call has a ctypes signature (pointers as c_void_p)."""
     names = {p.name for p in _build.sources()}
-    assert {"rmsnorm.cu", "flash_attention.cu"} <= names
+    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu"} \
+        <= names
     text = "".join(p.read_text() for p in _build.sources())
     for fn, (argtypes, _) in _build.SIGNATURES.items():
         assert f'extern "C"' in text and f" {fn}(" in text, fn
-    for fn in ("rmsnorm_f32", "rmsnorm_bf16", "flash_attention_fwd"):
+    for fn in ("rmsnorm_f32", "rmsnorm_bf16", "flash_attention_fwd",
+               "decode_attention_fwd"):
         argtypes = _build.SIGNATURES[fn][0]
         assert argtypes[0] is _build.ctypes.c_void_p
         assert argtypes[-1] is _build.ctypes.c_void_p        # the stream

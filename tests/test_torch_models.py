@@ -26,6 +26,7 @@ from repro_torch.configs import get_arch, get_smoke  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.device import resolve_device, torch_dtype  # noqa: E402
 from repro_torch.models import Block, Segment, build_model  # noqa: E402
+from repro_torch.models.kvcache import init_cache  # noqa: E402
 
 ARCHS = ["llama3.2-1b", "llama3.2-1b-sw", "xlstm-125m"]
 
@@ -131,3 +132,5 @@ def test_cuda_without_a_gpu_raises(device):
         resolve_device(device)
     with pytest.raises(RuntimeError, match="no GPU"):
         build_model(get_smoke("llama3.2-1b"), device)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        init_cache(get_smoke("llama3.2-1b"), 1, 8, device=device)
