@@ -26,7 +26,12 @@ Phases, in order; any failure exits non-zero:
    tokens into a 1024-slot cache and take 64 greedy decode steps, with
    the counters zeroed before and read after the prefill and the steps;
    hold every step's logits against the port's forward over the same
-   576 tokens, and time and trace a step.
+   576 tokens, and time and trace a step;
+7. the same with the expert-free one-period Jamba-1.5-Large hybrid at
+   its published widths (7 Mamba layers and 1 attention layer, d_model
+   8192, every FFN dense of width 24576): prefill 8 x 512 tokens, 32
+   greedy steps against the forward over 544 tokens, the stage latency
+   at 32 tokens for batch sizes 1-8, a traced step and the peak memory.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -34,6 +39,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -62,10 +68,11 @@ from repro_torch.core.profiler import (  # noqa: E402
     ProfileStore,
     profile_model_measured,
 )
-from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.configs import get_arch, get_smoke, without_experts  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import SEQ, PipelineExecutor, make_stage  # noqa: E402
@@ -80,19 +87,42 @@ SERVE_QPS, SERVE_S, SLO_S = 20.0, 10.0, 0.25
 PROFILE_BATCHES = (1, 2, 4, 8, 16)
 STAGES = ("xlstm-125m", "llama3.2-1b")
 DECODE_BATCH, PROMPT, SMAX, STEPS = 8, 512, 1024, 64
+HYBRID = "jamba-1.5-large-398b"
+HYBRID_STEPS = 32
+HYBRID_BATCHES = (1, 2, 4, 8)
 COUNTERS = {"rmsnorm": rms_mod.counter, "flash_attention": fa_mod.counter,
-            "decode_attention": da_mod.counter}
+            "decode_attention": da_mod.counter,
+            "mamba_scan": ms_mod.counter}
+# the port's kernels, by the function names a profiler trace shows
+PORT_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "flash_fwd_kernel",
+                "decode_", "mamba_scan_kernel")
 
 
-def launches_per_forward(cfg) -> dict:
-    """A norm before every block's core and before its MLP, plus the
-    final norm (33 for llama3.2-1b, 13 for xlstm-125m); one flash
-    attention per attention block."""
+def launches_per_forward(cfg, seq: int) -> dict:
+    """Launches of one forward or prefill over ``seq`` tokens: a norm
+    before every block's core and before its MLP, plus the final norm
+    (33 for llama3.2-1b, 13 for xlstm-125m, 17 for the one-period
+    hybrid); one flash attention per attention block; one scan per
+    Mamba block and chunk of ``min(ssm_chunk, seq)`` tokens (one chunk
+    when ``seq`` is not a multiple)."""
     blocks = [b for seg in cfg.segments for b in seg.blocks
               for _ in range(seg.repeat)]
+    chunk = min(cfg.ssm_chunk, seq)
+    chunks = seq // chunk if seq % chunk == 0 else 1
     return {"rmsnorm": len(blocks) + sum(b.ffn == "dense" for b in blocks)
             + 1,
-            "flash_attention": sum(b.kind == "attn" for b in blocks)}
+            "flash_attention": sum(b.kind == "attn" for b in blocks),
+            "decode_attention": 0,
+            "mamba_scan": chunks * sum(b.kind == "mamba" for b in blocks)}
+
+
+def launches_per_step(cfg) -> dict:
+    """Launches of one decode step: decode attention where the forward
+    runs flash, one scan per Mamba block."""
+    per = launches_per_forward(cfg, 1)
+    per["decode_attention"], per["flash_attention"] = \
+        per["flash_attention"], 0
+    return per
 
 
 def log(msg: str) -> None:
@@ -148,7 +178,7 @@ def assert_close(got: torch.Tensor, exp: torch.Tensor, dtype,
 
 def check_rmsnorm(gen: torch.Generator) -> None:
     for dtype in (torch.float32, torch.bfloat16):
-        for d in (768, 2048):
+        for d in (768, 2048, 8192):
             for rows in (32, 512, 7):
                 x = rand(gen, (rows, d), dtype)
                 g = rand(gen, (d,), dtype)
@@ -171,6 +201,9 @@ FLASH_CASES = (
     ("ragged 40x40", 2, 40, 40, 4, 2, 64, 64, True, 0),
     ("full Sk=96", 1, 32, 96, 4, 4, 64, 64, False, 0),
     ("MQA 200", 1, 200, 200, 8, 1, 64, 64, True, 0),
+    # the hybrid's attention layer: 64 q heads over 8, D = Dv = 128
+    ("hybrid B=2", 2, 512, 512, 64, 8, 128, 128, True, 0),
+    ("hybrid 544", 1, 544, 544, 64, 8, 128, 128, True, 0),
 )
 
 
@@ -200,6 +233,7 @@ DECODE_CASES = (
     (4, 512, 4, 1, 128, (400,), 128),
     (8, 1024, 32, 8, 64, (1, 513, 1024), 0),   # llama3.2-1b served shape
     (2, 600, 32, 8, 64, (1, 577, 600), 0),     # Smax of no block multiple
+    (8, 1024, 64, 8, 128, (1, 513, 544), 0),   # the hybrid's decode shape
 )
 
 
@@ -220,30 +254,90 @@ def check_decode(gen: torch.Generator) -> None:
                     f"max_abs_err={err:.3e}  ok")
 
 
+MAMBA_CASES = (
+    # (b, L, D, N): the reference's sweep (tests/test_kernels.py), then
+    # the hybrid's prefill chunk and decode step
+    (2, 512, 256, 16), (1, 256, 128, 32), (3, 384, 192, 16),
+    (2, 128, 256, 8), (8, 256, 16384, 16), (8, 1, 16384, 16),
+)
+STATE_TOL = dict(atol=5e-5, rtol=5e-5)
+
+
+def scan_inputs(gen: torch.Generator, b: int, length: int, d: int, n: int,
+                dtype) -> list:
+    """dt, x, b, c in ``dtype``, a and h0 in f32, drawn as the
+    reference's kernel sweep draws them."""
+    return [F.softplus(rand(gen, (b, length, d), torch.float32) * 0.3
+                       ).to(dtype),
+            rand(gen, (b, length, d), dtype),
+            (rand(gen, (b, length, n), torch.float32) * 0.5).to(dtype),
+            (rand(gen, (b, length, n), torch.float32) * 0.5).to(dtype),
+            -torch.exp(rand(gen, (d, n), torch.float32) * 0.3),
+            rand(gen, (b, d, n), torch.float32) * 0.1]
+
+
+def check_mamba(gen: torch.Generator) -> None:
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, length, d, n in MAMBA_CASES:
+            args = scan_inputs(gen, b, length, d, n, dtype)
+            y, h = ms_mod.mamba_scan(*args)
+            torch.cuda.synchronize()
+            ye, he = ref.mamba_scan_ref(*args)
+            name = f"B={b} L={length} D={d} N={n}"
+            err = assert_close(y, ye, dtype, f"mamba_scan y {name} {dtype}")
+            torch.testing.assert_close(
+                h, he, **STATE_TOL,
+                msg=lambda m: f"mamba_scan h {name} {dtype}: {m}")
+            log(f"  mamba    {name:28s} {str(dtype):14s} "
+                f"max_abs_err={err:.3e} h {float((h - he).abs().max()):.3e}"
+                f"  ok")
+    # the state carried across calls: two halves == one call
+    dt, x, bm, cm, a, h0 = scan_inputs(gen, 8, 512, 16384, 16,
+                                       torch.float32)
+    y, h = ms_mod.mamba_scan(dt, x, bm, cm, a, h0)
+    y1, h1 = ms_mod.mamba_scan(*(t[:, :256].contiguous()
+                                 for t in (dt, x, bm, cm)), a, h0)
+    y2, h2 = ms_mod.mamba_scan(*(t[:, 256:].contiguous()
+                                 for t in (dt, x, bm, cm)), a, h1)
+    torch.cuda.synchronize()
+    err = assert_close(torch.cat([y1, y2], dim=1), y, torch.float32,
+                       "mamba_scan two halves vs one call")
+    torch.testing.assert_close(h2, h, **STATE_TOL)
+    log(f"  mamba    two chained halves of L=512 vs one call: "
+        f"max_abs_err={err:.3e}  ok")
+
+
 def kernel_record(name, source, replaces, kernel_fn, plain_fn, library_fn,
-                  nbytes, nops, dtype) -> dict:
+                  nbytes, nops, dtype, plain_iters: int = 200) -> dict:
+    """Time a kernel, its plain version and, where one PyTorch call
+    computes the same function (``library_fn``, else None), that call."""
     got, exp = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = assert_close(got, exp, dtype, f"{name} timed shape")
-    lib_err = float((library_fn().float() - exp.float()).abs().max())
-    log(f"  {name}: library call differs from the plain version by "
-        f"{lib_err:.3e} (a yardstick of time only; not asserted)")
+    if library_fn is not None:
+        lib_err = float((library_fn().float() - exp.float()).abs().max())
+        log(f"  {name}: library call differs from the plain version by "
+            f"{lib_err:.3e} (a yardstick of time only; not asserted)")
     bytes_ms = nbytes / H100_HBM_BW * 1e3
     ops_ms = nops / PEAK[dtype] * 1e3
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": 0, "max_abs_err": err,
-        "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+        "ms": time_ms(kernel_fn),
+        "plain_ms": time_ms(plain_fn, iters=plain_iters,
+                            warmup=min(20, plain_iters)),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": time_ms(library_fn),
+        "library_ms": None if library_fn is None else time_ms(library_fn),
     }
 
 
 def time_kernels(gen: torch.Generator) -> list:
     """Kernel records at the served shapes: batch SERVE_BATCH of SEQ
     tokens through llama3.2-1b (rows = 256, D = 2048; flash B = 8,
-    32 q heads over 8 kv heads, head_dim 64), f32."""
+    32 q heads over 8 kv heads, head_dim 64), decode at DECODE_BATCH
+    against SMAX slots, and the scan at the hybrid's prefill chunk
+    (B 8, L 256, D 16384, N 16), f32."""
     dtype = torch.float32
     rows, d = SERVE_BATCH * SEQ, 2048
     x, g = rand(gen, (rows, d), dtype), rand(gen, (d,), dtype)
@@ -259,6 +353,30 @@ def time_kernels(gen: torch.Generator) -> list:
         f"{time_ms(lambda: rms_mod.rmsnorm(xs, gs)):.4f} ms, plain "
         f"{time_ms(lambda: ref.rmsnorm_ref(xs, gs)):.4f} ms, F.rms_norm "
         f"{time_ms(lambda: F.rms_norm(xs, (768,), gs, 1e-6)):.4f} ms")
+
+    # the hybrid's shapes: norms over d_model 8192 (a CTA per row) and
+    # its prefill attention, B 8 x 512 tokens, 64 q heads over 8, D 128
+    xh, gh = rand(gen, (DECODE_BATCH * PROMPT, 8192), dtype), \
+        rand(gen, (8192,), dtype)
+    ms = [time_ms(fn) for fn in (
+        lambda: rms_mod.rmsnorm(xh, gh), lambda: ref.rmsnorm_ref(xh, gh),
+        lambda: F.rms_norm(xh, (8192,), gh, 1e-6))]
+    log(f"  rmsnorm at the hybrid's rows={xh.shape[0]} D=8192: kernel "
+        f"{ms[0]:.4f} ms, plain {ms[1]:.4f} ms, F.rms_norm {ms[2]:.4f} ms, "
+        f"bound {2 * xh.numel() * esz / H100_HBM_BW * 1e3:.6f} ms")
+    q = rand(gen, (DECODE_BATCH, PROMPT, 64, 128), dtype)
+    k = rand(gen, (DECODE_BATCH, PROMPT, 8, 128), dtype)
+    v = rand(gen, (DECODE_BATCH, PROMPT, 8, 128), dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = [time_ms(fn, iters=20) for fn in (
+        lambda: fa_mod.flash_attention(q, k, v),
+        lambda: ref.flash_attention_ref(q, k, v),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True))]
+    log(f"  flash at the hybrid's B={DECODE_BATCH} S={PROMPT} 64/8 heads "
+        f"D=128: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
+        f"F.scaled_dot_product_attention {ms[2]:.4f} ms")
+    del xh, gh, q, k, v, qt, kt, vt
 
     b, s, h, kv, hd = SERVE_BATCH, SEQ, 32, 8, 64
     q = rand(gen, (b, s, h, hd), dtype)
@@ -294,12 +412,38 @@ def time_kernels(gen: torch.Generator) -> list:
             qt, kt, vt, attn_mask=slots, enable_gqa=True).transpose(1, 2),
         nbytes=(q.numel() + 2 * b * vl * kv * hd + q.numel()) * esz,
         nops=b * h * vl * 2 * (hd + hd), dtype=dtype))
-    dev_us = device_us(lambda: da_mod.decode_attention(q, k, v, vl))
-    log(f"  decode_attention at valid_len {vl}: device time per call "
-        + ", ".join(f"{us:.2f} us {name}" for name, us in dev_us.items()))
+    report_trace(f"decode_attention at valid_len {vl}",
+                 cuda_events(lambda: da_mod.decode_attention(q, k, v, vl),
+                             calls=20), records[-1]["ms"], calls=20)
+
+    # the scan at the hybrid's prefill chunk; no single PyTorch call
+    # computes a selective scan, so it has no library time
+    b, length, d, n = 8, 256, 16384, 16
+    args = scan_inputs(gen, b, length, d, n, dtype)
+    records.append(kernel_record(
+        "mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "src/repro/kernels/mamba_scan.py:72",
+        lambda: ms_mod.mamba_scan(*args)[0],
+        lambda: ref.mamba_scan_ref(*args)[0], None,
+        nbytes=(3 * b * length * d + 2 * b * length * n) * esz
+        + (d * n + 2 * b * d * n) * 4,
+        nops=7 * b * length * d * n, dtype=dtype, plain_iters=5))
+    report_trace(f"mamba_scan at B={b} L={length} D={d} N={n}",
+                 cuda_events(lambda: ms_mod.mamba_scan(*args), calls=20),
+                 records[-1]["ms"], calls=20)
+    dec = scan_inputs(gen, b, 1, d, n, dtype)
+    dec_ms = time_ms(lambda: ms_mod.mamba_scan(*dec))
+    dec_bound = ((3 * b * d + 2 * b * n) * esz + (d * n + 2 * b * d * n) * 4
+                 ) / H100_HBM_BW * 1e3
+    log(f"  mamba_scan at the decode shape B={b} L=1: kernel "
+        f"{dec_ms:.4f} ms, bound {dec_bound:.6f} ms (bytes)")
+    report_trace("mamba_scan at L=1",
+                 cuda_events(lambda: ms_mod.mamba_scan(*dec), calls=20),
+                 dec_ms, calls=20)
     for r in records:
+        lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"  {r['name']:16s} kernel {r['ms']:.4f} ms  plain "
-            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms  "
+            f"{r['plain_ms']:.4f} ms  library {lib}  "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     return records
 
@@ -319,35 +463,29 @@ def cuda_events(fn, calls: int = 1) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def device_us(fn, calls: int = 20) -> dict:
-    """Device time per call of each CUDA kernel ``fn`` launches (the
-    CUDA-event time of back-to-back calls includes the host's dispatch
-    where that is slower)."""
-    return {kernel_name(e.key): e.self_device_time_total / calls
-            for e in cuda_events(fn, calls)}
-
-
 def report_trace(label: str, kernels: list, wall_ms: float,
-                 per_launch: tuple) -> None:
-    """Log the device's busy share of ``wall_ms`` (the same work timed
-    without the profiler), the six kernels with the most device time,
-    and the device time per launch of the kernels whose names start
-    with one of ``per_launch``."""
+                 calls: int = 1) -> None:
+    """Log what a trace of ``calls`` calls (``kernels``, from
+    :func:`cuda_events`) shows against ``wall_ms``, one call's time taken
+    without the profiler: the device's busy share of it, the six kernels
+    with the most device time per call, and the device time per launch
+    of the port's own kernels."""
     if not kernels:
         log(f"  {label}: device time not measured (the profiler "
             f"recorded no CUDA kernel)")
         return
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"  {label}: {sum(e.count for e in kernels)} kernel launches, "
-        f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
-        f"({busy_ms / wall_ms:.1%}; idle {1 - busy_ms / wall_ms:.1%})")
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
+    log(f"  {label}: {sum(e.count for e in kernels) // calls} kernel "
+        f"launches per call, device busy {busy_ms:.3f} ms of "
+        f"{wall_ms:.3f} ms ({busy_ms / wall_ms:.1%}; idle "
+        f"{1 - busy_ms / wall_ms:.1%})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  "
-            f"x{e.count:<5d} {e.key[:90]}")
+        log(f"    {e.self_device_time_total / 1e3 / calls:8.3f} ms  "
+            f"x{e.count // calls:<5d} {e.key[:90]}")
     per_name: dict = {}
     for e in kernels:
         name = kernel_name(e.key)
-        if name.startswith(per_launch):
+        if name.startswith(PORT_KERNELS):
             us, n = per_name.get(name, (0.0, 0))
             per_name[name] = (us + e.self_device_time_total, n + e.count)
     for name, (us, n) in per_name.items():
@@ -364,12 +502,20 @@ def kernel_name(key: str) -> str:
 
 # ---------------------------------------------------------------- phase 3
 
+def smoke_cfg(arch: str):
+    """The smoke config; the hybrid's in its expert-free one-period form
+    (its MoE is not ported)."""
+    return without_experts(get_smoke(arch)) if arch == HYBRID \
+        else get_smoke(arch)
+
+
 def check_forward_against_cpu() -> None:
     """The port's forward through the kernels on the card agrees with its
-    plain path on the CPU, same parameters, smoke configs."""
+    plain path on the CPU, same parameters, smoke configs (the hybrid
+    over two scan chunks of 64)."""
     for arch, s in (("llama3.2-1b", 32), ("llama3.2-1b-sw", 96),
-                    ("xlstm-125m", 32)):
-        cfg = get_smoke(arch)
+                    ("xlstm-125m", 32), (HYBRID, 128)):
+        cfg = smoke_cfg(arch)
         cpu_model = build_model(cfg, "cpu")
         params = cpu_model.init(torch.Generator().manual_seed(0))
         gpu_model = build_model(cfg, "cuda")
@@ -392,10 +538,11 @@ def check_decode_against_cpu() -> None:
     """The port's prefill + greedy decode through the kernels on the card
     agrees with its plain path on the CPU, same parameters and tokens,
     smoke configs: llama3.2-1b, and llama3.2-1b-sw with a prompt longer
-    than its 64-slot window and steps that wrap the ring."""
+    than its 64-slot window and steps that wrap the ring, and the hybrid
+    with a prompt of two scan chunks and 8 steps past it."""
     for arch, prompt, steps in (("llama3.2-1b", 9, 3),
-                                ("llama3.2-1b-sw", 96, 40)):
-        cfg = get_smoke(arch)
+                                ("llama3.2-1b-sw", 96, 40), (HYBRID, 128, 8)):
+        cfg = smoke_cfg(arch)
         cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg,
                                                                     "cuda")
         params = cpu_model.init(torch.Generator().manual_seed(0))
@@ -520,10 +667,9 @@ def serve(stages) -> dict:
                                f"of shifted windows: {out}")
     n_batches = {a: int(sizes[f"s{i}_{a}"].size)
                  for i, a in enumerate(STAGES)}
-    per_fwd = {a: launches_per_forward(stages[a].cfg) for a in STAGES}
+    per_fwd = {a: launches_per_forward(stages[a].cfg, SEQ) for a in STAGES}
     expect = {name: sum(per_fwd[a][name] * n_batches[a] for a in STAGES)
-              for name in ("rmsnorm", "flash_attention")}
-    expect["decode_attention"] = 0
+              for name in COUNTERS}
     if launches != expect:
         raise RuntimeError(f"kernel launches during serving {launches} != "
                            f"{expect} expected from {n_batches} batches")
@@ -550,21 +696,26 @@ def trace(stages, store) -> None:
         report_trace(
             f"{arch} batch of {SERVE_BATCH}",
             cuda_events(lambda: st.profile_fn(SERVE_BATCH)),
-            store.get(arch).batch_latency("h100-1", SERVE_BATCH) * 1e3,
-            ("rmsnorm_kernel", "flash_fwd_kernel"))
+            store.get(arch).batch_latency("h100-1", SERVE_BATCH) * 1e3)
 
 
-# ---------------------------------------------------------------- phase 6
+# ------------------------------------------------------------ phases 6, 7
 
-def decode_full_width(st) -> dict:
-    """Greedy decode with the full-width llama3.2-1b stage: prefill
-    DECODE_BATCH prompts of PROMPT tokens into SMAX slots, then STEPS
-    decode steps, each step's logits held against the port's forward
-    over the same PROMPT + STEPS tokens. Returns the steps' launches."""
-    model, params, cfg = st.model, st.params, st.cfg
-    per_fwd = launches_per_forward(cfg)
+def decode_and_check(model, params, steps: int) -> tuple:
+    """Greedy decode at full width: prefill DECODE_BATCH prompts of PROMPT
+    tokens into SMAX slots (a cold call, then the best of 3 warm ones),
+    then ``steps`` decode steps, with the counters zeroed just before and
+    read just after each warm prefill and the steps, and held to the
+    launches the config implies. Every step's logits are held against
+    the port's forward over the same PROMPT + ``steps`` tokens, and every
+    greedy token against the forward's argmax (a position whose top-2
+    gap is below the max abs error may differ; the log says so). Traces
+    one more step. Returns (one prefill's launches, the steps' launches,
+    the step's ms)."""
+    cfg = model.cfg
     prompt = torch.from_numpy(np.random.default_rng(7).integers(
         0, cfg.vocab_size, (DECODE_BATCH, PROMPT))).to("cuda")
+
     def prefill():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -573,40 +724,37 @@ def decode_full_width(st) -> dict:
         return time.perf_counter() - t0, out
 
     with torch.inference_mode():
-        # the first call at these shapes (cold) and the best of 3 after
-        # it, each with the counters zeroed just before and read after
         cold_s, _ = prefill()
         warm_s = []
-        want = {**per_fwd, "decode_attention": 0}
+        want_pre = launches_per_forward(cfg, PROMPT)
         for _ in range(3):
             reset_counts()
             t, (logits, state) = prefill()
             pre = counts()
-            if pre != want:
-                raise RuntimeError(f"prefill launches {pre} != {want}")
+            if pre != want_pre:
+                raise RuntimeError(f"prefill launches {pre} != {want_pre}")
             warm_s.append(t)
         outs, toks = [logits], [logits.argmax(-1)]
         reset_counts()
         t0 = time.perf_counter()
-        for i in range(STEPS):
+        for i in range(steps):
             logits, state = model.decode_step(params, toks[-1], PROMPT + i,
                                               state)
             outs.append(logits)
             toks.append(logits.argmax(-1))
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        steps = counts()
-        n_attn = per_fwd["flash_attention"]
-        want = {"rmsnorm": per_fwd["rmsnorm"] * STEPS, "flash_attention": 0,
-                "decode_attention": n_attn * STEPS}
-        if steps != want:
-            raise RuntimeError(f"decode launches {steps} != {want}")
+        step_counts = counts()
+        want = {k: v * steps for k, v in launches_per_step(cfg).items()}
+        if step_counts != want:
+            raise RuntimeError(f"decode launches {step_counts} != {want}")
 
-        seq = torch.cat([prompt] + toks[:STEPS], dim=1)      # 576 tokens
+        seq = torch.cat([prompt] + toks[:steps], dim=1)
         full, _ = model.forward(params, {"tokens": seq})
-        err, agree = 0.0, 0
+        err, refs = 0.0, []
         for i, out in enumerate(outs):      # position PROMPT - 1 + i
             ref_logits = full[:, PROMPT - 1 + i]
+            refs.append(ref_logits)
             got = out[:, 0]
             if not bool(torch.isfinite(got).all()) or \
                     got.shape != (DECODE_BATCH, cfg.vocab_size):
@@ -616,29 +764,85 @@ def decode_full_width(st) -> dict:
             torch.testing.assert_close(
                 got, ref_logits, atol=5e-4, rtol=1e-3,
                 msg=lambda m: f"decode step {i} vs forward: {m}")
-            agree += int((toks[i][:, 0] == ref_logits.argmax(-1)).sum())
-        del full
+        agree, near_ties = 0, []
+        for i, ref_logits in enumerate(refs):
+            same = toks[i][:, 0] == ref_logits.argmax(-1)
+            agree += int(same.sum())
+            top2 = ref_logits.topk(2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            for row in torch.nonzero(~same).flatten().tolist():
+                if float(gap[row]) >= err:
+                    raise RuntimeError(
+                        f"step {i} row {row}: greedy token differs from the "
+                        f"forward's argmax with a top-2 gap of "
+                        f"{float(gap[row]):.3e} >= max abs error {err:.3e}")
+                near_ties.append((i, row, float(gap[row])))
+        del full, refs
 
-        step_ms = decode_s / STEPS * 1e3
+        step_ms = decode_s / steps * 1e3
         log(f"  prefill B={DECODE_BATCH} x {PROMPT} tokens into {SMAX} "
             f"slots: {min(warm_s) * 1e3:.3f} ms (best of 3 warm calls; "
             f"the first, cold call {cold_s * 1e3:.3f} ms); launches {pre}")
-        log(f"  {STEPS} greedy decode steps: {step_ms:.3f} ms per step, "
-            f"{DECODE_BATCH * STEPS / decode_s:.1f} tokens/s; launches "
-            f"{steps} (expected {want})")
+        log(f"  {steps} greedy decode steps: {step_ms:.3f} ms per step, "
+            f"{DECODE_BATCH * steps / decode_s:.1f} tokens/s; launches "
+            f"{step_counts} (expected {want})")
         log(f"  logits of prefill and every step vs forward over "
             f"{seq.shape[1]} tokens: max_abs_err={err:.3e} (atol 5e-4, "
             f"rtol 1e-3); greedy tokens equal to the forward's argmax: "
             f"{agree} of {DECODE_BATCH * len(outs)}")
+        for i, row, gap in near_ties:
+            log(f"  step {i} row {row}: greedy token differs from the "
+                f"forward's argmax at a top-2 gap of {gap:.3e}, below the "
+                f"max abs error")
 
-        # the step after the last, at valid_len PROMPT + STEPS + 1 (run
+        # the step after the last, at valid_len PROMPT + steps + 1 (run
         # twice at that position: the second writes the same slot)
-        tok, pos = toks[-1], PROMPT + STEPS
+        tok, pos = toks[-1], PROMPT + steps
         report_trace(
             f"one decode step at valid_len {pos + 1}",
             cuda_events(lambda: model.decode_step(params, tok, pos, state)),
-            step_ms, ("decode_",))
-    return steps
+            step_ms)
+    return pre, step_counts, step_ms
+
+
+def hybrid_full_width() -> tuple:
+    """The expert-free one-period Jamba at published widths, seeded random
+    weights: greedy decode as in phase 6 with HYBRID_STEPS steps, the
+    stage latency at SEQ tokens by batch size, and the peak memory.
+    Returns (one prefill's launches, the steps' launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg = without_experts(get_arch(HYBRID))
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    kinds = "".join("A" if b.kind == "attn" else "M"
+                    for b in cfg.segments[0].blocks)
+    log(f"  {cfg.name}: {cfg.num_layers}L ({kinds}) d_model={cfg.d_model} "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.resolved_head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+        f"params={n_params} ({n_params * 4 / 1e9:.1f} GB f32) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pre, steps, _ = decode_and_check(model, params, HYBRID_STEPS)
+
+    @torch.inference_mode()
+    def forward(b: int) -> None:
+        model.forward(params, {"tokens": torch.ones(
+            (b, SEQ), dtype=torch.int32, device="cuda")})
+        torch.cuda.synchronize()
+
+    for b in HYBRID_BATCHES:
+        forward(b)                                  # warm each shape
+    prof = profile_model_measured(cfg.name, forward, "h100-1",
+                                  batch_sizes=HYBRID_BATCHES)
+    log("  stage latency (forward over 32 tokens, best of 3): " + ", ".join(
+        f"B={b} {prof.batch_latency('h100-1', b) * 1e3:.3f} ms "
+        f"({b / prof.batch_latency('h100-1', b):.1f} qps)"
+        for b in HYBRID_BATCHES))
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+        f" GB (torch.cuda.max_memory_allocated)")
+    return pre, steps
 
 
 def main() -> int:
@@ -670,6 +874,7 @@ def main() -> int:
     check_rmsnorm(gen)
     check_flash(gen)
     check_decode(gen)
+    check_mamba(gen)
     records = time_kernels(gen)
 
     log("[3] forward and decode against the CPU path; full-width stages, "
@@ -683,9 +888,19 @@ def main() -> int:
     log("[5] trace one batch per stage")
     trace(stages, store)
     log("[6] full-width llama3.2-1b: prefill and greedy decode")
-    decode_launches = decode_full_width(stages["llama3.2-1b"])
+    llama = stages["llama3.2-1b"]
+    _, decode_launches, _ = decode_and_check(llama.model, llama.params,
+                                             STEPS)
+    del stages, store, llama
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[7] full-width expert-free one-period Jamba-1.5-Large: prefill, "
+        "greedy decode, stage latency")
+    hybrid_pre, hybrid_steps = hybrid_full_width()
     # each kernel's launches come from the path that runs it
     launches["decode_attention"] = decode_launches["decode_attention"]
+    launches["mamba_scan"] = hybrid_pre["mamba_scan"] + \
+        hybrid_steps["mamba_scan"]
     for r in records:
         r["launches"] = launches[r["name"]]
     if not all(r["launches"] > 0 for r in records):

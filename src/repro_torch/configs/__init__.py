@@ -2,12 +2,15 @@
 
 Each module exports ``ARCH`` (the exact published widths) and ``SMOKE``
 (a reduced same-family variant for CPU tests), copied from the JAX
-reference's registry. This slice carries the two families of the served
-cascade; the other families arrive with their slices.
+reference's registry. The port carries the two families of the served
+cascade and the Mamba/attention hybrid; the other families arrive with
+their slices. Jamba's MoE layers are not ported yet, so its configs
+build only in the expert-free form of :func:`without_experts`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import List
 
@@ -17,6 +20,7 @@ _MODULES = {
     "xlstm-125m": "xlstm_125m",
     "llama3.2-1b": "llama3_2_1b",
     "llama3.2-1b-sw": "llama3_2_1b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ARCH_IDS: List[str] = [k for k in _MODULES if k != "llama3.2-1b-sw"]
@@ -36,6 +40,20 @@ def get_arch(name: str) -> ArchConfig:
     if name == "llama3.2-1b-sw":
         return mod.ARCH_SW
     return mod.ARCH
+
+
+def without_experts(cfg: ArchConfig) -> ArchConfig:
+    """One period of ``cfg``'s first segment with every MoE FFN made the
+    dense FFN of width ``d_ff`` (for Jamba, one expert's hidden width):
+    the form in which the port runs a hybrid whose MoE is not ported.
+    Only ``dataclasses.replace`` is used, so it applies to the
+    reference's config classes too."""
+    seg = cfg.segments[0]
+    blocks = tuple(dataclasses.replace(b, ffn="dense") if b.ffn == "moe"
+                   else b for b in seg.blocks)
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-1p-dense",
+        segments=(dataclasses.replace(seg, blocks=blocks, repeat=1),))
 
 
 def get_smoke(name: str) -> ArchConfig:

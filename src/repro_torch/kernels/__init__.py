@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
 ``rmsnorm`` (fused norm), ``flash_attention`` (prefill/score
-attention) and ``decode_attention`` (one token against a KV cache) are
-CUDA C++ for ``sm_90a`` under ``csrc/``, built by ``_build`` at first
-use; ``ref`` holds the plain PyTorch versions and ``ops`` is the
+attention), ``decode_attention`` (one token against a KV cache) and
+``mamba_scan`` (the Mamba block's selective scan) are CUDA C++ for
+``sm_90a`` under ``csrc/``, built by ``_build`` at first use; ``ref`` holds the plain PyTorch versions and ``ops`` is the
 dispatch layer the models call.
 """

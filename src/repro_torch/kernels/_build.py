@@ -43,6 +43,10 @@ SIGNATURES = {
     #  splits, chunk, scale, stream) -> cudaError_t
     "decode_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _F, _P), _I),
+    # (dt, x, b, c, a, h0, y, h_out, dtype, batch, len, d, n, stream)
+    #  -> cudaError_t
+    "mamba_scan_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

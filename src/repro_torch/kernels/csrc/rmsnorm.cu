@@ -1,4 +1,4 @@
-// Fused RMSNorm over the last dimension: one warp per row.
+// Fused RMSNorm over the last dimension: one warp per row (a CTA past D 4096).
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm.py:rmsnorm
 // (_rmsnorm_kernel): y = (x * rsqrt(mean(x^2) + eps)) cast to x's type,
@@ -13,7 +13,11 @@
 // in f32 with warp shuffles, and the normalized row is written from the
 // same registers. A warp per row keeps many independent loads in flight
 // per SM; rows are independent, so the TPU's row-block grid becomes a
-// flat grid of warps with no carried state.
+// flat grid of warps with no carried state. Rows wider than 4096 (the
+// hybrid's d_model of 8192) would need more registers than a lane has for
+// one warp, so they take one CTA of 256 threads per row, each thread
+// holding VPT vectors of 4, with the warps' partial sums combined in
+// shared memory; x is still read exactly once.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -21,6 +25,7 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
+constexpr int kRowThreads = 256;  // one CTA per row for D > 4096
 
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -87,6 +92,53 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale,
   }
 }
 
+// VPT: 4-element vectors per thread, so D <= 4 * kRowThreads * VPT.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kRowThreads)
+rmsnorm_row_kernel(const T* __restrict__ x, const T* __restrict__ scale,
+                   T* __restrict__ out, int d, float eps) {
+  __shared__ float partial[kRowThreads / 32];
+  const int tid = threadIdx.x;
+  const int nvec = d >> 2;
+  const size_t row = blockIdx.x;
+  const T* xr = x + row * d;
+
+  float v[VPT][4];
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int i = tid + kRowThreads * j;
+    if (i < nvec) {
+      load4(xr + 4 * i, v[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ss = fmaf(v[j][e], v[j][e], ss);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  if ((tid & 31) == 0) partial[tid >> 5] = ss;
+  __syncthreads();
+  ss = 0.f;
+#pragma unroll
+  for (int w = 0; w < kRowThreads / 32; ++w) ss += partial[w];
+  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+
+  T* orow = out + row * d;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int i = tid + kRowThreads * j;
+    if (i < nvec) {
+      float s[4], y[4];
+      load4(scale + 4 * i, s);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[e] = repro::round_to<T>(repro::round_to<T>(v[j][e] * r) * s[e]);
+      store4(orow + 4 * i, y);
+    }
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* scale, void* out, int rows, int d,
            float eps, cudaStream_t stream) {
@@ -111,7 +163,17 @@ int launch(const void* x, const void* scale, void* out, int rows, int d,
   REPRO_RMSNORM_CASE(16)
   REPRO_RMSNORM_CASE(32)
 #undef REPRO_RMSNORM_CASE
-  return static_cast<int>(cudaErrorInvalidValue);  // D > 4096
+  const int vpt = (d / 4 + kRowThreads - 1) / kRowThreads;
+#define REPRO_RMSNORM_ROW_CASE(N)                                        \
+  if (vpt <= N) {                                                        \
+    rmsnorm_row_kernel<T, N><<<rows, kRowThreads, 0, stream>>>(xp, sp, op, \
+                                                             d, eps);    \
+    return static_cast<int>(cudaGetLastError());                         \
+  }
+  REPRO_RMSNORM_ROW_CASE(8)
+  REPRO_RMSNORM_ROW_CASE(16)
+#undef REPRO_RMSNORM_ROW_CASE
+  return static_cast<int>(cudaErrorInvalidValue);  // D > 16384
 }
 
 }  // namespace

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: F401
 
 
@@ -48,6 +49,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.attention_ref(q, k, v, mask, 1.0 / math.sqrt(q.shape[-1]))
 
 
-def mamba_chunk(dt, x, b, c, a, h0):
-    raise NotImplementedError(
-        "the mamba selective scan arrives with the SSM/hybrid slice")
+def mamba_chunk(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor):
+    """One chunk of the Mamba selective scan, one kernel launch on CUDA.
+
+    dt, x: (B,L,D); b, c: (B,L,N); a: (D,N); h0: (B,D,N).
+    Returns (y (B,L,D) f32, h_last (B,D,N) f32). The kernel takes
+    contiguous inputs: ``b`` and ``c`` are usually the halves of one
+    ``(B,L,2N)`` projection, so they are copied here.
+    """
+    y, h = mamba_scan(dt.contiguous(), x.contiguous(), b.contiguous(),
+                      c.contiguous(), a, h0.float().contiguous())
+    return y.float(), h

@@ -8,7 +8,7 @@ q ``(B, Sq, H, D)``, k/v ``(B, Sk, KV, D[v])``.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -95,3 +95,25 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window > 0:
         mask &= (vl[:, None] - 1 - kj) < window
     return attention_ref(q, k, v, mask[:, None, None, :], scale)
+
+
+def mamba_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the selective-scan kernel. dt, x: (B,L,D); b, c:
+    (B,L,N); a: (D,N); h0: (B,D,N). The sequential f32 recurrence
+
+      h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t
+      y_t = <h_t, C_t>
+
+    Returns (y (B,L,D) in x's dtype, h_last (B,D,N) in h0's dtype)."""
+    dtf, xf, bf, cf = dt.float(), x.float(), b.float(), c.float()
+    af = a.float()
+    h = h0.float()
+    ys = []
+    for t in range(dt.shape[1]):
+        dt_t = dtf[:, t]                                    # (B,D)
+        a_bar = torch.exp(dt_t[..., None] * af)             # (B,D,N)
+        h = a_bar * h + (dt_t * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append((h * cf[:, t, None, :]).sum(-1))          # (B,D)
+    return torch.stack(ys, dim=1).to(x.dtype), h.to(h0.dtype)

@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 KERNEL_DTYPES = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
-MAX_D = 4096                  # 32 lanes x 32 vectors of 4 per lane
+MAX_D = 16384                 # a CTA of 256 threads x 16 vectors of 4
 
 counter = _build.LaunchCounter()
 

@@ -2,14 +2,16 @@
 ``<layer>(params, cfg, x, ...)`` pairs over plain parameter dicts.
 
 The parts of the reference's ``repro/models/layers.py`` that the served
-cascade and the dense decode path run: RMSNorm, RoPE, GQA self-attention
-(with ``qkv_bias``, the structural sliding window and the KV cache of
-prefill and decode), the SwiGLU / GELU MLP, and the xLSTM mLSTM
+cascade, the dense decode path and the hybrid run: RMSNorm, RoPE, GQA
+self-attention (with ``qkv_bias``, the structural sliding window and the
+KV cache of prefill and decode), the SwiGLU / GELU MLP, the Mamba block
+(chunked selective scan with carried state), and the xLSTM mLSTM
 (chunkwise) and sLSTM (sequential) cells. Parameter
 names, shapes and layouts are the reference's, so a JAX parameter tree
-converts one to one (:mod:`repro_torch.convert`). Norms and attention go
-through :mod:`repro_torch.kernels.ops`; the cells are plain torch (the
-reference has no Pallas kernel for them either).
+converts one to one (:mod:`repro_torch.convert`). Norms, attention and
+the selective scan go through :mod:`repro_torch.kernels.ops`; the xLSTM
+cells are plain torch (the reference has no Pallas kernel for them
+either).
 """
 
 from __future__ import annotations
@@ -186,6 +188,95 @@ def mlp(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     else:               # non-gated gelu (jax.nn.gelu's tanh form)
         h = F.gelu(u, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, params["wd"].to(cd))
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective SSM block (chunked scan)
+# ---------------------------------------------------------------------------
+
+def init_mamba(gen: torch.Generator, cfg: ArchConfig,
+               device: torch.device) -> Params:
+    d = cfg.d_model
+    d_in = d * cfg.mamba_expand
+    st, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+    a_log = torch.log(torch.arange(1, st + 1, dtype=torch.float32,
+                                   device=device)).expand(d_in, st)
+    return {
+        "in_proj": _dense_init(gen, (d, 2 * d_in), cfg.pdtype, device),
+        "conv_w": _dense_init(gen, (dc, d_in), cfg.pdtype, device,
+                              scale=0.5),
+        "w_bc": _dense_init(gen, (d_in, 2 * st), cfg.pdtype, device),
+        "w_dt": torch.full((d_in,), 0.1, dtype=cfg.pdtype, device=device),
+        "b_dt": torch.full((d_in,), -2.0, dtype=cfg.pdtype,
+                           device=device),     # softplus(-2) ~ 0.12
+        "a_log": a_log.to(cfg.pdtype).contiguous(),
+        "d_skip": torch.ones(d_in, dtype=cfg.pdtype, device=device),
+        "out_proj": _dense_init(gen, (d_in, d), cfg.pdtype, device),
+    }
+
+
+def mamba_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                state: Optional[Params] = None) -> torch.Tensor:
+    """x: (B,S,D) -> (B,S,D). Chunk-streamed as the reference's
+    ``mamba_block``: per chunk of ``min(cfg.ssm_chunk, S)`` tokens (one
+    chunk when S is not a multiple), the in-projection, the depthwise
+    causal conv over the carried tail, softplus dt, the selective scan
+    (:func:`ops.mamba_chunk`, one kernel launch on CUDA), the skip,
+    the gate and the out-projection; the SSM state and the conv tail
+    carry from chunk to chunk.
+
+    With ``state`` (dict h: (B,D_in,N) f32, conv: (B,dc-1,D_in)) the
+    block continues from it (decode uses S == 1) and writes the final
+    state into it in place: ``state``'s tensors are the layer's views of
+    the segment's stacked ``(repeat, ...)`` cache, as with
+    :func:`attention`. The reference returns a new state instead.
+    """
+    b, s, d = x.shape
+    d_in = d * cfg.mamba_expand
+    st, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+    cd = cfg.cdtype
+
+    if state is not None:
+        tail = state["conv"].to(cd)
+        h = state["h"].float()
+    else:
+        tail = torch.zeros((b, dc - 1, d_in), dtype=cd, device=x.device)
+        h = torch.zeros((b, d_in, st), dtype=torch.float32, device=x.device)
+
+    chunk = min(cfg.ssm_chunk, s)
+    if s % chunk != 0:
+        chunk = s        # one chunk for ragged lengths, as the reference
+
+    w_in = params["in_proj"].to(cd)
+    conv_w = params["conv_w"].to(cd)
+    w_bc = params["w_bc"].to(cd)
+    w_dt = params["w_dt"].to(cd)
+    b_dt = params["b_dt"].to(cd)
+    d_skip = params["d_skip"].float()
+    w_out = params["out_proj"].to(cd)
+    a = -torch.exp(params["a_log"].float())                  # (D_in,N)
+
+    outs = []
+    for c0 in range(0, s, chunk):
+        xz = torch.einsum("bld,de->ble", x[:, c0:c0 + chunk], w_in)
+        xs, z = xz.chunk(2, dim=-1)
+        xpad = torch.cat([tail, xs], dim=1)
+        if dc > 1:
+            tail = xpad[:, -(dc - 1):]
+        xc = sum(xpad[:, i:i + chunk] * conv_w[i] for i in range(dc))
+        xc = F.silu(xc)
+        bc = torch.einsum("ble,en->bln", xc, w_bc)
+        b_c, c_c = bc.float().chunk(2, dim=-1)
+        dt = F.softplus(xc * w_dt + b_dt).float()
+        xcf = xc.float()
+        y_c, h = ops.mamba_chunk(dt, xcf, b_c, c_c, a, h)
+        y_c = (y_c + d_skip * xcf).to(cd)
+        y_c = y_c * F.silu(z)
+        outs.append(torch.einsum("ble,ed->bld", y_c, w_out))
+    if state is not None:
+        state["h"].copy_(h)
+        state["conv"].copy_(tail)
+    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
 
 
 # ---------------------------------------------------------------------------

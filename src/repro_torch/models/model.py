@@ -2,7 +2,8 @@
 the decode path, driven by ``ArchConfig``.
 
 The counterpart of the reference's ``repro/models/model.py`` for the
-dense-attention and xLSTM families. Parameters keep the reference's tree:
+dense-attention, hybrid (Mamba + attention, dense FFNs) and xLSTM
+families. Parameters keep the reference's tree:
 ``segments`` is a tuple over segments of a tuple over the pattern's
 blocks, each a dict whose tensors carry a leading ``repeat`` axis; the
 forward walks that axis with a Python loop where the reference scans.
@@ -16,7 +17,7 @@ Entry points:
   Model.prefill(params, batch, smax)          -> (last logits (B,1,V), cache)
   Model.decode_step(params, token, pos, cache) -> (logits (B,1,V), cache)
 
-Only the dense-attention family decodes so far; an xLSTM stack's
+Dense-attention and Mamba/hybrid stacks decode; an xLSTM stack's
 recurrent-state decode arrives with its own slice.
 """
 
@@ -36,8 +37,9 @@ Params = Dict[str, Any]
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The port serves dense attention and xLSTM stacks; other families
-    arrive with their slices."""
+    """The port serves dense attention, Mamba/hybrid and xLSTM stacks with
+    dense FFNs; MoE, MLA, encoder-decoder and image models arrive with
+    their slices."""
     if cfg.use_mla or cfg.is_encoder_decoder or cfg.num_image_tokens \
             or cfg.mtp_depth:
         raise NotImplementedError(
@@ -45,10 +47,10 @@ def _check_supported(cfg: ArchConfig) -> None:
             f"arrive with their family slices")
     for seg in cfg.segments:
         for blk in seg.blocks:
-            if blk.kind == "mamba" or blk.ffn == "moe":
+            if blk.ffn == "moe":
                 raise NotImplementedError(
                     f"{cfg.name}: {blk.kind}/{blk.ffn} blocks arrive with "
-                    f"the SSM/hybrid and MoE slices")
+                    f"the MoE slice")
 
 
 def _index(tree, i: int):
@@ -67,6 +69,8 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, block: Block,
     p: Params = {"norm1": L.init_rmsnorm(cfg, device)}
     if block.kind == "attn":
         p["core"] = L.init_attention(gen, cfg, device)
+    elif block.kind == "mamba":
+        p["core"] = L.init_mamba(gen, cfg, device)
     elif block.kind == "mlstm":
         p["core"] = L.init_mlstm(gen, cfg, device)
     elif block.kind == "slstm":
@@ -81,11 +85,14 @@ def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
                  positions: torch.Tensor, mask_kind: Optional[str],
                  cache: Optional[Params] = None,
                  cache_pos: Optional[int] = None) -> torch.Tensor:
-    """One block; an attention block with ``cache`` writes it in place."""
+    """One block; an attention or Mamba block with ``cache`` writes it in
+    place."""
     h = L.rmsnorm(p["norm1"], cfg, x)
     if block.kind == "attn":
         out, _ = L.attention(p["core"], cfg, h, positions, kind=mask_kind,
                              cache=cache, cache_pos=cache_pos)
+    elif block.kind == "mamba":
+        out = L.mamba_block(p["core"], cfg, h, cache)
     elif block.kind == "mlstm":
         out = L.mlstm_block(p["core"], cfg, h)
     else:
@@ -131,7 +138,7 @@ def _run_segment(params_stack, cfg: ArchConfig, seg: Segment,
 def _check_decodes(cfg: ArchConfig) -> None:
     for seg in cfg.segments:
         for blk in seg.blocks:
-            if blk.kind != "attn":
+            if blk.kind not in ("attn", "mamba"):
                 raise NotImplementedError(
                     f"{cfg.name}: decoding {blk.kind} blocks (recurrent "
                     f"state) arrives with the xLSTM decode slice")

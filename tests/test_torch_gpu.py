@@ -11,9 +11,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import get_smoke  # noqa: E402
+from repro_torch.configs import get_smoke, without_experts  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -37,7 +38,9 @@ def _rand(gen, shape, dtype):
 
 
 @pytest.mark.parametrize("rows,d", [(32, 768), (512, 2048), (7, 2048),
-                                    (3, 4096), (5, 4)])
+                                    (3, 4096), (5, 4),
+                                    # a CTA per row past D 4096
+                                    (9, 8192), (3, 4100), (2, 16384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(gen, rows, d, dtype):
     x, g = _rand(gen, (rows, d), dtype), _rand(gen, (d,), dtype)
@@ -58,6 +61,7 @@ def test_rmsnorm_kernel_matches_plain(gen, rows, d, dtype):
     (2, 40, 40, 4, 2, 64, 64, True, 0),        # ragged
     (1, 32, 96, 4, 4, 64, 64, False, 0),       # full
     (1, 48, 16, 4, 1, 32, 32, True, 0),        # Sq > Sk: early rows see no key
+    (2, 512, 512, 64, 8, 128, 128, True, 0),   # the hybrid's attention
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(gen, b, sq, sk, h, kv, d, dv, causal,
@@ -98,6 +102,7 @@ def test_kernels_reject_what_they_do_not_take(gen):
     (2, 600, 8, 2, 64, 64, 577, 0),        # Smax of no block multiple
     (1, 300, 16, 1, 32, 64, 300, 64),      # G = 16, D != Dv
     (3, 64, 4, 2, 64, 64, 0, 0),           # no valid key: 0
+    (8, 1024, 64, 8, 128, 128, 544, 0),    # the hybrid's decode shape
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(gen, b, smax, h, kv, d, dv, vl, window,
@@ -145,6 +150,101 @@ def test_decode_kernel_rejects_what_it_does_not_take(gen):
         da_mod.decode_attention(q12, k12, k12, 5)
 
 
+def _scan_inputs(gen, b, length, d, n, dtype):
+    """dt, x, b, c in ``dtype``, a and h0 in f32, drawn as the reference's
+    kernel sweep draws them."""
+    f32 = torch.float32
+    return [torch.nn.functional.softplus(_rand(gen, (b, length, d), f32)
+                                         * 0.3).to(dtype),
+            _rand(gen, (b, length, d), dtype),
+            (_rand(gen, (b, length, n), f32) * 0.5).to(dtype),
+            (_rand(gen, (b, length, n), f32) * 0.5).to(dtype),
+            -torch.exp(_rand(gen, (d, n), f32) * 0.3),
+            _rand(gen, (b, d, n), f32) * 0.1]
+
+
+@pytest.mark.parametrize("b,length,d,n", [
+    (2, 300, 192, 8),
+    (2, 300, 192, 16),
+    (1, 300, 192, 32),
+    (3, 1, 192, 16),        # a decode step
+    (2, 1, 256, 32),
+    (1, 37, 64, 64),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_matches_plain(gen, b, length, d, n, dtype):
+    args = _scan_inputs(gen, b, length, d, n, dtype)
+    before = ms_mod.counter.count
+    y, h = ms_mod.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert ms_mod.counter.count == before + 1
+    assert y.dtype == dtype and y.shape == (b, length, d)
+    assert h.dtype == torch.float32 and h.shape == (b, d, n)
+    ye, he = ref.mamba_scan_ref(*args)
+    torch.testing.assert_close(y.float(), ye.float(), **TOL[dtype])
+    torch.testing.assert_close(h, he, atol=5e-5, rtol=5e-5)
+
+
+def test_mamba_scan_kernel_carries_the_state(gen):
+    dt, x, b, c, a, h0 = _scan_inputs(gen, 2, 300, 192, 16, torch.float32)
+    y, h = ms_mod.mamba_scan(dt, x, b, c, a, h0)
+    y1, h1 = ms_mod.mamba_scan(*(t[:, :100].contiguous()
+                                 for t in (dt, x, b, c)), a, h0)
+    y2, h2 = ms_mod.mamba_scan(*(t[:, 100:].contiguous()
+                                 for t in (dt, x, b, c)), a, h1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, **TOL[y.dtype])
+    torch.testing.assert_close(h2, h, atol=5e-5, rtol=5e-5)
+
+
+def test_mamba_scan_kernel_rejects_what_it_does_not_take(gen):
+    dt, x, b, c, a, h0 = _scan_inputs(gen, 1, 8, 64, 12, torch.float32)
+    with pytest.raises(ValueError, match="state size N"):
+        ms_mod.mamba_scan(dt, x, b, c, a, h0)
+    dt, x, b, c, a, h0 = _scan_inputs(gen, 1, 8, 64, 16, torch.float32)
+    bc = torch.cat([b, c], dim=-1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ms_mod.mamba_scan(dt, x, bc[..., :16], bc[..., 16:], a, h0)
+    with pytest.raises(TypeError, match="float32 state"):
+        ms_mod.mamba_scan(dt, x, b, c, a, h0.bfloat16())
+    with pytest.raises(TypeError):
+        ms_mod.mamba_scan(dt, x.bfloat16(), b, c, a, h0)
+    with pytest.raises(ValueError, match="disagree"):
+        ms_mod.mamba_scan(dt, x, b, c, a[:32], h0)
+
+
+def test_hybrid_on_the_card_matches_the_cpu(gen):
+    """The expert-free Jamba smoke model: forward over two scan chunks,
+    then prefill + 8 greedy steps, through the kernels against the CPU
+    path with the same parameters (tolerance 1e-4)."""
+    cfg = without_experts(get_smoke("jamba-1.5-large-398b"))
+    cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card_params = _to(params, "cuda")
+    tok = torch.randint(0, cfg.vocab_size, (2, 128),
+                        generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        before = ms_mod.counter.count
+        got, _ = card.forward(card_params, {"tokens": tok.cuda()})
+        assert ms_mod.counter.count - before == 7 * 2
+        exp, _ = cpu.forward(params, {"tokens": tok})
+        torch.testing.assert_close(got.cpu(), exp, atol=1e-4, rtol=1e-4)
+        exp, state = cpu.prefill(params, {"tokens": tok}, 136)
+        got, card_state = card.prefill(card_params, {"tokens": tok.cuda()},
+                                       136)
+        before = ms_mod.counter.count
+        for i in range(8):
+            torch.testing.assert_close(got.cpu(), exp, atol=1e-4, rtol=1e-4)
+            nxt = exp.argmax(-1)
+            exp, state = cpu.decode_step(params, nxt, 128 + i, state)
+            got, card_state = card.decode_step(card_params, nxt.cuda(),
+                                               128 + i, card_state)
+        torch.testing.assert_close(got.cpu(), exp, atol=1e-4, rtol=1e-4)
+    assert ms_mod.counter.count - before == 7 * 8
+    for got_leaf, exp_leaf in zip(_leaves(_to(card_state[0], "cpu")),
+                                  _leaves(state[0])):
+        torch.testing.assert_close(got_leaf, exp_leaf, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.parametrize("arch,prompt,steps,smax", [
     ("llama3.2-1b", 9, 3, 16),
     ("llama3.2-1b-sw", 96, 40, 160),       # ring tail, then the ring wraps
@@ -178,3 +278,14 @@ def _to(tree, device):
     if isinstance(tree, tuple):
         return tuple(_to(v, device) for v in tree)
     return tree.to(device)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -22,6 +22,7 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
@@ -140,7 +141,7 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
     x = torch.randn(4, 64, generator=torch.Generator().manual_seed(0))
     q = torch.randn(1, 8, 2, 16, generator=torch.Generator().manual_seed(1))
     before = (rms_mod.counter.count, fa_mod.counter.count,
-              da_mod.counter.count)
+              da_mod.counter.count, ms_mod.counter.count)
     torch.testing.assert_close(ops.rmsnorm(x, torch.ones(64)),
                                ref.rmsnorm_ref(x, torch.ones(64)),
                                rtol=0, atol=0)
@@ -151,8 +152,14 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
         ops.attention(q[:, :1], q, q, None, torch.float32, kind="decode",
                       valid_len=5),
         ref.decode_attention_ref(q[:, :1], q, q, 5), rtol=0, atol=0)
+    dt = torch.rand(1, 6, 16, generator=torch.Generator().manual_seed(2))
+    bc = torch.randn(1, 6, 8, generator=torch.Generator().manual_seed(3))
+    a, h0 = -torch.ones(16, 8), torch.zeros(1, 16, 8)
+    for got, exp in zip(ops.mamba_chunk(dt, dt, bc, bc, a, h0),
+                        ref.mamba_scan_ref(dt, dt, bc, bc, a, h0)):
+        torch.testing.assert_close(got, exp, rtol=0, atol=0)
     assert (rms_mod.counter.count, fa_mod.counter.count,
-            da_mod.counter.count) == before
+            da_mod.counter.count, ms_mod.counter.count) == before
 
 
 @pytest.mark.parametrize("call", [
@@ -161,7 +168,9 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
                                      t[None, :, None]),
     lambda t: da_mod.decode_attention(t[None, :1, None], t[None, :, None],
                                       t[None, :, None], 8),
-], ids=["rmsnorm", "flash_attention", "decode_attention"])
+    lambda t: ms_mod.mamba_scan(t[None], t[None], t[None], t[None], t,
+                                t[None]),
+], ids=["rmsnorm", "flash_attention", "decode_attention", "mamba_scan"])
 def test_other_devices_raise_instead_of_falling_back(call):
     with pytest.raises(ValueError, match="unsupported device"):
         call(torch.empty((8, 8), device="meta"))
@@ -171,8 +180,7 @@ def test_other_devices_raise_instead_of_falling_back(call):
     (lambda: build_model(get_smoke("xlstm-125m"), "cpu").decode_step(
         None, torch.zeros((1, 1), dtype=torch.long), 0, (None, None)),
      "xLSTM decode slice"),
-    (lambda: ops.mamba_chunk(*(None,) * 6), "SSM/hybrid slice"),
-], ids=["decode", "mamba"])
+], ids=["decode"])
 def test_later_slices_raise_not_implemented(call, what):
     with pytest.raises(NotImplementedError, match=what):
         call()
@@ -189,13 +197,13 @@ def test_every_cuda_source_is_built_and_every_export_declared():
     """One nvcc call builds every csrc/*.cu; each C entry point the
     wrappers call has a ctypes signature (pointers as c_void_p)."""
     names = {p.name for p in _build.sources()}
-    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu"} \
-        <= names
+    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
+            "mamba_scan.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for fn, (argtypes, _) in _build.SIGNATURES.items():
         assert f'extern "C"' in text and f" {fn}(" in text, fn
     for fn in ("rmsnorm_f32", "rmsnorm_bf16", "flash_attention_fwd",
-               "decode_attention_fwd"):
+               "decode_attention_fwd", "mamba_scan_fwd"):
         argtypes = _build.SIGNATURES[fn][0]
         assert argtypes[0] is _build.ctypes.c_void_p
         assert argtypes[-1] is _build.ctypes.c_void_p        # the stream

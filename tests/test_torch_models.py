@@ -116,8 +116,8 @@ def test_params_from_numpy_keeps_bfloat16_bits():
     dict(use_mla=True),
     dict(num_image_tokens=4),
     dict(segments=(Segment((Block("attn", "moe"),), 1),)),
-    dict(segments=(Segment((Block("mamba", "none"),), 1),)),
-], ids=["mla", "vlm", "moe", "mamba"])
+    dict(encoder_segments=(Segment((Block("attn", "dense"),), 1),)),
+], ids=["mla", "vlm", "moe", "encoder-decoder"])
 def test_families_of_later_slices_raise(change):
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **change)
     with pytest.raises(NotImplementedError):
