@@ -39,6 +39,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import re
@@ -58,6 +59,7 @@ from repro_torch.core.hardware import (  # noqa: E402
     H100_HBM_BW,
     H100_PEAK_FLOPS_BF16,
     H100_PEAK_FLOPS_F32,
+    H100_PEAK_FLOPS_TF32,
 )
 from repro_torch.core.pipeline import (  # noqa: E402
     PipelineConfig,
@@ -161,6 +163,19 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_in_turns(fns, iters, rounds: int = 5) -> list:
+    """The best of ``rounds`` :func:`time_ms` readings of each function,
+    taken in turns (a b c, c b a, ...) so that both sides of a
+    comparison meet the same host and card state."""
+    best = [float("inf")] * len(fns)
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            best[i] = min(best[i], time_ms(fns[i], iters=iters[i],
+                                           warmup=min(20, iters[i])))
+    return best
+
+
 def rand(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -201,6 +216,12 @@ FLASH_CASES = (
     ("ragged 40x40", 2, 40, 40, 4, 2, 64, 64, True, 0),
     ("full Sk=96", 1, 32, 96, 4, 4, 64, 64, False, 0),
     ("MQA 200", 1, 200, 200, 8, 1, 64, 64, True, 0),
+    ("MHA G=1", 2, 64, 64, 8, 8, 64, 64, True, 0),
+    # 37 positions x 3 heads = 111 packed rows: the last q tile is ragged
+    ("G=3 ragged", 2, 37, 37, 6, 2, 64, 64, True, 0),
+    ("Sq<Sk window", 1, 50, 120, 8, 2, 64, 128, True, 24),
+    ("Sq>Sk", 1, 48, 16, 4, 1, 32, 32, True, 0),
+    ("llama prefill", 8, 512, 512, 32, 8, 64, 64, True, 0),
     # the hybrid's attention layer: 64 q heads over 8, D = Dv = 128
     ("hybrid B=2", 2, 512, 512, 64, 8, 128, 128, True, 0),
     ("hybrid 544", 1, 544, 544, 64, 8, 128, 128, True, 0),
@@ -308,9 +329,12 @@ def check_mamba(gen: torch.Generator) -> None:
 
 
 def kernel_record(name, source, replaces, kernel_fn, plain_fn, library_fn,
-                  nbytes, nops, dtype, plain_iters: int = 200) -> dict:
+                  nbytes, nops, dtype, plain_iters: int = 200,
+                  ops_ms=None) -> dict:
     """Time a kernel, its plain version and, where one PyTorch call
-    computes the same function (``library_fn``, else None), that call."""
+    computes the same function (``library_fn``, else None), that call.
+    The bound's operations take ``nops`` at the dtype's peak unless
+    ``ops_ms`` gives their least time."""
     got, exp = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     err = assert_close(got, exp, dtype, f"{name} timed shape")
@@ -319,17 +343,35 @@ def kernel_record(name, source, replaces, kernel_fn, plain_fn, library_fn,
         log(f"  {name}: library call differs from the plain version by "
             f"{lib_err:.3e} (a yardstick of time only; not asserted)")
     bytes_ms = nbytes / H100_HBM_BW * 1e3
-    ops_ms = nops / PEAK[dtype] * 1e3
+    if ops_ms is None:
+        ops_ms = nops / PEAK[dtype] * 1e3
+    fns = [kernel_fn, plain_fn] + ([library_fn] if library_fn else [])
+    ms = time_in_turns(fns, [200, plain_iters, 200][:len(fns)])
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": 0, "max_abs_err": err,
-        "ms": time_ms(kernel_fn),
-        "plain_ms": time_ms(plain_fn, iters=plain_iters,
-                            warmup=min(20, plain_iters)),
+        "ms": ms[0], "plain_ms": ms[1],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None if library_fn is None else time_ms(library_fn),
+        "library_ms": ms[2] if library_fn else None,
     }
+
+
+def flash_work(b, sq, sk, h, kv, d, dv, dtype, causal=True, window=0):
+    """(bytes, operations, least ms of the operations) of one flash call:
+    q and out once, k and v once; 2 (D + Dv) operations per (query, key)
+    pair the mask keeps."""
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = (b * sq * h * (d + dv) + b * sk * kv * (d + dv)) * esz
+    pairs = int(ref.causal_mask_ref(sq, sk, window, offset=sk - sq).sum()) \
+        if causal else sq * sk
+    ops = b * h * pairs * 2 * (d + dv)
+    if dtype == torch.float32:
+        # f32-accurate products on this card: one TF32 pass misses the
+        # repo's 2e-5 bar ~50x, so the least time is the 3xTF32 split,
+        # three tensor-core passes (less than f32 FMA at 67 TFLOP/s)
+        return nbytes, ops, 3 * ops / H100_PEAK_FLOPS_TF32 * 1e3
+    return nbytes, ops, ops / H100_PEAK_FLOPS_BF16 * 1e3
 
 
 def time_kernels(gen: torch.Generator) -> list:
@@ -348,42 +390,52 @@ def time_kernels(gen: torch.Generator) -> list:
         lambda: rms_mod.rmsnorm(x, g), lambda: ref.rmsnorm_ref(x, g),
         lambda: F.rms_norm(x, (d,), g, 1e-6),
         nbytes=(2 * rows * d + d) * esz, nops=4 * rows * d, dtype=dtype)]
-    xs, gs = rand(gen, (rows, 768), dtype), rand(gen, (768,), dtype)
-    log(f"  rmsnorm at the xlstm shape rows={rows} D=768: kernel "
-        f"{time_ms(lambda: rms_mod.rmsnorm(xs, gs)):.4f} ms, plain "
-        f"{time_ms(lambda: ref.rmsnorm_ref(xs, gs)):.4f} ms, F.rms_norm "
-        f"{time_ms(lambda: F.rms_norm(xs, (768,), gs, 1e-6)):.4f} ms")
+    for r2, d2 in ((rows, 768), (DECODE_BATCH * PROMPT, 8192)):
+        # the xlstm's rows, and the hybrid's d_model (a CTA per row)
+        xs, gs = rand(gen, (r2, d2), dtype), rand(gen, (d2,), dtype)
+        ms = time_in_turns((
+            lambda: rms_mod.rmsnorm(xs, gs), lambda: ref.rmsnorm_ref(xs, gs),
+            lambda: F.rms_norm(xs, (d2,), gs, 1e-6)), (200, 200, 200))
+        log(f"  rmsnorm at rows={r2} D={d2}: kernel {ms[0]:.4f} ms, plain "
+            f"{ms[1]:.4f} ms, F.rms_norm {ms[2]:.4f} ms, bound "
+            f"{(2 * xs.numel() + d2) * esz / H100_HBM_BW * 1e3:.6f} ms "
+            f"(bytes)")
+        del xs, gs
+    report_trace(f"rmsnorm at rows={rows} D={d}",
+                 cuda_events(lambda: rms_mod.rmsnorm(x, g), calls=20),
+                 records[-1]["ms"], calls=20)
 
-    # the hybrid's shapes: norms over d_model 8192 (a CTA per row) and
-    # its prefill attention, B 8 x 512 tokens, 64 q heads over 8, D 128
-    xh, gh = rand(gen, (DECODE_BATCH * PROMPT, 8192), dtype), \
-        rand(gen, (8192,), dtype)
-    ms = [time_ms(fn) for fn in (
-        lambda: rms_mod.rmsnorm(xh, gh), lambda: ref.rmsnorm_ref(xh, gh),
-        lambda: F.rms_norm(xh, (8192,), gh, 1e-6))]
-    log(f"  rmsnorm at the hybrid's rows={xh.shape[0]} D=8192: kernel "
-        f"{ms[0]:.4f} ms, plain {ms[1]:.4f} ms, F.rms_norm {ms[2]:.4f} ms, "
-        f"bound {2 * xh.numel() * esz / H100_HBM_BW * 1e3:.6f} ms")
-    q = rand(gen, (DECODE_BATCH, PROMPT, 64, 128), dtype)
-    k = rand(gen, (DECODE_BATCH, PROMPT, 8, 128), dtype)
-    v = rand(gen, (DECODE_BATCH, PROMPT, 8, 128), dtype)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ms = [time_ms(fn, iters=20) for fn in (
-        lambda: fa_mod.flash_attention(q, k, v),
-        lambda: ref.flash_attention_ref(q, k, v),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True))]
-    log(f"  flash at the hybrid's B={DECODE_BATCH} S={PROMPT} 64/8 heads "
-        f"D=128: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
-        f"F.scaled_dot_product_attention {ms[2]:.4f} ms")
-    del xh, gh, q, k, v, qt, kt, vt
+    # prefill attention: llama3.2-1b's (32 q heads over 8, D 64) and the
+    # hybrid's (64 over 8, D 128), B 8 x 512 tokens, f32 and bf16
+    for label, h, kv, hd in (("llama prefill", 32, 8, 64),
+                             ("hybrid prefill", 64, 8, 128)):
+        b, s = DECODE_BATCH, PROMPT
+        for dt in (torch.float32, torch.bfloat16):
+            q = rand(gen, (b, s, h, hd), dt)
+            k = rand(gen, (b, s, kv, hd), dt)
+            v = rand(gen, (b, s, kv, hd), dt)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            nbytes, _, ops_ms = flash_work(b, s, s, h, kv, hd, hd, dt)
+            bytes_ms = nbytes / H100_HBM_BW * 1e3
+            ms = time_in_turns((
+                lambda: fa_mod.flash_attention(q, k, v),
+                lambda: ref.flash_attention_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                (20, 5, 20))
+            log(f"  flash at the {label} B={b} S={s} {h}/{kv} heads D={hd} "
+                f"{str(dt)[6:]}: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} "
+                f"ms, F.scaled_dot_product_attention {ms[2]:.4f} ms, bound "
+                f"{max(bytes_ms, ops_ms):.6f} ms ("
+                f"{'bytes' if bytes_ms >= ops_ms else 'operations'})")
+            del q, k, v, qt, kt, vt
 
     b, s, h, kv, hd = SERVE_BATCH, SEQ, 32, 8, 64
     q = rand(gen, (b, s, h, hd), dtype)
     k = rand(gen, (b, s, kv, hd), dtype)
     v = rand(gen, (b, s, kv, hd), dtype)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    pairs = int(ref.causal_mask_ref(s, s).sum())      # keys this mask keeps
+    nbytes, nops, ops_ms = flash_work(b, s, s, h, kv, hd, hd, dtype)
     records.append(kernel_record(
         "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:78",
@@ -391,8 +443,10 @@ def time_kernels(gen: torch.Generator) -> list:
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
         lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
-        nbytes=(q.numel() + k.numel() + v.numel() + q.numel()) * esz,
-        nops=b * h * pairs * 2 * (hd + hd), dtype=dtype))
+        nbytes=nbytes, nops=nops, dtype=dtype, ops_ms=ops_ms))
+    report_trace("flash_attention at the served shape",
+                 cuda_events(lambda: fa_mod.flash_attention(q, k, v),
+                             calls=20), records[-1]["ms"], calls=20)
 
     # decode: DECODE_BATCH sequences, a full cache of SMAX slots
     b, smax, vl = DECODE_BATCH, SMAX, SMAX
@@ -448,6 +502,82 @@ def time_kernels(gen: torch.Generator) -> list:
     return records
 
 
+LAUNCH_CALLS = 10_000
+
+
+def host_us(fn, calls: int = LAUNCH_CALLS) -> float:
+    """Host-clock microseconds per call over ``calls`` back-to-back calls
+    of ``fn``, synchronised at the end."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def time_launch_path(gen: torch.Generator) -> None:
+    """Host cost of each step of the rmsnorm wrapper's launch path at the
+    served 256 x 2048 f32, LAUNCH_CALLS calls each, beside the whole
+    wrapper and ``F.rms_norm``; the steps the wrapper took before this
+    redesign are timed too. The launcher is timed with 0 rows: it returns
+    before launching, so the device never holds the host clock back."""
+    rows, d = SERVE_BATCH * SEQ, 2048
+    x, g = rand(gen, (rows, d), torch.float32), rand(gen, (d,), torch.float32)
+    out = torch.empty_like(x)
+    dev = x.get_device()
+    fn = _build.entry("rmsnorm_f32")
+    xp, gp, op, st = x.data_ptr(), g.data_ptr(), out.data_ptr(), \
+        _build.stream(dev)
+    probe = _build.LaunchCounter()
+    held = getattr(ctypes.PyDLL(str(_build.BUILD_DIR / _build.LIB_NAME)),
+                   "rmsnorm_f32")
+    held.argtypes, held.restype = _build.SIGNATURES["rmsnorm_f32"]
+    steps = (
+        ("loop and lambda call (baseline)", lambda: None),
+        ("checks: dtype, shape, device, contiguity", lambda: (
+            rms_mod.KERNEL_DTYPES.get(x.dtype), x.shape[-1],
+            g.shape != (d,), g.get_device() != dev, x.is_contiguous(),
+            g.dtype != x.dtype, g.is_contiguous())),
+        ("data_ptr x2 and alignment", lambda: (x.data_ptr()
+                                               | g.data_ptr()) % 16),
+        ("torch.empty_like", lambda: torch.empty_like(x)),
+        ("(alternative) x.new_empty(x.shape)", lambda: x.new_empty(x.shape)),
+        ("(alternative) torch.empty(shape, dtype, device)",
+         lambda: torch.empty(x.shape, dtype=x.dtype, device=x.device)),
+        ("(yardstick) torch.neg: one allocation, one launch",
+         lambda: torch.neg(x)),
+        ("_build.entry (cached binding)", lambda: _build.entry(
+            "rmsnorm_f32")),
+        ("_build.stream (raw handle)", lambda: _build.stream(dev)),
+        ("ctypes call with 0 rows (no launch)",
+         lambda: fn(xp, gp, op, 0, d, 1e-6, st)),
+        ("(alternative) the same through PyDLL (GIL held)",
+         lambda: held(xp, gp, op, 0, d, 1e-6, st)),
+        ("ctypes call with the launch", lambda: fn(xp, gp, op, rows, d,
+                                                   1e-6, st)),
+        ("counter.add", probe.add),
+        ("before: scale.to(dtype).contiguous()",
+         lambda: g.to(x.dtype).contiguous()),
+        ("before: _build.load() + getattr", lambda: getattr(
+            _build.load(), "rmsnorm_f32")),
+        ("before: torch.cuda.current_stream(device).cuda_stream",
+         lambda: torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    for name, step in steps:
+        log(f"  launch path: {name:55s} {host_us(step):7.3f} us")
+    for r2, d2 in ((rows, d), (rows, 768)):
+        xs, gs = rand(gen, (r2, d2), torch.float32), rand(gen, (d2,),
+                                                         torch.float32)
+        log(f"  launch path: rmsnorm wrapper at {r2} x {d2}: "
+            f"{host_us(lambda: rms_mod.rmsnorm(xs, gs)):.3f} us per call, "
+            f"F.rms_norm "
+            f"{host_us(lambda: F.rms_norm(xs, (d2,), gs, 1e-6)):.3f} us "
+            f"(host clock, {LAUNCH_CALLS} back-to-back calls)")
+
+
 def cuda_events(fn, calls: int = 1) -> list:
     """The CUDA kernels of a torch.profiler trace of ``calls`` calls of
     ``fn``, which runs once before, outside the trace."""
@@ -489,7 +619,9 @@ def report_trace(label: str, kernels: list, wall_ms: float,
             us, n = per_name.get(name, (0.0, 0))
             per_name[name] = (us + e.self_device_time_total, n + e.count)
     for name, (us, n) in per_name.items():
-        log(f"    {name}: {us / n:.2f} us of device time per launch")
+        log(f"    {name}: {us / n:.2f} us of device time per launch, "
+            f"x{n // calls}, {us / 1e3 / calls:.3f} ms per call "
+            f"({us / 1e3 / calls / busy_ms:.1%} of the busy time)")
 
 
 def kernel_name(key: str) -> str:
@@ -795,6 +927,10 @@ def decode_and_check(model, params, steps: int) -> tuple:
                 f"forward's argmax at a top-2 gap of {gap:.3e}, below the "
                 f"max abs error")
 
+        report_trace(f"one prefill of B={DECODE_BATCH} x {PROMPT}",
+                     cuda_events(lambda: model.prefill(
+                         params, {"tokens": prompt}, SMAX)),
+                     min(warm_s) * 1e3)
         # the step after the last, at valid_len PROMPT + steps + 1 (run
         # twice at that position: the second writes the same slot)
         tok, pos = toks[-1], PROMPT + steps
@@ -876,6 +1012,7 @@ def main() -> int:
     check_decode(gen)
     check_mamba(gen)
     records = time_kernels(gen)
+    time_launch_path(gen)
 
     log("[3] forward and decode against the CPU path; full-width stages, "
         "profile")

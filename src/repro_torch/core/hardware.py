@@ -23,6 +23,7 @@ ICI_BW = 50e9                 # bytes/s per link
 # the two apart ("H100 80GB HBM3" is the SXM part).
 H100_PEAK_FLOPS_BF16 = 989e12
 H100_PEAK_FLOPS_F32 = 67e12   # outside the tensor cores
+H100_PEAK_FLOPS_TF32 = 495e12  # tensor cores, TF32 inputs, f32 accumulate
 H100_HBM_BW = 3.35e12
 
 # CPU host core (measured-profile fallback / non-acceleratable stages)

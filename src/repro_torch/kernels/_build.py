@@ -8,18 +8,23 @@ lives under ``build/repro_torch/`` at the repository root, which git
 ignores.
 
 Nothing here runs at import time: the CPU tests import every module of
-the port on hosts that have no ``nvcc``.
+the port on hosts that have no ``nvcc``. The wrappers reach the library
+through :func:`entry` and :func:`stream`, which build, load and bind
+once and then cost a dict lookup and one C call per launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -52,24 +57,28 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_entries: Dict[str, Callable] = {}     # bound entry points, by name
 build_log = ""        # ptxas resource report of the last build
 
 
 class LaunchCounter:
-    """Launches of one kernel. Its wrapper adds one where it launches the
-    kernel and nowhere else, so a run can show that it went through it."""
+    """Launches of one kernel. Its wrapper calls ``add`` where it launches
+    the kernel and nowhere else, so a run can show that it went through
+    it. ``add`` is ``itertools.count.__next__``: one C call that no other
+    thread can interleave, so the executor's threads may launch at once
+    with no lock on the launch path."""
 
     def __init__(self) -> None:
-        self.count = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self.count += 1
+        self.reset()
 
     def reset(self) -> None:
-        with self._lock:
-            self.count = 0
+        self._ticks = itertools.count()
+        self.add = self._ticks.__next__
+
+    @property
+    def count(self) -> int:
+        # repr is "count(n)", n the next value: the calls so far
+        return int(repr(self._ticks)[len("count("):-1])
 
 
 def find_nvcc() -> str:
@@ -121,6 +130,23 @@ def load() -> ctypes.CDLL:
                 fn.restype = restype
             _lib = lib
     return _lib
+
+
+def entry(name: str) -> Callable:
+    """The C entry point ``name`` with its signature set. The first call
+    builds and loads the library; later ones are a dict lookup, with no
+    lock."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries.setdefault(name, getattr(load(), name))
+    return fn
+
+
+def stream(device_index: int) -> int:
+    """The raw handle of the current CUDA stream of a device, read
+    without building a ``torch.cuda.Stream`` object (PyTorch's own
+    kernel launchers read it the same way)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(rc: int, kernel: str) -> None:

@@ -1,196 +1,514 @@
-// Flash attention forward (prefill/score path) with grouped KV heads.
+// Flash attention forward (prefill/score path) with grouped KV heads, on
+// the H100's tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention (_flash_kernel): online-softmax attention with f32
 // running max, denominator and accumulator; q head h reads kv head
 // h / (H / KV) without expanding K/V; the causal diagonal is offset by
 // sk - sq and a window keeps keys with q_pos - k_pos < window; the output
-// is cast to q's type.
+// is cast to q's type. Rows that see no key give 0, as the plain version
+// does.
 //
-// Layouts (all contiguous): q (B, Sq, H, D), k (B, Sk, KV, D),
-// v (B, Sk, KV, Dv), out (B, Sq, H, Dv). D, Dv <= 128.
+// Layouts (all contiguous, 16-byte aligned): q (B, Sq, H, D),
+// k (B, Sk, KV, D), v (B, Sk, KV, Dv), out (B, Sq, H, Dv). D and Dv are
+// multiples of 8 up to 128.
 //
-// Design. One CTA of 128 threads per (q tile of 64 rows, q head, batch).
-// The TPU walks kv blocks on a sequential fourth grid axis and carries
-// (m, l, acc) in VMEM scratch; here that axis is a loop inside the CTA,
-// over kv tiles of 64 rows staged in shared memory, and the running
-// state lives in registers. Each warp owns 16 query rows, two lanes per
-// row: a lane computes the scores of the row against the even or the
-// odd half of the kv tile and accumulates the even or the odd half of
-// the output dimensions. Shared-memory rows are padded by one float so
-// the 16 rows a warp reads at once fall in distinct banks. kv tiles that
-// the causal/window mask hides from every row of the q tile are never
-// loaded (the TPU kernel still runs them; skipping them changes no
-// result). Fully masked rows give 0, as the plain version does.
+// What bounds it. At the hybrid's prefill (B 8, 512 tokens, 64 q heads
+// over 8, D 128) the causal work is 34.4 GFLOP against 302 MB, so
+// operations bound it. Every config computes in f32 and the repo's f32
+// bar is 2e-5: one TF32 pass misses it by ~50x, so f32 inputs take the
+// 3xTF32 split, x = big + small with big = tf32(x) and small the
+// remainder x - big, each product accumulated in f32 as small*big +
+// big*small + big*big. That is as accurate as f32 FMA and the least time
+// to it on this card: 3 x 34.4 GFLOP at 495 TFLOP/s = 0.209 ms. bf16
+// inputs take one bf16 MMA with an f32 accumulator.
 //
-// Arithmetic is f32 FMA throughout, with no TF32, so f32 inputs meet the
-// repo's 2e-5 tolerance. What bounds it on the H100: at the served
-// shapes (Sq = Sk = 32, D = 64) the work is ~0.1 MFLOP per (batch, head)
-// against ~24 KB moved, so the bound is bytes; the kernel's own time is
-// set by the CUDA-core FMA rate out of shared memory and by launch
-// latency, not by HBM. Moving the two products onto wgmma tensor cores
-// (bf16, or 3xTF32 for f32) is the follow-up when sequences grow.
+// Design.
+// - Instruction: mma.sync.aligned.m16n8k8 (tf32) and m16n8k16 (bf16),
+//   one warp per 16 query rows. wgmma would need both operands of the
+//   second product in shared memory in its own swizzled layout, and P
+//   rewritten there every kv tile; mma.sync takes P straight from the
+//   score accumulators in registers. wgmma is the next step.
+// - The GQA group shares its K/V tiles. The G = H / KV query heads of
+//   one kv head fill the rows of a CTA's q tile position-major (row =
+//   position * G + g), so each K/V tile is read once per group, and the
+//   causal/window range of a tile is that of its 64 / G positions. Any
+//   G works; at the served Sq = 32, G = 4, a (batch, kv head) has two
+//   full tiles, and B 8 x 8 kv heads give 128 CTAs.
+// - K/V through a 2-stage cp.async ring (16-byte copies, zero-filled
+//   past Sk): the next tile's copy is in flight while this tile's MMAs
+//   run. Q is read once, by the same 16-byte copies. Tiles that the
+//   causal/window mask hides from every row are never loaded, and the
+//   mask is applied only to tiles that cross an edge. Longest q tiles
+//   are scheduled first.
+// - Shared memory rows are padded by 16 bytes, which makes every
+//   fragment read below conflict-free (ldmatrix rows fall in distinct
+//   16-byte bank groups; the f32 V reads of lanes (g, t) hit banks
+//   8t + g). Head dims are padded with zeros to DH = 32, 64 or 128,
+//   written once, so D != Dv needs no other path.
+//   Budget at DH = 128, 128 threads: f32 (64 + 2 x 2 x 32 rows) x 132 x
+//   4 B = 99 KiB with 32-row kv tiles; bf16 (64 + 2 x 2 x 64) x 136 x 2 B
+//   = 85 KiB with 64-row tiles; two CTAs (8 warps) fit an SM either way.
+// - In the PV product of the tf32 path the kv index inside a k-step of 8
+//   is permuted (MMA k index t holds kv column 2t, t + 4 holds 2t + 1),
+//   the same way for P and V, so P feeds the MMA from the score
+//   accumulators without a shuffle; the sum is unchanged.
+// - cudaFuncSetAttribute runs once per template instance and device.
 #include <math.h>
+#include <stdint.h>
+
+#include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per CTA
-constexpr int kBK = 64;        // kv rows per shared-memory tile
-constexpr int kThreads = 128;  // 4 warps x 16 rows x 2 lanes per row
-constexpr int kHalfBK = kBK / 2;
+constexpr int kBM = 64;        // packed q rows per CTA: 4 warps x 16
+constexpr int kThreads = 128;
+constexpr int kStages = 2;
+constexpr int kMaxDevices = 64;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// DVH: output dims per lane (Dv <= 2 * DVH).
-template <typename T, int DVH>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 int h, int kvh, int d, int dv, int causal, int window,
-                 float scale) {
-  extern __shared__ float smem[];
-  const int ldq = d + 1;    // padded stride of Q and K rows
-  const int ldp = kBK + 1;  // padded stride of P rows
-  float* sQ = smem;                 // kBQ x ldq
-  float* sK = sQ + kBQ * ldq;       // kBK x ldq
-  float* sV = sK + kBK * ldq;       // kBK x dv
-  float* sP = sV + kBK * dv;        // kBQ x ldp
+// Tile geometry of one (type, padded head dim) instance.
+template <typename T, int DH>
+struct Tile {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per copy
+  static constexpr int kLd = DH + kVec;       // padded row stride
+  static constexpr int kBN = (sizeof(T) == 4 && DH > 64) ? 32 : 64;
+  static constexpr size_t kSmem =
+      sizeof(T) * static_cast<size_t>(kBM + 2 * kStages * kBN) * kLd;
+};
 
-  const int q0 = blockIdx.x * kBQ;
-  const int hh = blockIdx.y;
-  const int bb = blockIdx.z;
-  const int kh = hh / (h / kvh);
-  const int offset = sk - sq;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int r = (tid >> 5) * 16 + (lane >> 1);  // query row in the tile
-  const int half = lane & 1;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  for (int idx = tid; idx < kBQ * d; idx += kThreads) {
-    const int rr = idx / d, dd = idx - rr * d;
-    const int qrow = q0 + rr;
-    sQ[rr * ldq + dd] =
-        qrow < sq ? repro::to_float(q[((static_cast<size_t>(bb) * sq + qrow) * h + hh) * d + dd])
-                  : 0.f;
+// 16-byte asynchronous copy; with valid false it writes 16 zero bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small: big = tf32(x) rounded to nearest, small the f32
+// remainder x - big (exact), of which the MMA reads the TF32 part (its top
+// 19 bits; truncating there costs ~2^-21 |x|, the order of the small *
+// small term the split leaves out).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// Not volatile: register operands only, so the compiler may interleave
+// MMAs of independent accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// Accumulator layout of an m16n8 tile (both instructions): lane
+// (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t, 2t + 1
+// as c[0], c[1] (row g) and c[2], c[3] (row g + 8).
+
+// s (16 x BN of this warp) = Q K^T, f32 inputs, 3xTF32. sq: the warp's
+// 16 rows of Q; sk: the kv tile. ldmatrix reads f32 fragments too: an
+// 8 x 8 b16 matrix is 8 rows of 4 floats, and lane (g, t) receives float
+// (g, t), the tf32 A and B layout. Each pass runs over the k-step's
+// independent n-tiles before the next pass adds to them, small terms
+// first.
+template <int DH, int BN, int LD>
+__device__ __forceinline__ void scores_f32(float (&s)[BN / 8][4],
+                                           const float* sq, const float* sk,
+                                           int lane) {
+  const int i = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < DH / 8; ++ks) {
+    uint32_t qa[4], ab[4], as[4];  // rows 0-7 | 8-15, columns t | t + 4
+    ldsm_x4(qa, sq + ((i & 1) * 8 + r) * LD + ks * 8 + (i >> 1) * 4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_tf32(__uint_as_float(qa[e]), ab[e], as[e]);
+    uint32_t bb[BN / 8][2], bs[BN / 8][2];
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {
+      uint32_t kb[4];  // kv rows 16np + 0..7 | 8..15, columns t | t + 4
+      ldsm_x4(kb, sk + (np * 16 + (i >> 1) * 8 + r) * LD + ks * 8 +
+                      (i & 1) * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(__uint_as_float(kb[e]), bb[2 * np + (e >> 1)][e & 1],
+                   bs[2 * np + (e >> 1)][e & 1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+      mma_tf32(s[nt], as, bb[nt][0], bb[nt][1]);
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+      mma_tf32(s[nt], ab, bs[nt][0], bs[nt][1]);
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+      mma_tf32(s[nt], ab, bb[nt][0], bb[nt][1]);
   }
+}
 
-  // kv positions any real row of this tile can see
-  const int q_first = q0 + offset;
-  const int q_last = min(q0 + kBQ, sq) - 1 + offset;
-  int kv_lo = 0, kv_hi = sk;
-  if (causal) {
-    kv_hi = min(sk, q_last + 1);
-    if (window > 0) kv_lo = max(0, q_first - window + 1);
-  }
-
-  const int qpos = q0 + r + offset;
-  float m_i = -INFINITY, l_i = 0.f;
-  float acc[DVH];
+// acc (16 x DH) += P V, f32, 3xTF32; P in the score accumulators. The
+// output n-tiles go in groups of 4, three passes per group.
+template <int DH, int BN, int LD>
+__device__ __forceinline__ void pv_f32(float (&acc)[DH / 8][4],
+                                       const float (&p)[BN / 8][4],
+                                       const float* sv, int g, int t) {
 #pragma unroll
-  for (int i = 0; i < DVH; ++i) acc[i] = 0.f;
-
-  for (int kv0 = (kv_lo / kBK) * kBK; kv0 < kv_hi; kv0 += kBK) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int idx = tid; idx < kBK * d; idx += kThreads) {
-      const int rr = idx / d, dd = idx - rr * d;
-      const int krow = kv0 + rr;
-      sK[rr * ldq + dd] =
-          krow < sk ? repro::to_float(k[((static_cast<size_t>(bb) * sk + krow) * kvh + kh) * d + dd])
-                    : 0.f;
-    }
-    for (int idx = tid; idx < kBK * dv; idx += kThreads) {
-      const int rr = idx / dv, dd = idx - rr * dv;
-      const int krow = kv0 + rr;
-      sV[rr * dv + dd] =
-          krow < sk ? repro::to_float(v[((static_cast<size_t>(bb) * sk + krow) * kvh + kh) * dv + dd])
-                    : 0.f;
-    }
-    __syncthreads();
-
-    // scores of row r against kv columns 2j + half
-    float s[kHalfBK];
+  for (int kk = 0; kk < BN / 8; ++kk) {
+    // MMA k index t is kv column 2t, t + 4 is 2t + 1 (see the note)
+    uint32_t ab[4], as[4];
+    split_tf32(p[kk][0], ab[0], as[0]);
+    split_tf32(p[kk][2], ab[1], as[1]);
+    split_tf32(p[kk][1], ab[2], as[2]);
+    split_tf32(p[kk][3], ab[3], as[3]);
+    const float* vr = sv + (kk * 8 + 2 * t) * LD + g;
 #pragma unroll
-    for (int j = 0; j < kHalfBK; ++j) s[j] = 0.f;
-    const float* qr = sQ + r * ldq;
-    for (int dd = 0; dd < d; ++dd) {
-      const float qv = qr[dd];
+    for (int n0 = 0; n0 < DH / 8; n0 += 4) {
+      uint32_t bb[4][2], bs[4][2];
 #pragma unroll
-      for (int j = 0; j < kHalfBK; ++j)
-        s[j] = fmaf(qv, sK[(2 * j + half) * ldq + dd], s[j]);
-    }
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kHalfBK; ++j) {
-      const int kpos = kv0 + 2 * j + half;
-      bool keep = kpos < sk;
-      if (causal)
-        keep = keep && kpos <= qpos && (window <= 0 || qpos - kpos < window);
-      s[j] = keep ? s[j] * scale : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    float alpha = 1.f, psum = 0.f;
-    if (m_new != -INFINITY) {  // else every key so far is masked
-      alpha = expf(m_i - m_new);
-#pragma unroll
-      for (int j = 0; j < kHalfBK; ++j) {
-        s[j] = expf(s[j] - m_new);
-        psum += s[j];
+      for (int j = 0; j < 4; ++j) {
+        split_tf32(vr[(n0 + j) * 8], bb[j][0], bs[j][0]);
+        split_tf32(vr[LD + (n0 + j) * 8], bb[j][1], bs[j][1]);
       }
-    } else {
 #pragma unroll
-      for (int j = 0; j < kHalfBK; ++j) s[j] = 0.f;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_i = l_i * alpha + psum;
-    m_i = m_new;
-
-    float* pr = sP + r * ldp;
+      for (int j = 0; j < 4; ++j)
+        mma_tf32(acc[n0 + j], as, bb[j][0], bb[j][1]);
 #pragma unroll
-    for (int j = 0; j < kHalfBK; ++j) pr[2 * j + half] = s[j];
-    __syncwarp();  // the row's two lanes are in this warp
+      for (int j = 0; j < 4; ++j)
+        mma_tf32(acc[n0 + j], ab, bs[j][0], bs[j][1]);
 #pragma unroll
-    for (int i = 0; i < DVH; ++i) acc[i] *= alpha;
-    for (int c = 0; c < kBK; ++c) {
-      const float p = pr[c];
-      const float* vr = sV + c * dv;
-#pragma unroll
-      for (int i = 0; i < DVH; ++i) {
-        const int dd = 2 * i + half;
-        if (dd < dv) acc[i] = fmaf(p, vr[dd], acc[i]);
-      }
-    }
-  }
-
-  const int qrow = q0 + r;
-  if (qrow < sq) {
-    T* orow = o + ((static_cast<size_t>(bb) * sq + qrow) * h + hh) * dv;
-#pragma unroll
-    for (int i = 0; i < DVH; ++i) {
-      const int dd = 2 * i + half;
-      if (dd < dv)
-        orow[dd] = repro::from_float<T>(l_i > 0.f ? acc[i] / l_i : 0.f);
+      for (int j = 0; j < 4; ++j)
+        mma_tf32(acc[n0 + j], ab, bb[j][0], bb[j][1]);
     }
   }
 }
 
-template <typename T, int DVH>
-int launch_dvh(const void* q, const void* k, const void* v, void* o, int b,
-               int sq, int sk, int h, int kvh, int d, int dv, int causal,
-               int window, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      (static_cast<size_t>(kBQ + kBK) * (d + 1) + static_cast<size_t>(kBK) * dv +
-       static_cast<size_t>(kBQ) * (kBK + 1));
-  auto kernel = flash_fwd_kernel<T, DVH>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// s = Q K^T, bf16; Q fragments already in registers.
+template <int DH, int BN, int LD>
+__device__ __forceinline__ void scores_bf16(float (&s)[BN / 8][4],
+                                            const uint32_t (&qf)[DH / 16][4],
+                                            const __nv_bfloat16* sk,
+                                            int lane) {
+  const int i = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < DH / 16; ++ks) {
+#pragma unroll
+    for (int np = 0; np < BN / 16; ++np) {
+      uint32_t b[4];  // kv rows 16np + 0..7 | 8..15, d low | high half
+      ldsm_x4(b, sk + (np * 16 + (i >> 1) * 8 + r) * LD + ks * 16 +
+                     (i & 1) * 8);
+      mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
+    }
+  }
+}
+
+// acc += P V, bf16; P rounded to bf16 from the score accumulators.
+template <int DH, int BN, int LD>
+__device__ __forceinline__ void pv_bf16(float (&acc)[DH / 8][4],
+                                        const float (&p)[BN / 8][4],
+                                        const __nv_bfloat16* sv, int lane) {
+  const int i = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t a[4] = {
+        pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+        pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int np = 0; np < DH / 16; ++np) {
+      uint32_t b[4];  // kv rows low | high half, dv columns 16np + 0..7 | 8..15
+      ldsm_x4_trans(b, sv + (kk * 16 + (i & 1) * 8 + r) * LD + np * 16 +
+                           (i >> 1) * 8);
+      mma_bf16(acc[2 * np], a, b[0], b[1]);
+      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <typename T>
+__device__ void zero_cols(T* base, int nrows, int ld, int c0, int c1) {
+  const int w = c1 - c0;
+  if (w <= 0) return;
+  for (int idx = threadIdx.x; idx < nrows * w; idx += kThreads) {
+    const int r = idx / w;
+    base[r * ld + c0 + idx - r * w] = repro::from_float<T>(0.f);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One CTA per (q tile of 64 packed rows, kv head, batch).
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
+                 int h, int kvh, int d, int dv, int causal, int window,
+                 float scale_log2) {
+  using Geo = Tile<T, DH>;
+  constexpr int BN = Geo::kBN, LD = Geo::kLd, VEC = Geo::kVec;
+  constexpr int CPR = DH / VEC;  // 16-byte chunks per padded row
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // kBM x LD
+  T* sK = sQ + kBM * LD;                   // kStages x BN x LD
+  T* sV = sK + kStages * BN * LD;          // kStages x BN x LD
+
+  const int grp = h / kvh;    // q heads per kv head
+  const int rows = sq * grp;  // packed rows of one (batch, kv head)
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * kBM;  // longest tiles first
+  const int kh = blockIdx.y, bb = blockIdx.z;
+  const int offset = sk - sq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // kv positions any real row of this tile can see
+  const int pos_first = m0 / grp;
+  const int pos_last = (min(m0 + kBM, rows) - 1) / grp;
+  int kv_lo = 0, kv_hi = sk;
+  if (causal) {
+    kv_hi = min(sk, pos_last + offset + 1);
+    if (window > 0) kv_lo = max(0, pos_first + offset - window + 1);
+  }
+  const int t_lo = kv_lo / BN;
+  const int t_hi = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN : t_lo;
+
+  // head-dim padding stays zero: the copies never write it
+  zero_cols(sQ, kBM + kStages * BN, LD, d, DH);
+  zero_cols(sV, kStages * BN, LD, dv, DH);
+
+  // Q: packed row m0 + rr is position (m0 + rr) / grp, head
+  // kh * grp + (m0 + rr) % grp
+  for (int idx = tid; idx < kBM * CPR; idx += kThreads) {
+    const int rr = idx / CPR, c = (idx % CPR) * VEC;
+    if (c >= d) continue;
+    const int r = m0 + rr;
+    const bool ok = r < rows;
+    const int pos = ok ? r / grp : 0;
+    const int head = kh * grp + (ok ? r - pos * grp : 0);
+    const T* src =
+        q + ((static_cast<size_t>(bb) * sq + pos) * h + head) * d + c;
+    cp_async16(sQ + rr * LD + c, src, ok);
+  }
+  cp_async_commit();
+
+  auto load_kv = [&](int tile, int stage) {
+    T* dk = sK + stage * BN * LD;
+    T* dvv = sV + stage * BN * LD;
+    for (int idx = tid; idx < BN * CPR; idx += kThreads) {
+      const int rr = idx / CPR, c = (idx % CPR) * VEC;
+      const int j = tile * BN + rr;
+      const bool ok = j < sk;
+      const size_t row =
+          (static_cast<size_t>(bb) * sk + (ok ? j : 0)) * kvh + kh;
+      if (c < d) cp_async16(dk + rr * LD + c, k + row * d + c, ok);
+      if (c < dv) cp_async16(dvv + rr * LD + c, v + row * dv + c, ok);
+    }
+  };
+  if (t_lo < t_hi) load_kv(t_lo, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  const T* sQw = sQ + warp * 16 * LD;
+  uint32_t qf[kF32 ? 1 : DH / 16][4];
+  if constexpr (!kF32) {
+    const int i = lane >> 3, r = lane & 7;
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      ldsm_x4(qf[ks], sQw + ((i & 1) * 8 + r) * LD + ks * 16 + (i >> 1) * 8);
+  }
+
+  const int r0 = m0 + warp * 16 + g;  // this lane's rows r0, r0 + 8
+  const int qp[2] = {r0 / grp + offset, (r0 + 8) / grp + offset};
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    const int stage = (tile - t_lo) & 1;
+    if (tile + 1 < t_hi) load_kv(tile + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile has landed
+    __syncthreads();
+    const T* sKs = sK + stage * BN * LD;
+    const T* sVs = sV + stage * BN * LD;
+
+    float s[BN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    if constexpr (kF32)
+      scores_f32<DH, BN, LD>(s, sQw, sKs, lane);
+    else
+      scores_bf16<DH, BN, LD>(s, qf, sKs, lane);
+
+    const int kv0 = tile * BN;
+    const bool mask =
+        kv0 + BN > sk ||
+        (causal && (kv0 + BN - 1 > pos_first + offset ||
+                    (window > 0 && pos_last + offset - kv0 >= window)));
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[nt][e] * scale_log2;
+        if (mask) {
+          const int j = kv0 + nt * 8 + 2 * t + (e & 1);
+          const int p = qp[e >> 1];
+          const bool keep = j < sk && (!causal || (j <= p && (window <= 0 ||
+                                                            p - j < window)));
+          x = keep ? x : -INFINITY;
+        }
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float mref[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m_i[hh], mx[hh]);
+      // every key so far masked: keep the (zero) state, p = 0
+      const float alpha = m_new == -INFINITY ? 1.f : exp2f(m_i[hh] - m_new);
+      mref[hh] = m_new == -INFINITY ? 0.f : m_new;
+      m_i[hh] = m_new;
+      l_i[hh] *= alpha;
+#pragma unroll
+      for (int nt = 0; nt < DH / 8; ++nt) {
+        acc[nt][2 * hh] *= alpha;
+        acc[nt][2 * hh + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - mref[e >> 1]);
+        l_i[e >> 1] += s[nt][e];
+      }
+
+    if constexpr (kF32)
+      pv_f32<DH, BN, LD>(acc, s, sVs, g, t);
+    else
+      pv_bf16<DH, BN, LD>(acc, s, sVs, lane);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_i[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const int r = r0 + 8 * hh;
+    if (r >= rows) continue;
+    const int pos = r / grp;
+    const int head = kh * grp + r - pos * grp;
+    T* orow = o + ((static_cast<size_t>(bb) * sq + pos) * h + head) * dv;
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      if (c < dv)
+        store2(orow + c, acc[nt][2 * hh] * inv, acc[nt][2 * hh + 1] * inv);
+    }
+  }
+}
+
+template <typename T, int DH>
+int launch_dh(const void* q, const void* k, const void* v, void* o, int b,
+              int sq, int sk, int h, int kvh, int d, int dv, int causal,
+              int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = Tile<T, DH>::kSmem;
+  auto kernel = flash_fwd_kernel<T, DH>;
+  // the shared-memory opt-in, once per instance and device
+  static std::once_flag once[kMaxDevices];
+  static cudaError_t attr_err[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  std::call_once(once[dev], [&] {
+    attr_err[dev] = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+  });
+  if (attr_err[dev] != cudaSuccess) return static_cast<int>(attr_err[dev]);
+  const int rows = sq * (h / kvh);
+  const dim3 grid((rows + kBM - 1) / kBM, kvh, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kvh, d, dv,
-      causal, window, scale);
+      causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -199,16 +517,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int h, int kvh, int d, int dv, int causal,
            int window, float scale, cudaStream_t stream) {
   if (b <= 0 || sq <= 0 || h <= 0) return 0;
-  if (kvh <= 0 || h % kvh != 0 || d <= 0 || d > 128 || dv <= 0 || dv > 128 ||
-      sk < 0)
+  if (kvh <= 0 || h % kvh != 0 || d <= 0 || d > 128 || dv <= 0 ||
+      dv > 128 || d % 8 != 0 || dv % 8 != 0 || sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dv <= 32)
-    return launch_dvh<T, 16>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
-                             window, scale, stream);
-  if (dv <= 64)
-    return launch_dvh<T, 32>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
-                             window, scale, stream);
-  return launch_dvh<T, 64>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
+  const int dmax = d > dv ? d : dv;
+  if (dmax <= 32)
+    return launch_dh<T, 32>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
+                            window, scale, stream);
+  if (dmax <= 64)
+    return launch_dh<T, 64>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
+                            window, scale, stream);
+  return launch_dh<T, 128>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
                            window, scale, stream);
 }
 

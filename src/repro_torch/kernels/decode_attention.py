@@ -98,12 +98,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len,
                      device=q.device)
     acc = torch.empty((b * kvh * splits * g * dv,), dtype=torch.float32,
                       device=q.device)
-    lib = _build.load()
-    rc = lib.decode_attention_fwd(
+    rc = _build.entry("decode_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ml.data_ptr(), acc.data_ptr(), dtype, b, smax, h, kvh, d, dv, lo, vl,
-        splits, chunk, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "decode_attention")
+        splits, chunk, float(scale), _build.stream(q.get_device()))
+    if rc:
+        _build.check(rc, "decode_attention")
     counter.add()
     return out

@@ -73,11 +73,11 @@ def _launch(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                          "(16-byte loads)")
     y = torch.empty_like(x)
     h_out = torch.empty_like(h0)
-    lib = _build.load()
-    rc = lib.mamba_scan_fwd(
+    rc = _build.entry("mamba_scan_fwd")(
         dt.data_ptr(), x.data_ptr(), b.data_ptr(), c.data_ptr(),
         a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), dtype,
-        bsz, length, d, n, torch.cuda.current_stream(dt.device).cuda_stream)
-    _build.check(rc, "mamba_scan")
+        bsz, length, d, n, _build.stream(dt.get_device()))
+    if rc:
+        _build.check(rc, "mamba_scan")
     counter.add()
     return y, h_out

@@ -11,7 +11,9 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-KERNEL_DTYPES = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
+# entry point, and the alignment its 4-element vector loads need (bytes)
+KERNEL_DTYPES = {torch.float32: ("rmsnorm_f32", 16),
+                 torch.bfloat16: ("rmsnorm_bf16", 8)}
 MAX_D = 16384                 # a CTA of 256 threads x 16 vectors of 4
 
 counter = _build.LaunchCounter()
@@ -21,20 +23,23 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); scale: (D,). ``x * rsqrt(mean(x^2) + eps)`` cast to
     ``x.dtype``, times ``scale`` cast to ``x.dtype``."""
+    if x.is_cuda:
+        return _launch(x, scale, eps)
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: unsupported device {x.device}")
-    return _launch(x, scale, eps)
+    raise ValueError(f"rmsnorm: unsupported device {x.device}")
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    fn = KERNEL_DTYPES.get(x.dtype)
+    # the launch path of every norm of a forward: each step here is host
+    # time per call, so checks read plain attributes and ints
+    fn_align = KERNEL_DTYPES.get(x.dtype)
     d = x.shape[-1]
-    if fn is None:
+    if fn_align is None:
         raise TypeError(f"rmsnorm kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
-    if scale.shape != (d,) or scale.device != x.device:
+    dev = x.get_device()
+    if scale.shape != (d,) or scale.get_device() != dev:
         raise ValueError(f"rmsnorm: scale {tuple(scale.shape)} on "
                          f"{scale.device} does not match x (..., {d}) on "
                          f"{x.device}")
@@ -43,16 +48,16 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
                          f"most {MAX_D}, got {d}")
     if not x.is_contiguous():
         raise ValueError("rmsnorm kernel needs a contiguous x")
-    scale = scale.to(x.dtype).contiguous()
-    # 16-byte (f32) / 8-byte (bf16) vector loads
-    if (x.data_ptr() | scale.data_ptr()) % (4 * x.element_size()):
+    if scale.dtype != x.dtype or not scale.is_contiguous():
+        scale = scale.to(x.dtype).contiguous()
+    fn, align = fn_align
+    xp, sp = x.data_ptr(), scale.data_ptr()
+    if (xp | sp) % align:
         raise ValueError("rmsnorm kernel needs 4-element-aligned tensors")
     out = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
-    lib = _build.load()
-    rc = getattr(lib, fn)(x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                          rows, d, float(eps),
-                          torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "rmsnorm")
+    rc = _build.entry(fn)(xp, sp, out.data_ptr(), x.numel() // d if d else 0,
+                          d, eps, _build.stream(dev))
+    if rc:
+        _build.check(rc, "rmsnorm")
     counter.add()
     return out

@@ -121,9 +121,16 @@ def init_cache(cfg: ArchConfig, batch: int, smax: int,
 
 
 def cache_bytes(cfg: ArchConfig, batch: int, smax: int) -> int:
-    """Analytic cache footprint (profiler/roofline helper): the
-    reference's count, which takes every leaf at the compute dtype's
-    size."""
+    """Analytic cache footprint (profiler/roofline helper), the
+    reference's count, all at the compute dtype's size: K/V (or MLA's
+    latent and rope key) and the Mamba conv window at 1 x their
+    elements; the Mamba ``h``, the mLSTM ``C`` and ``n``, and the four
+    sLSTM states at 2 x their elements, as f32 state under bf16 compute
+    would take; the mLSTM ``m`` is left out. Those states are f32 in the
+    ``init_cache`` tree whatever the compute dtype, so for an f32 config
+    the recurrent part is counted at twice the tree's bytes (xlstm-125m
+    at B 8, smax 1024: 341,213,184 counted against 170,607,744); the
+    attention part is exact."""
     total = 0
     itemsize = cfg.cdtype.itemsize
     for seg in cfg.segments:

@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke, without_experts  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
@@ -40,7 +41,12 @@ def _rand(gen, shape, dtype):
 @pytest.mark.parametrize("rows,d", [(32, 768), (512, 2048), (7, 2048),
                                     (3, 4096), (5, 4),
                                     # a CTA per row past D 4096
-                                    (9, 8192), (3, 4100), (2, 16384)])
+                                    (9, 8192), (3, 4100), (2, 16384),
+                                    # a CTA per row below 528 rows, a warp
+                                    # per row from there
+                                    (1, 2048), (7, 768), (256, 2048),
+                                    (256, 768), (527, 4096), (528, 2048),
+                                    (4096, 2048), (4096, 8192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_kernel_matches_plain(gen, rows, d, dtype):
     x, g = _rand(gen, (rows, d), dtype), _rand(gen, (d,), dtype)
@@ -62,6 +68,17 @@ def test_rmsnorm_kernel_matches_plain(gen, rows, d, dtype):
     (1, 32, 96, 4, 4, 64, 64, False, 0),       # full
     (1, 48, 16, 4, 1, 32, 32, True, 0),        # Sq > Sk: early rows see no key
     (2, 512, 512, 64, 8, 128, 128, True, 0),   # the hybrid's attention
+    # q tiles hold position x G rows of one kv head's group
+    (2, 64, 64, 8, 8, 64, 64, True, 0),        # G = 1
+    (2, 64, 64, 16, 4, 64, 64, True, 0),       # G = 4
+    (2, 64, 64, 64, 8, 128, 128, True, 0),     # G = 8
+    (2, 37, 37, 6, 2, 64, 64, True, 0),        # G = 3: 111 rows, ragged tile
+    (1, 5, 5, 12, 1, 64, 64, True, 0),         # G = 12: one tile, 60 of 64 rows
+    (1, 50, 120, 8, 2, 64, 64, True, 24),      # Sq < Sk with a window
+    (1, 40, 100, 8, 4, 64, 128, True, 16),     # D != Dv, Dv > D, windowed
+    (2, 33, 33, 4, 2, 32, 64, False, 0),       # D != Dv, full
+    (8, 512, 512, 32, 8, 64, 64, True, 0),     # llama3.2-1b prefill
+    (8, 512, 512, 64, 8, 128, 128, True, 0),   # the hybrid's prefill
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(gen, b, sq, sk, h, kv, d, dv, causal,
@@ -77,6 +94,33 @@ def test_flash_kernel_matches_plain(gen, b, sq, sk, h, kv, d, dv, causal,
     torch.testing.assert_close(got.float(), exp.float(), **TOL[dtype])
 
 
+def test_second_call_uses_the_cached_binding(gen, monkeypatch):
+    """After the first launch, a wrapper call neither builds nor loads
+    the library again: the bound entry point is reused."""
+    x, g = _rand(gen, (4, 64), torch.float32), _rand(gen, (64,),
+                                                     torch.float32)
+    q = _rand(gen, (1, 8, 4, 64), torch.float32)
+    rms_mod.rmsnorm(x, g)
+    fa_mod.flash_attention(q, q, q)
+    bound = dict(_build._entries)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the library was built or loaded again")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    before = (rms_mod.counter.count, fa_mod.counter.count)
+    got = rms_mod.rmsnorm(x, g)
+    out = fa_mod.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert (rms_mod.counter.count, fa_mod.counter.count) == \
+        (before[0] + 1, before[1] + 1)
+    assert _build._entries == bound
+    torch.testing.assert_close(got, ref.rmsnorm_ref(x, g), **TOL[x.dtype])
+    torch.testing.assert_close(out, ref.flash_attention_ref(q, q, q),
+                               **TOL[q.dtype])
+
+
 def test_kernels_reject_what_they_do_not_take(gen):
     x = _rand(gen, (4, 6), torch.float32)
     with pytest.raises(ValueError, match="multiple of 4"):
@@ -90,6 +134,16 @@ def test_kernels_reject_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         fa_mod.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                                q.transpose(1, 2))
+    q = _rand(gen, (1, 8, 2, 12), torch.float32)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa_mod.flash_attention(q, q, q)
+    q = _rand(gen, (1, 8, 2, 17), torch.float32)[..., 1:]
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_mod.flash_attention(q, q, q)
+    q = _rand(gen, (1, 8 * 2 * 16 + 1), torch.float32)[:, 1:].view(
+        1, 8, 2, 16)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_mod.flash_attention(q, q, q)
 
 
 @pytest.mark.parametrize("b,smax,h,kv,d,dv,vl,window", [

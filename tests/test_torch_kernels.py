@@ -103,6 +103,68 @@ def test_flash_plain_matches_pallas_interpret(b, sq, sk, h, kv, d, dv,
                          window=window), exp, "float32")
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits), nearest with ties away from
+    zero, by bit mask: ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int):
+    """a @ b with TF32 inputs and f32 accumulation, as the tensor cores
+    compute it: one pass (big @ big) or the kernel's 3xTF32 split
+    (small @ big + big @ small + big @ big, small = a - big). A TF32
+    product is exact in f32, so an f32 matmul of TF32 values stands for
+    the MMA."""
+    ab, bb = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ab @ bb
+    # the remainder as the MMA reads it: its top 19 bits, truncated
+    as_, bs = (((r.contiguous().view(torch.int32) & ~0x1FFF)
+                .view(torch.float32)) for r in (a - ab, b - bb))
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _flash_tf32(q, k, v, causal, window, passes):
+    """The f32 flash kernel's arithmetic in plain torch: scores and P V
+    through TF32 products, softmax in f32 (one tile: the online
+    rescaling is exact up to f32 rounding)."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, d).permute(0, 2, 3, 1, 4)   # b kv g sq d
+    kt = k.permute(0, 2, 3, 1)[:, :, None]                     # b kv 1 d sk
+    vt = v.permute(0, 2, 1, 3)[:, :, None]                     # b kv 1 sk dv
+    s = _tf32_matmul(qg, kt, passes) / np.sqrt(d)
+    if causal:
+        mask = ref.causal_mask_ref(sq, k.shape[1], window,
+                                   offset=k.shape[1] - sq)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    out = _tf32_matmul(p, vt, passes)                          # b kv g sq dv
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", FLASH_CASES
+                         + [pytest.param(1, 128, 128, 8, 2, 128, 128, True,
+                                         0, id="hybrid-d128")])
+def test_flash_3xtf32_split_meets_the_f32_bar(b, sq, sk, h, kv, d, dv,
+                                             causal, window):
+    """Why the f32 kernel takes three TF32 passes per product: the split
+    meets the repo's f32 bar (2e-5/2e-5) against the plain version, one
+    TF32 pass does not."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+               for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, dv)))
+    exp = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    split = _flash_tf32(q, k, v, causal, window, passes=3)
+    torch.testing.assert_close(split, exp, **TOL["float32"])
+    one = _flash_tf32(q, k, v, causal, window, passes=1)
+    assert not torch.allclose(one, exp, **TOL["float32"])
+    assert float((one - exp).abs().max()) > 10 * float(
+        (split - exp).abs().max())
+
+
 def test_flash_plain_matches_pallas_interpret_bf16():
     rng = np.random.default_rng(1)
     q = rng.standard_normal((2, 64, 4, 32), dtype=np.float32)
@@ -184,6 +246,45 @@ def test_other_devices_raise_instead_of_falling_back(call):
 def test_later_slices_raise_not_implemented(call, what):
     with pytest.raises(NotImplementedError, match=what):
         call()
+
+
+def test_launch_counter_counts_every_thread():
+    """The wrappers count launches without a lock: adds from several
+    threads at once are all counted, and reset starts again at 0."""
+    import threading
+    counter = _build.LaunchCounter()
+    threads = [threading.Thread(
+        target=lambda: [counter.add() for _ in range(20_000)])
+        for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert counter.count == 80_000
+    counter.reset()
+    assert counter.count == 0
+    counter.add()
+    assert counter.count == 1
+
+
+def test_entry_loads_and_binds_once(monkeypatch):
+    """``_build.entry`` loads the library on its first call only; later
+    calls return the same bound function."""
+    loads = []
+
+    class FakeLib:
+        def rmsnorm_f32(self, *args):
+            return 0
+
+    def fake_load():
+        loads.append(1)
+        return FakeLib()
+
+    monkeypatch.setattr(_build, "_entries", {})
+    monkeypatch.setattr(_build, "load", fake_load)
+    first = _build.entry("rmsnorm_f32")
+    assert _build.entry("rmsnorm_f32") is first
+    assert len(loads) == 1
 
 
 def test_build_without_nvcc_raises(monkeypatch):
