@@ -11,7 +11,10 @@ Phases, in order; any failure exits non-zero:
 1. print the card's name and power limit, build the CUDA kernels;
 2. hold each kernel against its plain PyTorch version on the card, at
    the served shapes and at edge shapes (f32 2e-5/2e-5, bf16 3e-2/3e-2),
-   and time kernel, plain version and one PyTorch library call;
+   and time kernel, plain version and one PyTorch library call; for
+   decode attention also at the hybrid's step shape, the cluster sizes
+   the card holds, the host cost of each step of its wrapper and its
+   device time at every cluster size its plan could pick;
 3. check the port's forward, and its prefill + greedy decode, on the
    card against its plain CPU path on the smoke configs, build both
    cascade stages at full published width (xlstm-125m 12L x 768,
@@ -42,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import operator
 import re
 import subprocess
 import sys
@@ -255,10 +259,15 @@ DECODE_CASES = (
     (8, 1024, 32, 8, 64, (1, 513, 1024), 0),   # llama3.2-1b served shape
     (2, 600, 32, 8, 64, (1, 577, 600), 0),     # Smax of no block multiple
     (8, 1024, 64, 8, 128, (1, 513, 544), 0),   # the hybrid's decode shape
+    (2, 1024, 48, 1, 128, (1, 777, 1024), 0),  # G = 48 (granite-34b)
+    (2, 512, 12, 2, 64, (1, 301, 512), 0),     # G = 6
+    (2, 512, 17, 1, 64, (300,), 0),            # G = 17: groups 4, 4, 4, 4, 1
+    (1, 8192, 32, 8, 64, (8192,), 0),          # the 8-CTA cluster cap
 )
 
 
 def check_decode(gen: torch.Generator) -> None:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         for b, smax, h, kv, d, vls, window in DECODE_CASES:
             q = rand(gen, (b, 1, h, d), dtype)
@@ -271,8 +280,25 @@ def check_decode(gen: torch.Generator) -> None:
                 name = (f"B={b} Smax={smax} {h}/{kv}h D={d} vl={vl} "
                         f"window={window}")
                 err = assert_close(got, exp, dtype, f"decode {name} {dtype}")
+                lo = max(0, vl - window) if window > 0 else 0
+                plan = da_mod.split_plan(b, kv, vl - lo, sms, h // kv)
                 log(f"  decode   {name:42s} {str(dtype):14s} "
-                    f"max_abs_err={err:.3e}  ok")
+                    f"max_abs_err={err:.3e} plan {plan}  ok")
+    # the plan reaches the cluster cap at 8192 keys of one sequence
+    if da_mod.split_plan(1, 8, 8192, sms, 4)[0] != da_mod.MAX_SPLITS:
+        raise RuntimeError("decode: 8192 keys do not reach the 8-CTA "
+                           "cluster cap")
+    for h, kv, d in ((32, 8, 64), (64, 8, 128), (48, 1, 128)):
+        groups = -(-h // kv // da_mod.HEADS_PER_CTA)
+        fits = {str(dt)[6:]: da_mod.max_active_clusters(
+            dt, h, kv, d, d, da_mod.MAX_SPLITS, groups)
+            for dt in (torch.float32, torch.bfloat16)}
+        if min(fits.values()) < 1:
+            raise RuntimeError(f"decode: a cluster of 8 does not fit at "
+                               f"{h}/{kv} heads D={d}: {fits}")
+        log(f"  decode   clusters of 8 CTAs the card holds at once "
+            f"(cudaOccupancyMaxActiveClusters), {h}/{kv} heads D={d}: "
+            f"{fits}")
 
 
 MAMBA_CASES = (
@@ -469,6 +495,15 @@ def time_kernels(gen: torch.Generator) -> list:
     report_trace(f"decode_attention at valid_len {vl}",
                  cuda_events(lambda: da_mod.decode_attention(q, k, v, vl),
                              calls=20), records[-1]["ms"], calls=20)
+    del q, k, v, qt, kt, vt
+    # beside the record: the served shape in bf16, and the hybrid's step
+    # shape (64/8 heads, D 128, valid_len 544) in both dtypes
+    for label, h2, kv2, hd2, vl2 in (("served", h, kv, hd, SMAX),
+                                     ("hybrid", 64, 8, 128, 544)):
+        for dt in (torch.float32, torch.bfloat16):
+            if label == "served" and dt == dtype:
+                continue                    # the record above
+            decode_line(gen, label, b, smax, h2, kv2, hd2, vl2, dt)
 
     # the scan at the hybrid's prefill chunk; no single PyTorch call
     # computes a selective scan, so it has no library time
@@ -500,6 +535,38 @@ def time_kernels(gen: torch.Generator) -> list:
             f"{r['plain_ms']:.4f} ms  library {lib}  "
             f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     return records
+
+
+def decode_line(gen, label, b, smax, h, kv, hd, vl, dtype) -> None:
+    """Log decode attention at one shape: kernel, plain version and SDPA
+    (CUDA events in turns), the bound, and the kernel's device time per
+    launch from a trace."""
+    q = rand(gen, (b, 1, h, hd), dtype)
+    k = rand(gen, (b, smax, kv, hd), dtype)
+    v = rand(gen, (b, smax, kv, hd), dtype)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    slots = (torch.arange(smax, device="cuda") < vl)[None, None, None, :]
+    assert_close(da_mod.decode_attention(q, k, v, vl),
+                 ref.decode_attention_ref(q, k, v, vl), dtype,
+                 f"decode {label} {dtype}")
+    esz = q.element_size()
+    bytes_ms = (2 * q.numel() + 2 * b * vl * kv * hd) * esz / H100_HBM_BW \
+        * 1e3
+    ops_ms = 4 * b * h * vl * hd / PEAK[dtype] * 1e3
+    ms = time_in_turns((
+        lambda: da_mod.decode_attention(q, k, v, vl),
+        lambda: ref.decode_attention_ref(q, k, v, vl),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=slots, enable_gqa=True)), (200, 50, 200))
+    log(f"  decode_attention at the {label} shape B={b} Smax={smax} "
+        f"vl={vl} {h}/{kv} heads D={hd} {str(dtype)[6:]}: kernel "
+        f"{ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
+        f"F.scaled_dot_product_attention {ms[2]:.4f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.6f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    report_trace(f"decode_attention at the {label} shape {str(dtype)[6:]}",
+                 cuda_events(lambda: da_mod.decode_attention(q, k, v, vl),
+                             calls=20), ms[0], calls=20)
 
 
 LAUNCH_CALLS = 10_000
@@ -578,19 +645,133 @@ def time_launch_path(gen: torch.Generator) -> None:
             f"(host clock, {LAUNCH_CALLS} back-to-back calls)")
 
 
+def sweep_decode_splits(gen: torch.Generator) -> None:
+    """Device us per launch of the decode kernel at the served and the
+    hybrid's step shapes, f32 and bf16, for every cluster size the plan
+    could pick (the C entry called with each plan), beside the plan's
+    own pick: the record behind ``CTAS_PER_SM``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fwd = _build.entry("decode_attention_fwd")
+    st = _build.stream(0)
+    for label, b, smax, h, kv, hd, vl in (
+            ("served", DECODE_BATCH, SMAX, 32, 8, 64, SMAX),
+            ("hybrid", DECODE_BATCH, SMAX, 64, 8, 128, 544)):
+        for dt in (torch.float32, torch.bfloat16):
+            q = rand(gen, (b, 1, h, hd), dt)
+            k = rand(gen, (b, smax, kv, hd), dt)
+            v = rand(gen, (b, smax, kv, hd), dt)
+            out = torch.empty_like(q)
+            pick = da_mod.split_plan(b, kv, vl, sms, h // kv)
+            groups, tiles = pick[2], -(-vl // da_mod.TILE)
+            cells = []
+            for splits in range(1, da_mod.MAX_SPLITS + 1):
+                chunk = -(-tiles // splits) * da_mod.TILE
+                if -(-vl // chunk) != splits:
+                    continue                    # an empty chunk
+                args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr(), da_mod.KERNEL_DTYPES[dt], b, smax, h,
+                        kv, hd, hd, 0, vl, splits, chunk, groups,
+                        hd ** -0.5, st)
+
+                def call(args=args):
+                    _build.check(fwd(*args), "decode_attention")
+                events = cuda_events(call, calls=20)
+                us = sum(e.self_device_time_total for e in events) / max(
+                    1, sum(e.count for e in events))
+                mark = "*" if (splits, chunk) == pick[:2] else ""
+                cells.append(f"{splits}{mark}: {us:.2f}")
+            log(f"  decode splits sweep, {label} {str(dt)[6:]} (device us "
+                f"per launch by cluster size; * the plan): "
+                + ", ".join(cells))
+            del q, k, v, out
+
+
+def time_decode_launch_path(gen: torch.Generator) -> None:
+    """Host cost of each step of the decode wrapper's launch path,
+    LAUNCH_CALLS calls each, at the served q (B 8, 32/8 heads, D 64, f32),
+    beside the steps the two-kernel wrapper took before. The launcher is
+    timed with B = 0 (it returns before launching) and launching at B 1,
+    32 slots, 4/1 heads (a few us of device time, under the host's), so
+    the device never holds the host clock back; the whole wrapper is
+    timed at that small shape and at the served one (there the device's
+    time sets the pace)."""
+    b, h, kv, hd = DECODE_BATCH, 32, 8, 64
+    q = rand(gen, (b, 1, h, hd), torch.float32)
+    k = rand(gen, (b, SMAX, kv, hd), torch.float32)
+    v = rand(gen, (b, SMAX, kv, hd), torch.float32)
+    qs = rand(gen, (1, 1, 4, hd), torch.float32)
+    ks = rand(gen, (1, 32, 1, hd), torch.float32)
+    dev = q.get_device()
+    fn = _build.entry("decode_attention_fwd")
+    st = _build.stream(dev)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    out = torch.empty_like(q)
+    op = out.data_ptr()
+    small = (qs.data_ptr(), ks.data_ptr(), ks.data_ptr(), op)
+    plan = da_mod.split_plan(1, 1, 32, 132, 4)
+    probe = _build.LaunchCounter()
+    steps = (
+        ("loop and lambda call (baseline)", lambda: None),
+        ("checks: valid_len, shapes, dtype, device, contiguity", lambda: (
+            isinstance(SMAX, torch.Tensor), operator.index(SMAX), q.dim(),
+            k.dim(), v.dim(), q.shape, v.shape, k.shape != (b, SMAX, kv, hd),
+            h % kv, hd > 128, da_mod.KERNEL_DTYPES.get(q.dtype),
+            k.dtype != q.dtype, v.dtype != q.dtype,
+            q.device == k.device == v.device, q.is_contiguous(),
+            k.is_contiguous(), v.is_contiguous())),
+        ("data_ptr x2 and alignment", lambda: (k.data_ptr()
+                                               | v.data_ptr()) % 16),
+        ("get_device, cached SM count, split_plan", lambda: da_mod.split_plan(
+            b, kv, SMAX, da_mod._sm_count(q.get_device()), h // kv)),
+        ("torch.empty_like (out)", lambda: torch.empty_like(q)),
+        ("_build.entry (cached binding)", lambda: _build.entry(
+            "decode_attention_fwd")),
+        ("_build.stream (raw handle)", lambda: _build.stream(dev)),
+        ("ctypes call with B = 0 (no launch)",
+         lambda: fn(qp, kp, vp, op, 0, 0, SMAX, h, kv, hd, hd, 0, SMAX, 8,
+                    128, 1, 0.125, st)),
+        ("ctypes call with the cluster launch (B 1, 32 slots, 4/1 heads)",
+         lambda: fn(*small, 0, 1, 32, 4, 1, hd, hd, 0, 32, *plan, 0.125,
+                    st)),
+        ("counter.add", probe.add),
+        ("before: get_device_properties().multi_processor_count",
+         lambda: torch.cuda.get_device_properties(
+             q.device).multi_processor_count),
+        ("before: torch.empty x2 (ml, acc scratch)", lambda: (
+            torch.empty((b * kv * 4 * 4 * 2,), dtype=torch.float32,
+                        device=q.device),
+            torch.empty((b * kv * 4 * 4 * hd,), dtype=torch.float32,
+                        device=q.device))),
+    )
+    for name, step in steps:
+        log(f"  decode launch path: {name:62s} {host_us(step):7.3f} us")
+    log(f"  decode launch path: wrapper at B 1, 32 slots, 4/1 heads "
+        f"{host_us(lambda: da_mod.decode_attention(qs, ks, ks, 32)):.3f} "
+        f"us per call; at the served shape "
+        f"{host_us(lambda: da_mod.decode_attention(q, k, v, SMAX)):.3f} "
+        f"us (host clock, {LAUNCH_CALLS} back-to-back calls)")
+
+
 def cuda_events(fn, calls: int = 1) -> list:
     """The CUDA kernels of a torch.profiler trace of ``calls`` calls of
-    ``fn``, which runs once before, outside the trace."""
+    ``fn``, which runs once before, outside the trace. Every call
+    launches a kernel, but the profiler has recorded none, or fewer than
+    the calls, when it first traced the decode kernel: such a trace is
+    taken again, up to three times in all."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in events) >= calls:
+            break
+    return events
 
 
 def report_trace(label: str, kernels: list, wall_ms: float,
@@ -626,8 +807,8 @@ def report_trace(label: str, kernels: list, wall_ms: float,
 
 def kernel_name(key: str) -> str:
     """The function name of a profiler's kernel key, e.g.
-    ``decode_split_kernel`` of ``void (anonymous namespace)::
-    decode_split_kernel<float, 2>(float const*, ...)``."""
+    ``decode_attention_kernel`` of ``void (anonymous namespace)::
+    decode_attention_kernel<float, 2, 4>(float const*, ...)``."""
     name = re.search(r"(\w+)(<|\(|$)", key.split("::")[-1])
     return name.group(1) if name else key[:40]
 
@@ -1013,6 +1194,8 @@ def main() -> int:
     check_mamba(gen)
     records = time_kernels(gen)
     time_launch_path(gen)
+    time_decode_launch_path(gen)
+    sweep_decode_splits(gen)
 
     log("[3] forward and decode against the CPU path; full-width stages, "
         "profile")

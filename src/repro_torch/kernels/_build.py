@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds), loaded with ``ctypes``. The library is rebuilt when any source
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds),
+loaded with ``ctypes``. The library is rebuilt when any source
 is newer than it, so the first use on a fresh checkout builds it. It
 lives under ``build/repro_torch/`` at the repository root, which git
 ignores.
@@ -30,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,10 +45,14 @@ SIGNATURES = {
     #  scale, stream) -> cudaError_t
     "flash_attention_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _F, _P), _I),
-    # (q, k, v, out, ml, acc, dtype, b, smax, h, kv, d, dv, lo, hi,
-    #  splits, chunk, scale, stream) -> cudaError_t
-    "decode_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _I, _F, _P), _I),
+    # (q, k, v, out, dtype, b, smax, h, kv, d, dv, lo, hi, splits, chunk,
+    #  head_groups, scale, stream) -> cudaError_t
+    "decode_attention_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _P), _I),
+    # (dtype, h, kv, d, dv, splits, head_groups, int *clusters)
+    #  -> cudaError_t
+    "decode_attention_max_clusters": ((_I, _I, _I, _I, _I, _I, _I,
+                                       ctypes.POINTER(_I)), _I),
     # (dt, x, b, c, a, h0, y, h_out, dtype, batch, len, d, n, stream)
     #  -> cudaError_t
     "mamba_scan_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -107,14 +112,30 @@ def build() -> Path:
     if out.exists() and out.stat().st_mtime >= newest:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    nvcc, tag = find_nvcc(), os.getpid()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[1] for proc in procs]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}.tmp"
+    try:
+        for cmd, proc, err in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with code {proc.returncode}:"
+                                   f"\n{' '.join(cmd)}\n{err}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {link.returncode}:\n"
+                               f"{' '.join(cmd)}\n{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)      # atomic: a concurrent loader sees old or new
-    build_log = proc.stderr
+    build_log = "".join(logs)
     return out
 
 

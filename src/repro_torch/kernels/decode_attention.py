@@ -5,16 +5,20 @@ Replaces the TPU kernel ``repro/kernels/decode_attention.py:
 decode_attention``. A tensor on the CPU takes the plain version
 (:func:`ref.decode_attention_ref`); a CUDA tensor launches the kernel or
 raises. The kernel reads the cache in its own ``(B, Smax, KV, D)``
-layout, takes ``valid_len`` as a host int (no device-to-host copy) and
-splits the valid keys across CTAs (:func:`split_plan`); unlike the TPU
-kernel, ``Smax`` need not be a multiple of a block.
+layout, takes ``valid_len`` as a host int (no device-to-host copy),
+takes any GQA group, and splits the valid keys across the CTAs of one
+thread-block cluster, which combine their partials in distributed
+shared memory (:func:`split_plan`): a call is one allocation, the
+output, and one launch. Unlike the TPU kernel, ``Smax`` need not be a
+multiple of a block.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import operator
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -22,21 +26,38 @@ from repro_torch.kernels import _build, ref
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
-MAX_GROUP = 16                # q heads per kv head: 4 warps x 4 heads
-TILE = 64                     # keys per shared-memory tile of one CTA
-CTAS_PER_SM = 2
+TILE = 32                     # keys: the chunks are whole 32-key tiles
+MAX_SPLITS = 8                # CTAs per cluster: the portable cluster size
+HEADS_PER_CTA = 4             # q heads one CTA takes at most
+CTAS_PER_SM = 2.5             # the CTAs the plan aims for, per SM
 
 counter = _build.LaunchCounter()
+_sms: Dict[int, int] = {}     # SM count, by device index
 
 
-def split_plan(b: int, kvh: int, n_keys: int, sms: int) -> Tuple[int, int]:
-    """(splits, chunk): each (batch, kv head) cuts its ``n_keys`` valid
-    keys into ``splits`` chunks of ``chunk`` keys (whole tiles), enough
-    for about ``CTAS_PER_SM`` CTAs per SM and no empty chunk."""
+def split_plan(b: int, kvh: int, n_keys: int, sms: int,
+               group: int = 1) -> Tuple[int, int, int]:
+    """(splits, chunk, head_groups): the ``group`` q heads of a kv head
+    go to ``head_groups`` CTAs of at most HEADS_PER_CTA heads each, and
+    each (batch, kv head, head group) cuts its ``n_keys`` valid keys into
+    ``splits`` <= MAX_SPLITS chunks of ``chunk`` keys (whole tiles), one
+    cluster of ``splits`` CTAs: about ``CTAS_PER_SM`` CTAs per SM,
+    rounded down (on the H100 fewer, longer CTAs beat more, shorter ones;
+    chip_smoke.py sweeps every cluster size), and no empty chunk."""
+    groups = -(-group // HEADS_PER_CTA)
     tiles = max(1, -(-n_keys // TILE))
-    splits = min(tiles, max(1, -(-CTAS_PER_SM * sms // (b * kvh))))
+    want = int(CTAS_PER_SM * sms) // (b * kvh * groups)
+    splits = min(MAX_SPLITS, tiles, max(1, want))
     chunk = -(-tiles // splits) * TILE
-    return max(1, -(-n_keys // chunk)), chunk
+    return max(1, -(-n_keys // chunk)), chunk, groups
+
+
+def _sm_count(index: int) -> int:
+    n = _sms.get(index)
+    if n is None:
+        n = _sms.setdefault(index, torch.cuda.get_device_properties(
+            index).multi_processor_count)
+    return n
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,9 +90,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len,
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
     if not 0 <= vl <= smax:
         raise ValueError(f"valid_len {vl} outside [0, {smax}]")
-    if h % kvh or h // kvh > MAX_GROUP:
-        raise ValueError(f"decode_attention kernel takes up to {MAX_GROUP} "
-                         f"q heads per kv head, got {h} over {kvh}")
+    if h % kvh:
+        raise ValueError(f"decode_attention: {h} q heads over {kvh} kv "
+                         f"heads")
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or d % 8 or dv % 8:
         raise ValueError(f"decode_attention kernel takes head dims that are "
                          f"multiples of 8 up to {MAX_HEAD_DIM}, got D={d} "
@@ -85,24 +106,33 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid_len,
         raise ValueError("decode_attention: q, k, v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention kernel needs contiguous q, k, v")
-    if (k.data_ptr() | v.data_ptr()) % 16:
+    if (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16:
         raise ValueError("decode_attention kernel needs 16-byte-aligned "
-                         "k and v (16-byte loads)")
+                         "q, k and v (16-byte loads)")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     lo = max(0, vl - window) if window > 0 else 0
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits, chunk = split_plan(b, kvh, vl - lo, sms)
-    g = h // kvh
-    out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=q.device)
-    ml = torch.empty((b * kvh * splits * g * 2,), dtype=torch.float32,
-                     device=q.device)
-    acc = torch.empty((b * kvh * splits * g * dv,), dtype=torch.float32,
-                      device=q.device)
+    dev = q.get_device()
+    splits, chunk, groups = split_plan(b, kvh, vl - lo, _sm_count(dev),
+                                       h // kvh)
+    out = torch.empty_like(q) if dv == d else \
+        torch.empty((b, 1, h, dv), dtype=q.dtype, device=q.device)
     rc = _build.entry("decode_attention_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ml.data_ptr(), acc.data_ptr(), dtype, b, smax, h, kvh, d, dv, lo, vl,
-        splits, chunk, float(scale), _build.stream(q.get_device()))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dtype, b,
+        smax, h, kvh, d, dv, lo, vl, splits, chunk, groups, float(scale),
+        _build.stream(dev))
     if rc:
         _build.check(rc, "decode_attention")
     counter.add()
     return out
+
+
+def max_active_clusters(dtype: torch.dtype, h: int, kvh: int, d: int,
+                        dv: int, splits: int, groups: int) -> int:
+    """How many clusters of ``splits`` CTAs of this configuration the
+    current device holds at once (``cudaOccupancyMaxActiveClusters``);
+    raises where the runtime refuses the configuration."""
+    n = ctypes.c_int(0)
+    rc = _build.entry("decode_attention_max_clusters")(
+        KERNEL_DTYPES[dtype], h, kvh, d, dv, splits, groups, ctypes.byref(n))
+    _build.check(rc, "decode_attention occupancy query")
+    return n.value

@@ -74,6 +74,8 @@ def _close(got: torch.Tensor, exp, tol) -> None:
     (1, 512, 4, 4, 64),
     (2, 1024, 8, 2, 64),
     (4, 512, 4, 1, 128),
+    (2, 512, 48, 1, 128),   # G = 48 (granite-34b)
+    (2, 512, 12, 2, 64),    # G = 6, not a power of two
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_pallas_interpret(b, smax, h, kv, d, dtype):
@@ -116,18 +118,29 @@ def test_decode_without_valid_len_raises():
 
 @pytest.mark.parametrize("b,kvh,n_keys,sms", [
     (8, 8, 1024, 132), (8, 8, 513, 132), (8, 8, 1, 132), (1, 1, 0, 132),
-    (1, 4, 600, 132), (64, 8, 4096, 132), (2, 2, 64, 8)])
+    (1, 4, 600, 132), (64, 8, 4096, 132), (2, 2, 64, 8),
+    (2, 1, 1024, 132),      # granite-34b's decode: 48 q heads over 1
+    (1, 8, 8192, 132)])     # one sequence, 8192 keys: the cluster cap
 def test_split_plan_covers_every_key_once(b, kvh, n_keys, sms):
-    splits, chunk = da_mod.split_plan(b, kvh, n_keys, sms)
-    assert splits >= 1 and chunk % da_mod.TILE == 0
-    assert splits * chunk >= n_keys                      # every key
-    assert n_keys == 0 or (splits - 1) * chunk < n_keys  # no empty chunk
+    for group in (1, 4, 6, 8, 16, 17, 48, 64):
+        splits, chunk, groups = da_mod.split_plan(b, kvh, n_keys, sms,
+                                                  group)
+        assert 1 <= splits <= da_mod.MAX_SPLITS and chunk % da_mod.TILE == 0
+        assert splits * chunk >= n_keys                      # every key
+        assert n_keys == 0 or (splits - 1) * chunk < n_keys  # no empty chunk
+        # the head groups cover the group exactly: none over 16, none empty
+        per = -(-group // groups)
+        assert per <= da_mod.HEADS_PER_CTA and (groups - 1) * per < group
 
 
 def test_split_plan_fills_the_card_at_the_served_shape():
-    # B = 8 sequences x 8 kv heads, 1024 valid keys, 132 SMs: 4 chunks
-    # of 256 keys, 256 CTAs
-    assert da_mod.split_plan(8, 8, 1024, 132) == (4, 256)
+    # B = 8 sequences x 8 kv heads, 1024 valid keys, 132 SMs: clusters of
+    # 5 CTAs, 224 keys each, 320 CTAs (about 2.5 an SM)
+    assert da_mod.split_plan(8, 8, 1024, 132, 4) == (5, 224, 1)
+    # one sequence over 8192 keys: the cluster cap, 32 tiles a CTA
+    assert da_mod.split_plan(1, 8, 8192, 132, 4) == (8, 1024, 1)
+    # granite-34b: 48 q heads over 1 kv head take 12 CTAs of 4 heads
+    assert da_mod.split_plan(2, 1, 1024, 132, 48) == (8, 128, 12)
 
 
 # ------------------------------------------------------------------- cache
