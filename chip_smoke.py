@@ -20,9 +20,18 @@ Phases, in order; any failure exits non-zero:
    cascade stages at full published width (xlstm-125m 12L x 768,
    llama3.2-1b 16L x 2048, seeded random weights) and profile them at
    batch sizes 1-16 on ``h100-1``;
-4. serve a Poisson trace through the two-stage executor, with every
-   kernel launch counter zeroed just before and read just after, and
-   check every answer;
+4. serve a Poisson trace through the two-stage executor on a fixed
+   configuration, with every kernel launch counter zeroed just before
+   and read just after, check every answer, and print the Estimator's
+   p50/p99 for the same configuration and trace beside the measured;
+4b. plan, then serve the plan (steps 2-4 of
+   ``examples/serve_real_models.py``, with its 30 qps and 250 ms SLO):
+   the Planner provisions the cascade on ``h100-1`` from the profile
+   measured in phase 3 over a 20 s sample trace (it fails the run if no
+   configuration is feasible), the executor serves 15 s of live traffic
+   on the planned configuration with the same answer and launch-count
+   checks as phase 4, and the measured p50/p99/miss are printed beside
+   the Estimator's p50/p99 on the same trace (the paper's Fig. 8);
 5. trace one batch per stage with torch.profiler: the device's busy
    share of the stage's batch latency and the kernels that fill it;
 6. decode with the full-width llama3.2-1b: prefill 8 prompts of 512
@@ -65,11 +74,13 @@ from repro_torch.core.hardware import (  # noqa: E402
     H100_PEAK_FLOPS_F32,
     H100_PEAK_FLOPS_TF32,
 )
+from repro_torch.core.estimator import Estimator  # noqa: E402
 from repro_torch.core.pipeline import (  # noqa: E402
     PipelineConfig,
     StageConfig,
     linear_pipeline,
 )
+from repro_torch.core.planner import Planner  # noqa: E402
 from repro_torch.core.profiler import (  # noqa: E402
     ProfileStore,
     profile_model_measured,
@@ -90,6 +101,9 @@ PEAK = {torch.float32: H100_PEAK_FLOPS_F32,
         torch.bfloat16: H100_PEAK_FLOPS_BF16}
 SERVE_BATCH = 8                 # StageConfig.batch_size of the served run
 SERVE_QPS, SERVE_S, SLO_S = 20.0, 10.0, 0.25
+# examples/serve_real_models.py: LAMBDA, the sample trace the Planner
+# provisions for and the live trace served on its plan
+PLAN_QPS, PLAN_SAMPLE_S, PLAN_LIVE_S = 30.0, 20.0, 15.0
 PROFILE_BATCHES = (1, 2, 4, 8, 16)
 STAGES = ("xlstm-125m", "llama3.2-1b")
 DECODE_BATCH, PROMPT, SMAX, STEPS = 8, 512, 1024, 64
@@ -938,16 +952,20 @@ def _leaves(tree):
         yield tree
 
 
-# ---------------------------------------------------------------- phase 4
+# ------------------------------------------------------------ phases 4, 4b
 
-def serve(stages) -> dict:
-    pipe = linear_pipeline("cascade", list(STAGES),
+def cascade_pipeline():
+    return linear_pipeline("cascade", list(STAGES),
                            {a: ["h100-1"] for a in STAGES})
-    config = PipelineConfig({s: StageConfig("h100-1", SERVE_BATCH, 1)
-                             for s in pipe.stages})
+
+
+def serve_config(stages, pipe, config, arrivals) -> tuple:
+    """Serve ``arrivals`` through the executor on ``config``, with the
+    launch counters zeroed just before and read just after; check every
+    answer, the exact launch counts and each stage's batch cap. Returns
+    (latencies, launches)."""
     ex = PipelineExecutor(pipe, config,
                           {a: stages[a].run_batch for a in STAGES})
-    arrivals = gamma_trace(SERVE_QPS, 1.0, SERVE_S, seed=1)
     vocab_a = stages[STAGES[0]].cfg.vocab_size
     vocab_b = stages[STAGES[1]].cfg.vocab_size
 
@@ -986,15 +1004,65 @@ def serve(stages) -> dict:
     if launches != expect:
         raise RuntimeError(f"kernel launches during serving {launches} != "
                            f"{expect} expected from {n_batches} batches")
-    if max(int(v.max()) for v in sizes.values()) > SERVE_BATCH:
-        raise RuntimeError(f"a batch exceeded {SERVE_BATCH}: {sizes}")
+    for s, v in sizes.items():
+        if int(v.max()) > config[s].batch_size:
+            raise RuntimeError(f"{s}: a batch exceeded "
+                               f"{config[s].batch_size}: {v}")
     mean_batch = {s: round(float(v.mean()), 3) for s, v in sizes.items()}
-    log(f"  served {lat.size} requests at {SERVE_QPS:g} qps for "
-        f"{SERVE_S:g} s: p50 {np.percentile(lat, 50) * 1e3:.2f} ms  p99 "
-        f"{np.percentile(lat, 99) * 1e3:.2f} ms  miss(SLO {SLO_S * 1e3:g} "
-        f"ms) {float((lat > SLO_S).mean()):.4f}")
     log(f"  batches per stage {n_batches}, mean batch size {mean_batch}")
     log(f"  kernel launches during serving {launches} (expected {expect})")
+    return lat, launches
+
+
+def latency_line(lat: np.ndarray, pipe, store, config,
+                 arrivals: np.ndarray) -> str:
+    """The measured p50/p99/miss beside the Estimator's p50/p99 for the
+    same configuration and trace (the paper's Fig. 8 comparison)."""
+    predicted = Estimator(pipe, store).simulate(config, arrivals)
+    if predicted.latency.shape != lat.shape or \
+            not np.isfinite(predicted.latency).all():
+        raise RuntimeError("the Estimator did not answer every request")
+    return (f"measured p50 {np.percentile(lat, 50) * 1e3:.2f} ms  p99 "
+            f"{np.percentile(lat, 99) * 1e3:.2f} ms  miss(SLO "
+            f"{SLO_S * 1e3:g} ms) {float((lat > SLO_S).mean()):.4f} | "
+            f"estimator p50 {predicted.percentile(50) * 1e3:.2f} ms  p99 "
+            f"{predicted.p99 * 1e3:.2f} ms")
+
+
+def serve(stages, store) -> dict:
+    pipe = cascade_pipeline()
+    config = PipelineConfig({s: StageConfig("h100-1", SERVE_BATCH, 1)
+                             for s in pipe.stages})
+    arrivals = gamma_trace(SERVE_QPS, 1.0, SERVE_S, seed=1)
+    lat, launches = serve_config(stages, pipe, config, arrivals)
+    log(f"  served {lat.size} requests at {SERVE_QPS:g} qps for "
+        f"{SERVE_S:g} s: "
+        f"{latency_line(lat, pipe, store, config, arrivals)}")
+    return launches
+
+
+def plan_and_serve(stages, store) -> dict:
+    """Steps 2-4 of examples/serve_real_models.py on the card: plan the
+    cascade from the measured profile, serve the planned configuration,
+    and print the Estimator's prediction beside the measured latency."""
+    pipe = cascade_pipeline()
+    sample = gamma_trace(PLAN_QPS, 1.0, PLAN_SAMPLE_S, seed=0)
+    t0 = time.perf_counter()
+    plan = Planner(pipe, store).plan(sample, SLO_S)
+    plan_s = time.perf_counter() - t0
+    log(f"  planned for {sample.size} sample requests at {PLAN_QPS:g} qps "
+        f"(SLO {SLO_S * 1e3:g} ms) in {plan_s * 1e3:.1f} ms of planner "
+        f"wall time:")
+    for line in plan.describe().splitlines():
+        log("  " + line)
+    if not plan.feasible:
+        raise RuntimeError("the Planner found no feasible configuration "
+                           "for the measured profile")
+    live = gamma_trace(PLAN_QPS, 1.0, PLAN_LIVE_S, seed=1)
+    lat, launches = serve_config(stages, pipe, plan.config, live)
+    log(f"  served {lat.size} requests at {PLAN_QPS:g} qps for "
+        f"{PLAN_LIVE_S:g} s on the plan: "
+        f"{latency_line(lat, pipe, store, plan.config, live)}")
     return launches
 
 
@@ -1204,7 +1272,9 @@ def main() -> int:
     stages, store = build_and_profile()
 
     log("[4] serve the cascade")
-    launches = serve(stages)
+    launches = serve(stages, store)
+    log("[4b] plan the cascade from the measured profile, serve the plan")
+    planned = plan_and_serve(stages, store)
     log("[5] trace one batch per stage")
     trace(stages, store)
     log("[6] full-width llama3.2-1b: prefill and greedy decode")
@@ -1217,7 +1287,10 @@ def main() -> int:
     log("[7] full-width expert-free one-period Jamba-1.5-Large: prefill, "
         "greedy decode, stage latency")
     hybrid_pre, hybrid_steps = hybrid_full_width()
-    # each kernel's launches come from the path that runs it
+    # each kernel's launches come from the path that runs it: both serves
+    # of the cascade, the llama decode, the hybrid
+    for name in launches:
+        launches[name] += planned[name]
     launches["decode_attention"] = decode_launches["decode_attention"]
     launches["mamba_scan"] = hybrid_pre["mamba_scan"] + \
         hybrid_steps["mamba_scan"]

@@ -1,9 +1,9 @@
 """Hardware menu of the port: the reference's TPU/CPU entries plus one
 NVIDIA H100.
 
-A copy of the reference's ``HardwareType``, menu and ``get_hardware``;
-the planner's ``cheaper_hardware`` arrives with the planner slice. The
-TPU figures are the reference's own and describe TPU hardware, not the
+A copy of the reference's ``HardwareType``, menu, ``get_hardware`` and
+``cheaper_hardware`` (the Planner's DowngradeHW options). The TPU
+figures are the reference's own and describe TPU hardware, not the
 port's card.
 """
 
@@ -53,16 +53,22 @@ class HardwareType:
 
 
 # Menu ordered by descending capability; BestHardware == first entry.
+# TPU and CPU prices are the reference's (public v5e on-demand pricing
+# shape, $1.20/chip-hr; $0.05/core-hr host CPU).
 HARDWARE_MENU: Tuple[HardwareType, ...] = (
     HardwareType("tpu-v5e-16", 16, 16 * PEAK_FLOPS_BF16, 16 * HBM_BW,
                  ICI_BW, cost_per_hr=16 * 1.20, overhead_s=0.0022),
     HardwareType("tpu-v5e-8", 8, 8 * PEAK_FLOPS_BF16, 8 * HBM_BW, ICI_BW,
                  cost_per_hr=8 * 1.20, overhead_s=0.0018),
-    # cost_per_hr and overhead_s have no source in the repo: NaN and 0
-    # are placeholders that the planner slice replaces (it is the only
-    # reader of either; the served path profiles the card by measurement)
+    # cost_per_hr is an ASSUMPTION, one eighth of an 8-GPU instance's
+    # on-demand price: AWS's EC2 on-demand price list gives p5.48xlarge
+    # (8 x H100 SXM 80 GB) at $98.32/hr in us-east-1, so $12.29 a card
+    # hour. Marginal-cost accounting as for the TPU entries (§6); the
+    # Planner compares configurations by it. overhead_s is read only by
+    # the reference's analytic profile backend, which the port does not
+    # have (it profiles the card by measurement), so it stays 0.
     HardwareType("h100-1", 1, H100_PEAK_FLOPS_BF16, H100_HBM_BW, 0.0,
-                 cost_per_hr=float("nan"), overhead_s=0.0),
+                 cost_per_hr=98.32 / 8, overhead_s=0.0),
     HardwareType("tpu-v5e-4", 4, 4 * PEAK_FLOPS_BF16, 4 * HBM_BW, ICI_BW,
                  cost_per_hr=4 * 1.20, overhead_s=0.0015),
     HardwareType("tpu-v5e-1", 1, PEAK_FLOPS_BF16, HBM_BW, 0.0,
@@ -81,3 +87,14 @@ def get_hardware(name: str) -> HardwareType:
         raise KeyError(
             f"unknown hardware {name!r}; menu: {sorted(HARDWARE_BY_NAME)}"
         ) from None
+
+
+def cheaper_hardware(name: str) -> Tuple[str, ...]:
+    """Hardware strictly cheaper than `name`, most capable first.
+
+    Used by the Planner's DowngradeHW action.
+    """
+    cur = get_hardware(name)
+    return tuple(
+        h.name for h in HARDWARE_MENU if h.cost_per_hr < cur.cost_per_hr
+    )

@@ -7,8 +7,9 @@ probabilities; the Profiler folds those into per-model *scale factors*
 ``s_m`` — the unconditional probability that a query entering the pipeline
 visits model m (§4.1).
 
-A copy of the reference's pipeline spec; in the port the executor
-consumes it (the estimator, planner and tuner arrive in a later slice).
+A copy of the reference's pipeline spec. The same structure is consumed
+by the Estimator (simulation), the Planner (configuration search) and
+the executor (serving); the tuner comes later.
 """
 
 from __future__ import annotations
@@ -137,14 +138,16 @@ class Pipeline:
 @dataclasses.dataclass
 class StageConfig:
     """The three control dimensions per model (§1), plus two beyond-paper
-    knobs consumed by the simulation engine:
+    knobs consumed by the simulation engine (:mod:`repro_torch.sim`):
 
     * ``timeout_s`` — batch-formation timeout: hold a batch open up to
       ``timeout_s`` from the head-of-line arrival to trade head latency
       for per-replica throughput (0 = the paper's greedy batching).
-    * ``policy`` — per-stage queueing policy name: ``"fifo"`` (paper),
+    * ``policy`` — per-stage queueing policy name from
+      ``repro_torch.sim.queueing.QUEUE_POLICIES``: ``"fifo"`` (paper),
       ``"edf"`` (earliest-deadline-first), or ``"slo-drop"`` (SLO-aware
-      load shedding). The port's executor serves ``"fifo"`` only.
+      load shedding). The simulator runs all three; the port's executor
+      serves ``"fifo"`` only until the tuner brings the policy queues.
     """
 
     hardware: str

@@ -3,8 +3,13 @@
 A profile captures ``batch latency = f(hardware type, max batch size)`` for
 one model. A copy of the reference's ``ModelProfile``, ``ProfileStore``
 and ``profile_model_measured``: the port profiles its stages by timing
-them on the card. The analytic (roofline) backend arrives with the
-planner slice.
+them on the card, and the Estimator and Planner read these tables
+(``latency_lut``, ``batch_latency``, ``throughput``, ``supports``). The
+reference's analytic (roofline) backend, which prices TPU slices from
+a model's FLOPs and bytes, is not ported.
+
+Profiles are plain tables; the Estimator interpolates them to arbitrary
+batch sizes <= the configured maximum.
 """
 
 from __future__ import annotations

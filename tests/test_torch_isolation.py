@@ -47,7 +47,10 @@ def test_port_imports_with_jax_unavailable():
             "for m in ('jax', 'jaxlib', 'ml_dtypes', 'repro'):\n"
             "    sys.modules[m] = None\n"
             "import repro_torch.serving, repro_torch.kernels.ops, "
-            "repro_torch.convert, repro_torch.core.profiler\n")
+            "repro_torch.convert, repro_torch.core.profiler, "
+            "repro_torch.core.planner, repro_torch.core.estimator, "
+            "repro_torch.sim\n"
+            "from repro_torch.core import Planner, Estimator\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)

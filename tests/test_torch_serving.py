@@ -14,7 +14,11 @@ from repro.core import hardware as jax_hardware  # noqa: E402
 from repro.core.pipeline import linear_pipeline as ref_linear_pipeline  # noqa: E402
 from repro.core.profiler import ModelProfile as RefModelProfile  # noqa: E402
 from repro.workload.generator import gamma_trace as ref_gamma_trace  # noqa: E402
-from repro_torch.core.hardware import HARDWARE_MENU, get_hardware  # noqa: E402
+from repro_torch.core.hardware import (  # noqa: E402
+    HARDWARE_MENU,
+    cheaper_hardware,
+    get_hardware,
+)
 from repro_torch.core.pipeline import (  # noqa: E402
     SOURCE,
     Edge,
@@ -218,6 +222,25 @@ def test_hardware_menu_adds_one_h100():
         assert ours[name].__dict__ == h.__dict__
     with pytest.raises(KeyError):
         get_hardware("a100-1")
+
+
+def test_h100_has_a_price_and_the_downgrades_match_the_reference():
+    h100 = get_hardware("h100-1").cost_per_hr
+    assert np.isfinite(h100) and h100 > 0
+    for h in jax_hardware.HARDWARE_MENU:
+        ours = cheaper_hardware(h.name)
+        # the reference's answer, with h100-1 in its menu place where it
+        # is the cheaper of the two
+        assert [n for n in ours if n != "h100-1"] == \
+            list(jax_hardware.cheaper_hardware(h.name))
+        assert ("h100-1" in ours) == (h100 < h.cost_per_hr)
+    assert "h100-1" not in cheaper_hardware("h100-1")
+    assert all(get_hardware(n).cost_per_hr < h100
+               for n in cheaper_hardware("h100-1"))
+    pipe = linear_pipeline("c", ["a", "b"])
+    cost = _config(pipe, 8, replicas=2).cost_per_hr()
+    assert np.isfinite(cost) and cost == 4 * h100
+    assert all(np.isfinite(h.cost_per_hr) for h in HARDWARE_MENU)
 
 
 def test_make_stage_without_a_gpu_raises():
