@@ -14,12 +14,19 @@ Phases, in order; any failure exits non-zero:
    and time kernel, plain version and one PyTorch library call; for
    decode attention also at the hybrid's step shape, the cluster sizes
    the card holds, the host cost of each step of its wrapper and its
-   device time at every cluster size its plan could pick;
+   device time at every cluster size its plan could pick; for the scan
+   its grid against the CTAs an SM holds (the waves), at the hybrid's
+   prefill chunk and step shape in f32 and bf16, with a bound that
+   counts its exponentials on the special-function units;
 3. check the port's forward, and its prefill + greedy decode, on the
    card against its plain CPU path on the smoke configs, build both
    cascade stages at full published width (xlstm-125m 12L x 768,
-   llama3.2-1b 16L x 2048, seeded random weights) and profile them at
-   batch sizes 1-16 on ``h100-1``;
+   llama3.2-1b 16L x 2048, seeded random weights), capture each stage's
+   CUDA graphs (one a power-of-two bucket, 1-128), hold every bucket's
+   replay against the eager forward (logits bit for bit, or within
+   1e-5, and the answer), and profile the replays at batch sizes 1-128
+   on ``h100-1`` (the Planner's batches, so the plan reads no
+   extrapolated latency);
 4. serve a Poisson trace through the two-stage executor on a fixed
    configuration, with every kernel launch counter zeroed just before
    and read just after, check every answer, and print the Estimator's
@@ -28,12 +35,20 @@ Phases, in order; any failure exits non-zero:
    ``examples/serve_real_models.py``, with its 30 qps and 250 ms SLO):
    the Planner provisions the cascade on ``h100-1`` from the profile
    measured in phase 3 over a 20 s sample trace (it fails the run if no
-   configuration is feasible), the executor serves 15 s of live traffic
-   on the planned configuration with the same answer and launch-count
+   configuration is feasible, or if a planned batch lies past the
+   largest profiled one), the executor serves 15 s of live traffic on
+   the planned configuration with the same answer and launch-count
    checks as phase 4, and the measured p50/p99/miss are printed beside
    the Estimator's p50/p99 on the same trace (the paper's Fig. 8);
-5. trace one batch per stage with torch.profiler: the device's busy
-   share of the stage's batch latency and the kernels that fill it;
+4c. serve each stage alone, as a one-stage pipeline, on its planned
+   configuration and phase 4b's live trace, with the same checks, its
+   measured p50/p99/miss beside the Estimator's: what one stage does
+   without the other on the host;
+5. trace one replay per stage with torch.profiler: the device's busy
+   share of the stage's batch latency, the kernels that fill it, and a
+   check that the port's kernels in it are one forward's; then both
+   stages' replays from two threads at once, on their own streams (as
+   served) and on one stream;
 6. decode with the full-width llama3.2-1b: prefill 8 prompts of 512
    tokens into a 1024-slot cache and take 64 greedy decode steps, with
    the counters zeroed before and read after the prefill and the steps;
@@ -58,6 +73,7 @@ import operator
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -104,7 +120,7 @@ SERVE_QPS, SERVE_S, SLO_S = 20.0, 10.0, 0.25
 # examples/serve_real_models.py: LAMBDA, the sample trace the Planner
 # provisions for and the live trace served on its plan
 PLAN_QPS, PLAN_SAMPLE_S, PLAN_LIVE_S = 30.0, 20.0, 15.0
-PROFILE_BATCHES = (1, 2, 4, 8, 16)
+PROFILE_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
 STAGES = ("xlstm-125m", "llama3.2-1b")
 DECODE_BATCH, PROMPT, SMAX, STEPS = 8, 512, 1024, 64
 HYBRID = "jamba-1.5-large-398b"
@@ -115,7 +131,7 @@ COUNTERS = {"rmsnorm": rms_mod.counter, "flash_attention": fa_mod.counter,
             "mamba_scan": ms_mod.counter}
 # the port's kernels, by the function names a profiler trace shows
 PORT_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "flash_fwd_kernel",
-                "decode_", "mamba_scan_kernel")
+                "decode_", "mamba_scan_kernel", "mamba_step_kernel")
 
 
 def launches_per_forward(cfg, seq: int) -> dict:
@@ -158,10 +174,9 @@ def reset_counts() -> None:
         c.reset()
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
@@ -523,26 +538,23 @@ def time_kernels(gen: torch.Generator) -> list:
     # computes a selective scan, so it has no library time
     b, length, d, n = 8, 256, 16384, 16
     args = scan_inputs(gen, b, length, d, n, dtype)
+    nbytes, ops_ms = scan_work(b, length, d, n, dtype)
     records.append(kernel_record(
         "mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "src/repro/kernels/mamba_scan.py:72",
         lambda: ms_mod.mamba_scan(*args)[0],
         lambda: ref.mamba_scan_ref(*args)[0], None,
-        nbytes=(3 * b * length * d + 2 * b * length * n) * esz
-        + (d * n + 2 * b * d * n) * 4,
-        nops=7 * b * length * d * n, dtype=dtype, plain_iters=5))
+        nbytes=nbytes, nops=7 * b * length * d * n, dtype=dtype,
+        plain_iters=5, ops_ms=ops_ms))
     report_trace(f"mamba_scan at B={b} L={length} D={d} N={n}",
                  cuda_events(lambda: ms_mod.mamba_scan(*args), calls=20),
                  records[-1]["ms"], calls=20)
-    dec = scan_inputs(gen, b, 1, d, n, dtype)
-    dec_ms = time_ms(lambda: ms_mod.mamba_scan(*dec))
-    dec_bound = ((3 * b * d + 2 * b * n) * esz + (d * n + 2 * b * d * n) * 4
-                 ) / H100_HBM_BW * 1e3
-    log(f"  mamba_scan at the decode shape B={b} L=1: kernel "
-        f"{dec_ms:.4f} ms, bound {dec_bound:.6f} ms (bytes)")
-    report_trace("mamba_scan at L=1",
-                 cuda_events(lambda: ms_mod.mamba_scan(*dec), calls=20),
-                 dec_ms, calls=20)
+    del args
+    # the record's shape again with its grid and what sets its bound, the
+    # decode step's shape (L = 1), and both in bf16
+    for dt in (torch.float32, torch.bfloat16):
+        for steps in (length, 1):
+            scan_line(gen, b, steps, d, n, dt)
     for r in records:
         lib = "—" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"  {r['name']:16s} kernel {r['ms']:.4f} ms  plain "
@@ -581,6 +593,58 @@ def decode_line(gen, label, b, smax, h, kv, hd, vl, dtype) -> None:
     report_trace(f"decode_attention at the {label} shape {str(dtype)[6:]}",
                  cuda_events(lambda: da_mod.decode_attention(q, k, v, vl),
                              calls=20), ms[0], calls=20)
+
+
+def scan_work(b, length, d, n, dtype) -> tuple:
+    """(bytes, least ms of the operations) of one scan call: dt, x, y and
+    B, C once in ``dtype``, A, h0 and h_out once in f32; the operations
+    are the larger of ~7 f32 operations per (b, t, d, n) at the f32 peak
+    and B L D N exponentials on the special-function units, 16 a clock
+    per SM at the card's maximum SM clock."""
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = (3 * b * length * d + 2 * b * length * n) * esz \
+        + (d * n + 2 * b * d * n) * 4
+    elems = b * length * d * n
+    return nbytes, max(7 * elems / H100_PEAK_FLOPS_F32,
+                       elems / ex2_rate()) * 1e3
+
+
+def ex2_rate() -> float:
+    """Exponentials a second on the card's special-function units: 16 a
+    clock per SM at ``clocks.max.sm``."""
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * sms * mhz * 1e6
+
+
+def scan_line(gen, b, length, d, n, dtype) -> None:
+    """Log the scan at one shape: its grid against the CTAs the card holds
+    at once, kernel and plain version (CUDA events in turns), the bound
+    and what sets it, and the kernel's device time per launch."""
+    args = scan_inputs(gen, b, length, d, n, dtype)
+    y, h = ms_mod.mamba_scan(*args)
+    ye, he = ref.mamba_scan_ref(*args)
+    assert_close(y, ye, dtype, f"mamba_scan {dtype} L={length}")
+    torch.testing.assert_close(h, he, **STATE_TOL)
+    nbytes, ops_ms = scan_work(b, length, d, n, dtype)
+    bytes_ms = nbytes / H100_HBM_BW * 1e3
+    ex2_ms = b * length * d * n / ex2_rate() * 1e3
+    grid, per_sm = ms_mod.launch_plan(dtype, b, length, d, n)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = time_in_turns((lambda: ms_mod.mamba_scan(*args),
+                        lambda: ref.mamba_scan_ref(*args)),
+                       (200, 5 if length > 1 else 50))
+    by = "bytes" if bytes_ms >= ops_ms else \
+        "ex2" if ex2_ms >= ops_ms else "f32 operations"
+    log(f"  mamba_scan at B={b} L={length} D={d} N={n} {str(dtype)[6:]}: "
+        f"grid {grid} CTAs, {per_sm} CTAs an SM, "
+        f"{grid / (per_sm * sms):.3f} waves; kernel {ms[0]:.4f} ms, plain "
+        f"{ms[1]:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms (bytes "
+        f"{bytes_ms:.6f}, ex2 {ex2_ms:.6f}, f32 operations "
+        f"{7 * b * length * d * n / H100_PEAK_FLOPS_F32 * 1e3:.6f}: {by})")
+    report_trace(f"mamba_scan at L={length} {str(dtype)[6:]}",
+                 cuda_events(lambda: ms_mod.mamba_scan(*args), calls=20),
+                 ms[0], calls=20)
 
 
 LAUNCH_CALLS = 10_000
@@ -766,23 +830,33 @@ def time_decode_launch_path(gen: torch.Generator) -> None:
         f"us (host clock, {LAUNCH_CALLS} back-to-back calls)")
 
 
-def cuda_events(fn, calls: int = 1) -> list:
+def cuda_events(fn, calls: int = 1, prelude=None) -> list:
     """The CUDA kernels of a torch.profiler trace of ``calls`` calls of
     ``fn``, which runs once before, outside the trace. Every call
     launches a kernel, but the profiler has recorded none, or fewer than
     the calls, when it first traced the decode kernel: such a trace is
-    taken again, up to three times in all."""
+    taken again, up to three times in all. With ``prelude`` (a stream),
+    the trace opens with 20 spin kernels of ~25 us on that stream, left
+    out of the result: the profiler has dropped the first few records of
+    a trace (up to six in a graph replay late in the run), and they are
+    then the spin kernels' records."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            if prelude is not None:
+                with torch.cuda.stream(prelude):
+                    for _ in range(20):
+                        torch.cuda._sleep(50_000)
+                prelude.synchronize()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.key]
         if sum(e.count for e in events) >= calls:
             break
     return events
@@ -911,6 +985,9 @@ def _tree_to(tree, device):
 
 
 def build_and_profile():
+    """Build both stages at full width, capture their CUDA graphs (one a
+    power-of-two bucket up to the largest profiled batch), hold every
+    bucket's replay against the eager forward, and profile the replays."""
     stages, store = {}, ProfileStore()
     for arch in STAGES:
         t0 = time.perf_counter()
@@ -923,13 +1000,23 @@ def build_and_profile():
                 not bool(torch.isfinite(logits).all()):
             raise RuntimeError(f"{arch}: bad full-width logits "
                                f"{tuple(logits.shape)}")
+        t1 = time.perf_counter()
         st.warmup(max(PROFILE_BATCHES))
+        capture_s = time.perf_counter() - t1
+        check_replays(arch, st)
         store.add(profile_model_measured(arch, st.profile_fn, "h100-1",
                                          batch_sizes=PROFILE_BATCHES))
         stages[arch] = st
         log(f"  {arch}: {st.cfg.num_layers}L d_model={st.cfg.d_model} "
-            f"vocab={st.cfg.vocab_size} params={n_params} "
-            f"({time.perf_counter() - t0:.1f} s to build, warm, profile)")
+            f"vocab={st.cfg.vocab_size} params={n_params}; "
+            f"{len(st.graphs)} CUDA graphs {sorted(st.graphs)} captured in "
+            f"{capture_s:.1f} s, one replay launching "
+            f"{ {c_name(c): k for c, k in st.graphs[SERVE_BATCH].launches} }"
+            f" ({time.perf_counter() - t0:.1f} s to build, capture, check, "
+            f"profile)")
+    log(f"  device memory after capture: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     log("  batch  " + "  ".join(f"{a + ' ms':>16s} {'qps':>8s}"
                                 for a in STAGES))
     for bsz in PROFILE_BATCHES:
@@ -939,6 +1026,47 @@ def build_and_profile():
             cells.append(f"{lat * 1e3:16.3f} {bsz / lat:8.1f}")
         log(f"  {bsz:5d}  " + "  ".join(cells))
     return stages, store
+
+
+def c_name(counter) -> str:
+    return next(n for n, c in COUNTERS.items() if c is counter)
+
+
+def check_replays(arch, st) -> None:
+    """A replay's logits against the eager forward's on the same tokens,
+    at every bucket: bit for bit, or within 1e-5 (then the log says so);
+    the answer against the eager argmax; the launches each replay adds
+    against those of one forward."""
+    want = {name: k for name, k in launches_per_forward(st.cfg, SEQ).items()
+            if k}
+    equal, near = [], []
+    for b, bucket in sorted(st.graphs.items()):
+        got_launches = {c_name(c): k for c, k in bucket.launches}
+        if got_launches != want:
+            raise RuntimeError(f"{arch} bucket {b}: captured launches "
+                               f"{got_launches} != {want}")
+        rows = np.random.default_rng(b).integers(
+            0, st.cfg.vocab_size, (b, SEQ), dtype=np.int32)
+        out = np.stack(st.run_batch(list(rows)))
+        with torch.inference_mode():
+            exp, _ = st.model.forward(st.params, {"tokens": torch.from_numpy(
+                rows).to(st.model.device)})
+            nxt = exp[:, -1].argmax(-1).cpu().numpy()
+            if torch.equal(bucket.logits, exp):
+                equal.append(b)
+            else:
+                err = float((bucket.logits - exp).abs().max())
+                if not err <= 1e-5:
+                    raise RuntimeError(f"{arch} bucket {b}: replay logits "
+                                       f"differ from eager by {err:.3e}")
+                near.append(f"{b} ({err:.3e})")
+        if not (np.array_equal(out[:, :-1], rows[:, 1:])
+                and np.array_equal(out[:, -1], nxt)):
+            raise RuntimeError(f"{arch} bucket {b}: the replay's answer is "
+                               f"not the eager forward's")
+        del exp
+    log(f"  {arch}: replay logits bit-equal to the eager forward at buckets "
+        f"{equal}; within 1e-5 at {near or 'none'}; every answer equal")
 
 
 def _leaves(tree):
@@ -954,24 +1082,25 @@ def _leaves(tree):
 
 # ------------------------------------------------------------ phases 4, 4b
 
-def cascade_pipeline():
-    return linear_pipeline("cascade", list(STAGES),
-                           {a: ["h100-1"] for a in STAGES})
+def cascade_pipeline(arches=STAGES):
+    return linear_pipeline("cascade", list(arches),
+                           {a: ["h100-1"] for a in arches})
 
 
 def serve_config(stages, pipe, config, arrivals) -> tuple:
-    """Serve ``arrivals`` through the executor on ``config``, with the
-    launch counters zeroed just before and read just after; check every
-    answer, the exact launch counts and each stage's batch cap. Returns
-    (latencies, launches)."""
+    """Serve ``arrivals`` through the executor on ``config`` (a chain of
+    the stages, in ``pipe``'s order), with the launch counters zeroed just
+    before and read just after; check every answer, the exact launch
+    counts and each stage's batch cap. Returns (latencies, launches)."""
+    arches = [st.model_id for st in pipe.stages.values()]
     ex = PipelineExecutor(pipe, config,
-                          {a: stages[a].run_batch for a in STAGES})
-    vocab_a = stages[STAGES[0]].cfg.vocab_size
-    vocab_b = stages[STAGES[1]].cfg.vocab_size
+                          {a: stages[a].run_batch for a in arches})
+    vocabs = [stages[a].cfg.vocab_size for a in arches]
+    k = len(arches)
 
     def payload(i: int) -> np.ndarray:
         return np.random.default_rng(1000 + i).integers(
-            0, vocab_a, SEQ, dtype=np.int32)
+            0, vocabs[0], SEQ, dtype=np.int32)
 
     try:
         reset_counts()
@@ -990,16 +1119,17 @@ def serve_config(stages, pipe, config, arrivals) -> tuple:
         if not (isinstance(out, np.ndarray) and out.shape == (SEQ,)
                 and out.dtype == np.int32):
             raise RuntimeError(f"request {i}: bad answer {out!r}")
-        # two stages: the window shifted by two, each stage's argmax
-        # appended, each inside its model's vocabulary
-        if not (np.array_equal(out[:SEQ - 2], p[2:])
-                and 0 <= out[-2] < vocab_a and 0 <= out[-1] < vocab_b):
-            raise RuntimeError(f"request {i}: answer is not the cascade "
-                               f"of shifted windows: {out}")
+        # k stages: the window shifted by k, each stage's argmax appended,
+        # each inside its model's vocabulary
+        if not (np.array_equal(out[:SEQ - k], p[k:])
+                and all(0 <= out[SEQ - k + j] < v
+                        for j, v in enumerate(vocabs))):
+            raise RuntimeError(f"request {i}: answer is not the chain of "
+                               f"shifted windows: {out}")
     n_batches = {a: int(sizes[f"s{i}_{a}"].size)
-                 for i, a in enumerate(STAGES)}
-    per_fwd = {a: launches_per_forward(stages[a].cfg, SEQ) for a in STAGES}
-    expect = {name: sum(per_fwd[a][name] * n_batches[a] for a in STAGES)
+                 for i, a in enumerate(arches)}
+    per_fwd = {a: launches_per_forward(stages[a].cfg, SEQ) for a in arches}
+    expect = {name: sum(per_fwd[a][name] * n_batches[a] for a in arches)
               for name in COUNTERS}
     if launches != expect:
         raise RuntimeError(f"kernel launches during serving {launches} != "
@@ -1041,10 +1171,12 @@ def serve(stages, store) -> dict:
     return launches
 
 
-def plan_and_serve(stages, store) -> dict:
+def plan_and_serve(stages, store) -> tuple:
     """Steps 2-4 of examples/serve_real_models.py on the card: plan the
-    cascade from the measured profile, serve the planned configuration,
-    and print the Estimator's prediction beside the measured latency."""
+    cascade from the measured profile, check that every planned batch
+    lies within the profile, serve the planned configuration, and print
+    the Estimator's prediction beside the measured latency. Returns (the
+    launches, the plan's configuration)."""
     pipe = cascade_pipeline()
     sample = gamma_trace(PLAN_QPS, 1.0, PLAN_SAMPLE_S, seed=0)
     t0 = time.perf_counter()
@@ -1058,26 +1190,118 @@ def plan_and_serve(stages, store) -> dict:
     if not plan.feasible:
         raise RuntimeError("the Planner found no feasible configuration "
                            "for the measured profile")
+    # no latency the plan was priced at is an extrapolation of the table
+    for s in pipe.stages:
+        if plan.config[s].batch_size > max(PROFILE_BATCHES):
+            raise RuntimeError(
+                f"{s}: planned batch {plan.config[s].batch_size} lies past "
+                f"the largest profiled batch {max(PROFILE_BATCHES)}")
+    log(f"  every planned batch is within the profile (<= "
+        f"{max(PROFILE_BATCHES)})")
     live = gamma_trace(PLAN_QPS, 1.0, PLAN_LIVE_S, seed=1)
     lat, launches = serve_config(stages, pipe, plan.config, live)
     log(f"  served {lat.size} requests at {PLAN_QPS:g} qps for "
         f"{PLAN_LIVE_S:g} s on the plan: "
         f"{latency_line(lat, pipe, store, plan.config, live)}")
-    return launches
+    return launches, plan.config
+
+
+def serve_each_alone(stages, store, config) -> dict:
+    """Each stage served alone, as a one-stage pipeline, on its planned
+    StageConfig and the live trace of phase 4b, measured against the
+    Estimator on the same trace: how much of a gap comes from one stage,
+    and how much from the cascade sharing the host. Returns the
+    launches."""
+    live = gamma_trace(PLAN_QPS, 1.0, PLAN_LIVE_S, seed=1)
+    total = dict.fromkeys(COUNTERS, 0)
+    for i, arch in enumerate(STAGES):
+        pipe = cascade_pipeline((arch,))
+        alone = PipelineConfig({f"s0_{arch}": config[f"s{i}_{arch}"]})
+        lat, launches = serve_config(stages, pipe, alone, live)
+        c = alone[f"s0_{arch}"]
+        log(f"  {arch} alone ({c.hardware}, batch {c.batch_size}, "
+            f"{c.replicas} replica): served {lat.size} "
+            f"requests at {PLAN_QPS:g} qps for {PLAN_LIVE_S:g} s: "
+            f"{latency_line(lat, pipe, store, alone, live)}")
+        for name, n in launches.items():
+            total[name] += n
+    return total
 
 
 # ---------------------------------------------------------------- phase 5
 
 def trace(stages, store) -> None:
-    """Device time of one batch of SERVE_BATCH per stage, summed over the
-    CUDA kernels torch.profiler records, against the stage's profiled
-    batch latency (taken without the profiler)."""
+    """Device time of one replay of the bucket of SERVE_BATCH per stage,
+    summed over the CUDA kernels torch.profiler records, against the
+    stage's profiled batch latency (taken without the profiler); the
+    port's kernels in the trace must be those of one forward. Then both
+    stages' replays from two threads at once, on their own streams and on
+    one stream."""
     for arch in STAGES:
         st = stages[arch]
+        want = {k: launches_per_forward(st.cfg, SEQ)[k]
+                for k in ("rmsnorm", "flash_attention")}
+        # a trace that still lacks some of the port's kernels is taken
+        # again, up to three times in all
+        for attempt in range(3):
+            events = cuda_events(lambda: st.profile_fn(SERVE_BATCH),
+                                 prelude=st.stream)
+            seen = dict.fromkeys(want, 0)
+            for e in events:
+                name = kernel_name(e.key)
+                if name.startswith("rmsnorm"):
+                    seen["rmsnorm"] += e.count
+                elif name == "flash_fwd_kernel":
+                    seen["flash_attention"] += e.count
+            if seen == want:
+                break
+            log(f"  {arch}: the trace recorded the port's kernels {seen}, "
+                f"one forward launches {want}: tracing again")
+        else:
+            raise RuntimeError(f"{arch}: the replay's traces show the port's "
+                               f"kernels {seen}, one forward launches {want}")
         report_trace(
-            f"{arch} batch of {SERVE_BATCH}",
-            cuda_events(lambda: st.profile_fn(SERVE_BATCH)),
+            f"{arch} replay of a batch of {SERVE_BATCH}", events,
             store.get(arch).batch_latency("h100-1", SERVE_BATCH) * 1e3)
+        log(f"  {arch}: the replay's trace holds the kernels of one forward "
+            f"{seen}")
+    concurrent_replays(stages)
+
+
+def concurrent_replays(stages, reps: int = 20) -> None:
+    """Host-clock ms per replay (each followed by a synchronize of its
+    stream) of the bucket of SERVE_BATCH of each stage: alone, then both
+    stages from two threads at once, first each on its stage's own stream
+    (as served), then both on the default stream."""
+    buckets = {a: stages[a].graphs[SERVE_BATCH] for a in STAGES}
+
+    def run(arch, stream, out) -> None:
+        with torch.cuda.stream(stream):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                buckets[arch].graph.replay()
+                stream.synchronize()
+            out[arch] = (time.perf_counter() - t0) / reps * 1e3
+
+    for label, streams in (
+            ("own streams", {a: stages[a].stream for a in STAGES}),
+            ("one stream", {a: torch.cuda.default_stream() for a in STAGES})):
+        alone, both = {}, {}
+        for arch in STAGES:
+            run(arch, streams[arch], alone)
+        threads = [threading.Thread(target=run, args=(a, streams[a], both))
+                   for a in STAGES]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = (time.perf_counter() - t0) * 1e3
+        log(f"  replays of a batch of {SERVE_BATCH}, {label}: alone "
+            + ", ".join(f"{a} {alone[a]:.3f} ms" for a in STAGES)
+            + "; both stages at once from two threads "
+            + ", ".join(f"{a} {both[a]:.3f} ms" for a in STAGES)
+            + f" a replay, {wall:.1f} ms for {reps} of each")
 
 
 # ------------------------------------------------------------ phases 6, 7
@@ -1274,8 +1498,10 @@ def main() -> int:
     log("[4] serve the cascade")
     launches = serve(stages, store)
     log("[4b] plan the cascade from the measured profile, serve the plan")
-    planned = plan_and_serve(stages, store)
-    log("[5] trace one batch per stage")
+    planned, plan_config = plan_and_serve(stages, store)
+    log("[4c] serve each stage alone on its planned configuration")
+    alone = serve_each_alone(stages, store, plan_config)
+    log("[5] trace one replay per stage")
     trace(stages, store)
     log("[6] full-width llama3.2-1b: prefill and greedy decode")
     llama = stages["llama3.2-1b"]
@@ -1284,13 +1510,16 @@ def main() -> int:
     del stages, store, llama
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"  the cascade's graphs and weights freed: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     log("[7] full-width expert-free one-period Jamba-1.5-Large: prefill, "
         "greedy decode, stage latency")
     hybrid_pre, hybrid_steps = hybrid_full_width()
-    # each kernel's launches come from the path that runs it: both serves
-    # of the cascade, the llama decode, the hybrid
+    # each kernel's launches come from the path that runs it: the three
+    # serves of the cascade's stages, the llama decode, the hybrid
     for name in launches:
-        launches[name] += planned[name]
+        launches[name] += planned[name] + alone[name]
     launches["decode_attention"] = decode_launches["decode_attention"]
     launches["mamba_scan"] = hybrid_pre["mamba_scan"] + \
         hybrid_steps["mamba_scan"]

@@ -57,6 +57,9 @@ SIGNATURES = {
     #  -> cudaError_t
     "mamba_scan_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _P), _I),
+    # (dtype, batch, len, d, n, int *grid, int *ctas_per_sm) -> cudaError_t
+    "mamba_scan_plan": ((_I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                         ctypes.POINTER(_I)), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -71,19 +74,28 @@ class LaunchCounter:
     the kernel and nowhere else, so a run can show that it went through
     it. ``add`` is ``itertools.count.__next__``: one C call that no other
     thread can interleave, so the executor's threads may launch at once
-    with no lock on the launch path."""
+    with no lock on the launch path. A CUDA graph replay runs no wrapper:
+    its caller adds the launches the graph's capture counted with
+    ``add_many(k)``, which takes a lock of its own and is as safe from
+    several threads as ``add``."""
 
     def __init__(self) -> None:
+        self._lock = threading.Lock()
         self.reset()
 
     def reset(self) -> None:
         self._ticks = itertools.count()
         self.add = self._ticks.__next__
+        self._many = 0
+
+    def add_many(self, k: int) -> None:
+        with self._lock:
+            self._many += k
 
     @property
     def count(self) -> int:
         # repr is "count(n)", n the next value: the calls so far
-        return int(repr(self._ticks)[len("count("):-1])
+        return int(repr(self._ticks)[len("count("):-1]) + self._many
 
 
 def find_nvcc() -> str:

@@ -11,6 +11,7 @@ calls its kernel with ``chunk = L`` too.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -81,3 +82,15 @@ def _launch(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         _build.check(rc, "mamba_scan")
     counter.add()
     return y, h_out
+
+
+def launch_plan(dtype: torch.dtype, b: int, length: int, d: int,
+                n: int) -> Tuple[int, int]:
+    """(CTAs of the grid, CTAs one SM holds at once) of the kernel a call
+    with these sizes launches: the step kernel at ``length`` 1, the scan
+    kernel otherwise (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.entry("mamba_scan_plan")(
+        KERNEL_DTYPES[dtype], b, length, d, n, ctypes.byref(grid),
+        ctypes.byref(per_sm)), "mamba_scan_plan")
+    return grid.value, per_sm.value

@@ -4,21 +4,65 @@ The counterpart of ``make_stage`` in ``examples/serve_real_models.py``:
 a stage scores a batch of ``(SEQ,)`` int32 token windows with
 ``Model.forward`` and answers each with the window shifted by one, the
 argmax of the last position appended, so the next stage of the cascade
-receives the same shape.
+receives the same shape. Batches are padded up to a power-of-two bucket.
+
+On CUDA a batch is one CUDA graph replay, the port's counterpart of the
+reference's one ``jax.jit`` call per batch. ``warmup`` runs ``score``
+eagerly once per bucket up to ``max_batch`` on the stage's own stream
+(the first call of each kernel sets its attributes, cuBLAS settles its
+kernels), then captures one ``torch.cuda.CUDAGraph`` per bucket, each
+with its own memory pool, a static ``(b, SEQ)`` int32 token buffer, and
+the logits and the answer as its static outputs. Call it before the
+executor starts: a capture fails while another thread uses the card, so
+nothing is ever captured from a worker thread. A capture that fails
+raises, and so does a batch whose bucket was not captured: there is no
+eager fallback on CUDA. ``run_batch`` and ``profile_fn`` copy the tokens
+into the bucket's buffer, replay on the stage's stream, and copy the
+answer out. The static buffers are shared state, so each bucket has a
+lock held around copy-in, replay and copy-out: replica threads of one
+stage that replay the same bucket take turns. A replay runs no Python
+wrapper, so each bucket records how many launches of each kernel its
+capture counted and adds them to the kernels' counters at every replay.
+
+On the CPU the stage runs ``score`` eagerly and captures nothing.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Union
+import dataclasses
+import threading
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, get_smoke
+from repro_torch.core.planner import MAX_BATCH
+from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention, flash_attention, \
+    mamba_scan, rmsnorm
 from repro_torch.models import Model, build_model
 from repro_torch.models.config import ArchConfig
 
 SEQ = 32
+COUNTERS = tuple(m.counter for m in (rmsnorm, flash_attention,
+                                     decode_attention, mamba_scan))
+
+
+@dataclasses.dataclass
+class GraphBucket:
+    """One captured batch shape of a stage on CUDA: the graph, its static
+    tensors on the card, pinned host buffers for the copies, the launches
+    one replay makes, and the lock that guards all of them."""
+    graph: torch.cuda.CUDAGraph
+    tokens: torch.Tensor          # (b, SEQ) int32, the graph's input
+    logits: torch.Tensor          # (b, SEQ, vocab) f32
+    out: torch.Tensor             # (b, SEQ) int32, the answer
+    host_in: torch.Tensor
+    host_out: torch.Tensor
+    launches: Tuple[Tuple[_build.LaunchCounter, int], ...]
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
 
 class ServedStage(NamedTuple):
@@ -28,6 +72,8 @@ class ServedStage(NamedTuple):
     run_batch: Callable[[List[Any]], List[np.ndarray]]
     profile_fn: Callable[[int], None]
     warmup: Callable[..., None]
+    graphs: Dict[int, GraphBucket]         # by bucket; empty on the CPU
+    stream: Optional[torch.cuda.Stream]    # replays run here; CPU: None
 
 
 def _bucket(n: int) -> int:
@@ -43,37 +89,86 @@ def make_stage(arch_id: str,
                full: bool = True, seed: int = 0) -> ServedStage:
     """Build ``arch_id`` at its published widths (``full=False``: the
     smoke variant) with seeded random parameters on ``device`` (default
-    ``cuda``) and return its batch scoring functions."""
+    ``cuda``) and return its batch scoring functions. On CUDA, call
+    ``warmup`` before serving: it captures the graphs."""
     cfg = get_arch(arch_id) if full else get_smoke(arch_id)
     model = build_model(cfg, device)
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init(gen)
+    cuda = dev.type == "cuda"
+    stream = torch.cuda.Stream(dev) if cuda else None
+    graphs: Dict[int, GraphBucket] = {}
 
     @torch.inference_mode()
-    def score(tokens: torch.Tensor) -> torch.Tensor:
+    def score(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         logits, _ = model.forward(params, {"tokens": tokens})
         nxt = logits[:, -1].argmax(dim=-1).to(tokens.dtype)
-        return torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
+        return logits, torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
+
+    def capture(b: int) -> GraphBucket:
+        tokens = torch.ones((b, SEQ), dtype=torch.int32, device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            score(tokens)                   # eager, before the capture
+        stream.synchronize()
+        before = [c.count for c in COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            logits, out = score(tokens)
+        launches = tuple((c, c.count - n) for c, n in zip(COUNTERS, before)
+                         if c.count > n)
+        return GraphBucket(graph, tokens, logits, out,
+                           torch.empty((b, SEQ), dtype=torch.int32,
+                                       pin_memory=True),
+                           torch.empty((b, SEQ), dtype=torch.int32,
+                                       pin_memory=True), launches)
+
+    @torch.inference_mode()
+    def replay(rows: np.ndarray) -> np.ndarray:
+        b = _bucket(len(rows))
+        bucket = graphs.get(b)
+        if bucket is None:
+            raise RuntimeError(
+                f"{arch_id}: no CUDA graph for a batch of {b}; warmup("
+                f"max_batch >= {b}) captures one per bucket before serving")
+        with bucket.lock:
+            host = bucket.host_in.numpy()
+            host[:len(rows)] = rows
+            host[len(rows):] = 0
+            with torch.cuda.stream(stream):
+                bucket.tokens.copy_(bucket.host_in, non_blocking=True)
+                bucket.graph.replay()
+                bucket.host_out.copy_(bucket.out, non_blocking=True)
+            for counter, k in bucket.launches:
+                counter.add_many(k)
+            stream.synchronize()
+            return bucket.host_out.numpy()[:len(rows)].copy()
 
     def run_batch(payloads: List[Any]) -> List[np.ndarray]:
+        rows = np.stack([np.asarray(p, dtype=np.int32) for p in payloads])
+        if cuda:
+            return list(replay(rows))
         # pad to a power-of-two bucket: the same few shapes every time
-        n = len(payloads)
-        tokens = np.zeros((_bucket(n), SEQ), dtype=np.int32)
-        tokens[:n] = np.stack([np.asarray(p, dtype=np.int32)
-                               for p in payloads])
-        out = score(torch.from_numpy(tokens).to(dev)).cpu().numpy()
-        return list(out[:n])
+        tokens = np.zeros((_bucket(len(rows)), SEQ), dtype=np.int32)
+        tokens[:len(rows)] = rows
+        out = score(torch.from_numpy(tokens))[1].numpy()
+        return list(out[:len(rows)])
 
     def profile_fn(b: int) -> None:
-        score(torch.ones((b, SEQ), dtype=torch.int32, device=dev))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if cuda:
+            replay(np.ones((b, SEQ), dtype=np.int32))
+        else:
+            score(torch.ones((b, SEQ), dtype=torch.int32))
 
-    def warmup(max_batch: int = 16) -> None:
+    def warmup(max_batch: int = MAX_BATCH) -> None:
         b = 1
         while b <= max_batch:
-            profile_fn(b)
+            if not cuda:
+                profile_fn(b)
+            elif b not in graphs:
+                graphs[b] = capture(b)
             b *= 2
 
-    return ServedStage(cfg, model, params, run_batch, profile_fn, warmup)
+    return ServedStage(cfg, model, params, run_batch, profile_fn, warmup,
+                       graphs, stream)

@@ -7,6 +7,9 @@ runs on a GPU host that has only PyTorch:
     PYTHONPATH=src python -m pytest -m gpu -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import threading
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -19,6 +22,7 @@ from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import SEQ, make_stage  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -272,6 +276,13 @@ def _scan_inputs(gen, b, length, d, n, dtype):
     (3, 1, 192, 16),        # a decode step
     (2, 1, 256, 32),
     (1, 37, 64, 64),
+    (8, 256, 16384, 16),    # the hybrid's prefill chunk
+    (8, 1, 16384, 16),      # ... and its decode step
+    (2, 300, 192, 64),
+    (2, 300, 200, 16),      # D of no block multiple, 16-byte rows
+    (2, 300, 190, 16),      # ... rows of no 16-byte multiple: plain loads
+    (3, 1, 190, 64),
+    (1, 5, 190, 8),         # fewer steps than a ring stage holds
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_scan_kernel_matches_plain(gen, b, length, d, n, dtype):
@@ -296,6 +307,33 @@ def test_mamba_scan_kernel_carries_the_state(gen):
                                  for t in (dt, x, b, c)), a, h1)
     torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, **TOL[y.dtype])
     torch.testing.assert_close(h2, h, atol=5e-5, rtol=5e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_takes_rows_off_16_bytes(gen, dtype):
+    """dt, x, b and c that start one element past a 16-byte boundary take
+    the plain loads into the ring, and agree with the plain version."""
+    args = _scan_inputs(gen, 2, 70, 256, 16, dtype)
+    for i in range(4):
+        buf = torch.empty(args[i].numel() + 1, dtype=dtype, device="cuda")
+        args[i] = buf[1:].view(args[i].shape).copy_(args[i])
+        assert args[i].is_contiguous() and args[i].data_ptr() % 16
+    y, h = ms_mod.mamba_scan(*args)
+    ye, he = ref.mamba_scan_ref(*args)
+    torch.testing.assert_close(y.float(), ye.float(), **TOL[dtype])
+    torch.testing.assert_close(h, he, atol=5e-5, rtol=5e-5)
+
+
+def test_mamba_scan_launch_plan_fits_the_card(gen):
+    """At the hybrid's prefill chunk the scan's grid is one wave: every
+    CTA is resident at once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        grid, per_sm = ms_mod.launch_plan(dtype, 8, 256, 16384, 16)
+        assert grid == 512 and per_sm >= 1
+        assert grid <= per_sm * sms, (grid, per_sm, sms)
+        grid, per_sm = ms_mod.launch_plan(dtype, 8, 1, 16384, 16)
+        assert grid == 8 * 16384 * 4 // 256 and per_sm >= 1
 
 
 def test_mamba_scan_kernel_rejects_what_it_does_not_take(gen):
@@ -391,3 +429,104 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ------------------------------------------------- the stages' CUDA graphs
+
+STAGES = ("xlstm-125m", "llama3.2-1b")
+BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+@pytest.fixture(scope="module")
+def smoke_stages():
+    """Both cascade stages at smoke size with every bucket captured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stages = {a: make_stage(a, "cuda", full=False, seed=0) for a in STAGES}
+    for st in stages.values():
+        st.warmup()
+    return stages
+
+
+def _rows(st, n, seed):
+    return np.random.default_rng(seed).integers(
+        0, st.cfg.vocab_size, (n, SEQ), dtype=np.int32)
+
+
+def _counts():
+    return [m.counter.count for m in (rms_mod, fa_mod, da_mod, ms_mod)]
+
+
+@pytest.mark.parametrize("b", BUCKETS)
+@pytest.mark.parametrize("arch", STAGES)
+def test_replay_equals_the_eager_forward(smoke_stages, arch, b):
+    st = smoke_stages[arch]
+    assert sorted(st.graphs) == list(BUCKETS)
+    rows = _rows(st, b, b)
+    out = np.stack(st.run_batch(list(rows)))
+    with torch.inference_mode():
+        exp, _ = st.model.forward(st.params, {"tokens": torch.from_numpy(
+            rows).cuda()})
+    assert torch.equal(st.graphs[b].logits, exp)
+    np.testing.assert_array_equal(out[:, :-1], rows[:, 1:])
+    np.testing.assert_array_equal(out[:, -1],
+                                  exp[:, -1].argmax(-1).cpu().numpy())
+
+
+@pytest.mark.parametrize("arch", STAGES)
+def test_replay_adds_the_launches_its_capture_counted(smoke_stages, arch):
+    st = smoke_stages[arch]
+    rows = _rows(st, 8, 0)
+    before = _counts()
+    with torch.inference_mode():
+        st.model.forward(st.params, {"tokens": torch.from_numpy(rows).cuda()})
+    eager = [a - b for a, b in zip(_counts(), before)]
+    assert eager[0] > 0
+    for n in (8, 5):            # a full bucket, and a padded one
+        before = _counts()
+        st.run_batch(list(rows[:n]))
+        assert [a - b for a, b in zip(_counts(), before)] == eager
+
+
+@pytest.mark.parametrize("arch", STAGES)
+def test_two_threads_replay_one_stage_at_once(smoke_stages, arch):
+    """The bucket's lock: two threads serving one stage, on one bucket and
+    on two, get every answer right."""
+    st = smoke_stages[arch]
+    jobs = [_rows(st, n, 100 + i) for i, n in enumerate((4, 4, 3, 8) * 5)]
+    want = [np.stack(st.run_batch(list(r))) for r in jobs]
+    got = [None] * len(jobs)
+
+    def serve(idx):
+        for i in idx:
+            got[i] = np.stack(st.run_batch(list(jobs[i])))
+
+    threads = [threading.Thread(target=serve, args=(range(k, len(jobs), 2),))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_a_failed_capture_raises(gen, monkeypatch):
+    """A forward that cannot be captured fails the warm-up; the stage then
+    serves nothing from that bucket, and never eagerly."""
+    st = make_stage("llama3.2-1b", "cuda", full=False, seed=0)
+    eager = st.model.forward
+
+    def forward(params, batch):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("this forward cannot be captured")
+        return eager(params, batch)
+
+    monkeypatch.setattr(st.model, "forward", forward)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        st.warmup(2)
+    assert st.graphs == {}
+    with pytest.raises(RuntimeError, match="no CUDA graph"):
+        st.run_batch([np.zeros(SEQ, dtype=np.int32)])

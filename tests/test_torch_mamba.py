@@ -150,6 +150,72 @@ def test_scan_takes_strided_halves_of_one_projection():
         torch.testing.assert_close(g, e, rtol=0, atol=0)
 
 
+# ex2.approx.ftz.f32 is within 2 ulp (the bound CUDA states for exp2f,
+# which is the same MUFU.EX2 instruction): a relative 2^-22. The emulation
+# perturbs every a_bar by up to twice that.
+EX2_REL_ERR = 2.0 ** -21
+
+
+def _kernel_arithmetic(dt, x, b, c, a, h0, seed):
+    """The CUDA scan's arithmetic (``csrc/mamba_scan.cu``), in f32 torch:
+    A' = A log2(e) rounded to f32 once, a_bar = exp2(dt A') with each value
+    scaled by 1 + u, u uniform in +-EX2_REL_ERR, h = a_bar h + (dt x) B,
+    and y as N/4 chains of 4 products (n = 4q .. 4q + 3) added pairwise,
+    the order of both the scan kernel and the step kernel's shuffles."""
+    gen = torch.Generator().manual_seed(seed)
+    dtf, xf, bf, cf = (t.float() for t in (dt, x, b, c))
+    a2 = a.float() * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    h = h0.float().clone()
+    bsz, length, d = dtf.shape
+    n = a.shape[-1]
+    ys = []
+    for t in range(length):
+        a_bar = torch.exp2(dtf[:, t, :, None] * a2)
+        u = torch.rand(a_bar.shape, generator=gen) * 2 - 1
+        a_bar = a_bar * (1 + u * EX2_REL_ERR)
+        bx = dtf[:, t] * xf[:, t]
+        h = a_bar * h + bx[..., None] * bf[:, t, None, :]
+        prods = (h * cf[:, t, None, :]).reshape(bsz, d, n // 4, 4)
+        acc = prods[..., 0]
+        for j in range(1, 4):
+            acc = acc + prods[..., j]
+        while acc.shape[-1] > 1:
+            acc = acc[..., 0::2] + acc[..., 1::2]
+        ys.append(acc[..., 0])
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+@pytest.mark.parametrize("b,s,d,n,inputs", [
+    (2, 512, 256, 16, "sweep"),
+    (1, 256, 128, 32, "sweep"),
+    (3, 384, 192, 16, "sweep"),
+    (2, 128, 256, 8, "sweep"),
+    (8, 256, 256, 16, "sweep"),     # the hybrid's prefill chunk, D cut
+    (8, 256, 256, 16, "hybrid"),    # ... with the Mamba block's A and dt
+    (8, 1, 256, 16, "hybrid"),      # a decode step: the step kernel
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scan_kernel_arithmetic_meets_the_bar(b, s, d, n, inputs, dtype):
+    """Why the kernel may take ex2.approx of a pre-scaled A and sum y in
+    chains: with every a_bar off by twice its documented error, the result
+    stays within the repo's bars of the plain version."""
+    arrays = _scan_inputs(21, b, s, d, n)
+    if inputs == "hybrid":
+        # layers.init_mamba: A = -exp(log(1..N)), dt = softplus(0.1 x - 2)
+        rng = np.random.default_rng(22)
+        arrays[0] = np.log1p(np.exp(0.1 * rng.standard_normal((b, s, d))
+                                    - 2.0)).astype(np.float32)
+        arrays[4] = -np.broadcast_to(np.arange(1, n + 1, dtype=np.float32),
+                                     (d, n)).copy()
+    args = [torch.from_numpy(v).to(TORCH_DTYPE[dtype]) for v in arrays[:4]] \
+        + [torch.from_numpy(v) for v in arrays[4:]]
+    y, h = _kernel_arithmetic(*args, seed=23)
+    ye, he = ref.mamba_scan_ref(*args)
+    assert y.dtype == TORCH_DTYPE[dtype]
+    torch.testing.assert_close(y.float(), ye.float(), **TOL[dtype])
+    torch.testing.assert_close(h, he, **STATE_TOL)
+
+
 # ------------------------------------------------------------------- block
 
 @pytest.fixture(scope="module")

@@ -3,6 +3,8 @@ two-stage smoke cascade, its FIFO formation rules, and the control-plane
 copies (hardware, pipeline, profiler, trace generator) against the JAX
 package's originals."""
 
+import sys
+import threading
 import time
 
 import numpy as np
@@ -102,6 +104,61 @@ def test_run_batch_pads_to_a_power_of_two(cascade):
     for p, out in zip(payloads, together):
         np.testing.assert_array_equal(out[:-1], p[1:])
         np.testing.assert_array_equal(out, a.run_batch([p])[0])
+
+
+def test_a_cpu_stage_captures_nothing(cascade, monkeypatch):
+    """On the CPU the stage runs eagerly: its warm-up captures no CUDA
+    graph, and it warms every bucket up to the Planner's batch of 128 by
+    default, as the reference's example does."""
+    import inspect
+
+    from repro_torch.core.planner import MAX_BATCH
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA graph was made on the CPU")
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
+    monkeypatch.setattr(torch.cuda, "graph", refuse)
+    for st in cascade:
+        assert inspect.signature(st.warmup).parameters[
+            "max_batch"].default == MAX_BATCH == 128
+        st.warmup(4)
+        assert st.graphs == {} and st.stream is None
+        p = _payload(0)
+        np.testing.assert_array_equal(st.run_batch([p])[0][:-1], p[1:])
+
+
+def test_launch_counter_add_many_from_several_threads():
+    """``add_many(k)`` advances the count by k, and neither it nor ``add``
+    loses a launch when threads use both at once."""
+    from repro_torch.kernels._build import LaunchCounter
+
+    c = LaunchCounter()
+    c.add_many(5)
+    c.add()
+    assert c.count == 6
+    c.reset()
+    assert c.count == 0
+
+    def work(i):
+        for _ in range(2000):
+            if i % 2:
+                c.add_many(3)
+            else:
+                c.add()
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)     # switch threads as often as it can
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert c.count == 4 * 2000 * 1 + 4 * 2000 * 3
 
 
 def test_profile_fn_feeds_the_measured_profiler(cascade):
