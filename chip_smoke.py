@@ -44,6 +44,17 @@ Phases, in order; any failure exits non-zero:
    configuration and phase 4b's live trace, with the same checks, its
    measured p50/p99/miss beside the Estimator's: what one stage does
    without the other on the host;
+4d. close the loop (step 5 of the example): capture 4 replica slots a
+   stage (own graphs, buffers and stream each), then the
+   ``ClosedLoopTuner(max_replicas=4)`` drives ``LiveControlLoop`` over
+   the executor serving the plan through the example's 3x spike, with
+   the same answer, launch-count and batch-cap checks, no request
+   released and at least one scale-up; its events, replica timelines,
+   p50/p99, miss and $/hr are printed beside those of the co-simulated
+   twin (``ControlLoopSession``) on the same trace, and beside the same
+   spike served with no controller, window by window;
+4e. what a replica adds on one card: 1, 2 and 4 threads replaying one
+   stage's batch of 8 at once, each on its own slot, for both stages;
 5. trace one replay per stage with torch.profiler: the device's busy
    share of the stage's batch latency, the kernels that fill it, and a
    check that the port's kernels in it are one forward's; then both
@@ -89,6 +100,7 @@ from repro_torch.core.hardware import (  # noqa: E402
     H100_PEAK_FLOPS_BF16,
     H100_PEAK_FLOPS_F32,
     H100_PEAK_FLOPS_TF32,
+    get_hardware,
 )
 from repro_torch.core.estimator import Estimator  # noqa: E402
 from repro_torch.core.pipeline import (  # noqa: E402
@@ -101,6 +113,7 @@ from repro_torch.core.profiler import (  # noqa: E402
     ProfileStore,
     profile_model_measured,
 )
+from repro_torch.core.tuner import ClosedLoopTuner, TunerPlanInfo  # noqa: E402
 from repro_torch.configs import get_arch, get_smoke, without_experts  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
@@ -108,7 +121,13 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving import SEQ, PipelineExecutor, make_stage  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    SEQ,
+    LiveControlLoop,
+    PipelineExecutor,
+    make_stage,
+)
+from repro_torch.sim import ControlLoopSession, NoOpController  # noqa: E402
 from repro_torch.workload import gamma_trace  # noqa: E402
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
@@ -121,6 +140,10 @@ SERVE_QPS, SERVE_S, SLO_S = 20.0, 10.0, 0.25
 # provisions for and the live trace served on its plan
 PLAN_QPS, PLAN_SAMPLE_S, PLAN_LIVE_S = 30.0, 20.0, 15.0
 PROFILE_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
+# examples/serve_real_models.py step 5: the Tuner's cap, its sample trace
+# and control epoch; the spike is spike_trace()
+TUNE_MAX_REPLICAS, TUNE_SAMPLE_S, TUNE_EPOCH_S = 4, 60.0, 1.0
+SLOT_THREADS = (1, 2, 4)        # phase 4e: replicas replaying at once
 STAGES = ("xlstm-125m", "llama3.2-1b")
 DECODE_BATCH, PROMPT, SMAX, STEPS = 8, 512, 1024, 64
 HYBRID = "jamba-1.5-large-398b"
@@ -1095,13 +1118,7 @@ def serve_config(stages, pipe, config, arrivals) -> tuple:
     arches = [st.model_id for st in pipe.stages.values()]
     ex = PipelineExecutor(pipe, config,
                           {a: stages[a].run_batch for a in arches})
-    vocabs = [stages[a].cfg.vocab_size for a in arches]
-    k = len(arches)
-
-    def payload(i: int) -> np.ndarray:
-        return np.random.default_rng(1000 + i).integers(
-            0, vocabs[0], SEQ, dtype=np.int32)
-
+    payload = payload_fn(stages, arches)
     try:
         reset_counts()
         lat = ex.serve_trace(arrivals, payload)
@@ -1114,18 +1131,40 @@ def serve_config(stages, pipe, config, arrivals) -> tuple:
     if not np.isfinite(lat).all():
         raise RuntimeError(f"{int((~np.isfinite(lat)).sum())} of "
                            f"{lat.size} requests unanswered")
+    check_answers(stages, arches, outs, payload)
+    check_batches(stages, arches, config, sizes, launches)
+    return lat, launches
+
+
+def payload_fn(stages, arches):
+    vocab = stages[arches[0]].cfg.vocab_size
+
+    def payload(i: int) -> np.ndarray:
+        return np.random.default_rng(1000 + i).integers(
+            0, vocab, SEQ, dtype=np.int32)
+    return payload
+
+
+def check_answers(stages, arches, outs, payload) -> None:
+    """Each answer of a chain of ``arches``: request i's window shifted
+    by one a stage, each stage's argmax appended inside its vocabulary."""
+    vocabs = [stages[a].cfg.vocab_size for a in arches]
+    k = len(arches)
     for i, out in enumerate(outs):
         p = payload(i)
         if not (isinstance(out, np.ndarray) and out.shape == (SEQ,)
                 and out.dtype == np.int32):
             raise RuntimeError(f"request {i}: bad answer {out!r}")
-        # k stages: the window shifted by k, each stage's argmax appended,
-        # each inside its model's vocabulary
         if not (np.array_equal(out[:SEQ - k], p[k:])
                 and all(0 <= out[SEQ - k + j] < v
                         for j, v in enumerate(vocabs))):
             raise RuntimeError(f"request {i}: answer is not the chain of "
                                f"shifted windows: {out}")
+
+
+def check_batches(stages, arches, config, sizes, launches) -> None:
+    """The launches counted during a run against those of the batches it
+    served, and each batch against its stage's cap."""
     n_batches = {a: int(sizes[f"s{i}_{a}"].size)
                  for i, a in enumerate(arches)}
     per_fwd = {a: launches_per_forward(stages[a].cfg, SEQ) for a in arches}
@@ -1141,7 +1180,6 @@ def serve_config(stages, pipe, config, arrivals) -> tuple:
     mean_batch = {s: round(float(v.mean()), 3) for s, v in sizes.items()}
     log(f"  batches per stage {n_batches}, mean batch size {mean_batch}")
     log(f"  kernel launches during serving {launches} (expected {expect})")
-    return lat, launches
 
 
 def latency_line(lat: np.ndarray, pipe, store, config,
@@ -1226,6 +1264,202 @@ def serve_each_alone(stages, store, config) -> dict:
         for name, n in launches.items():
             total[name] += n
     return total
+
+
+# ----------------------------------------------------------- phases 4d, 4e
+
+def spike_trace() -> np.ndarray:
+    """The spike of examples/serve_real_models.py step 5: 8 s at the
+    planned 30 qps, 5 s at 3x with cv 0.7, then 17 s at 30 qps."""
+    return np.concatenate([
+        gamma_trace(PLAN_QPS, 1.0, 8, seed=3),
+        8.0 + gamma_trace(3 * PLAN_QPS, 0.7, 5, seed=4),
+        13.0 + gamma_trace(PLAN_QPS, 1.0, 17, seed=5)])
+
+
+def warm_slots(stages) -> None:
+    """Capture TUNE_MAX_REPLICAS replica slots a stage, before any
+    executor runs: every replica the Tuner adds replays its own graphs
+    on its own stream."""
+    t0 = time.perf_counter()
+    for arch in STAGES:
+        stages[arch].warmup(max(PROFILE_BATCHES), slots=TUNE_MAX_REPLICAS)
+    n = {a: [len(s.graphs) for s in stages[a].pool.slots] for a in STAGES}
+    log(f"  replica slots captured in {time.perf_counter() - t0:.1f} s, "
+        f"graphs per slot {n}; device memory "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+
+
+def serve_spike(stages, pipe, config, service, solo, controller,
+                spike) -> tuple:
+    """Serve ``spike`` through the live control loop with ``controller``
+    on a fresh executor of ``config``, the launch counters zeroed just
+    before and read just after; check that nothing was released, every
+    answer, the launch counts and each batch's cap. Returns (the run,
+    the launches)."""
+    arches = [st.model_id for st in pipe.stages.values()]
+    ex = PipelineExecutor(pipe, config,
+                          {a: stages[a].run_batch for a in arches},
+                          solo_latency_s=solo)
+    payload = payload_fn(stages, arches)
+    answers: dict = {}
+    ex.on_request_done = lambda r: answers.__setitem__(r.rid, r.payload)
+    loop = LiveControlLoop(ex, SLO_S, epoch_s=TUNE_EPOCH_S,
+                           service_time_s=service)
+    try:
+        reset_counts()
+        run = loop.run(spike, controller, payload)
+        launches = counts()
+        sizes = ex.batch_sizes()
+        lags = ex.injection_stats()
+    finally:
+        if not ex.shutdown():
+            raise RuntimeError("executor workers did not stop")
+    lat = run.latency
+    # the loop injects up to its last epoch boundary, as the reference's
+    if run.released or not np.isfinite(lat).all() or lat.size != int(
+            (spike <= run.telemetry[-1].t_end).sum()):
+        raise RuntimeError(f"{run.released} released, "
+                           f"{int((~np.isfinite(lat)).sum())} unanswered of "
+                           f"{lat.size} ({spike.size} in the trace)")
+    check_answers(stages, arches, [answers.get(i) for i in range(lat.size)],
+                  payload)
+    check_batches(stages, arches, config, sizes, launches)
+    log(f"  served {lat.size} requests of the spike's {spike.size} (those "
+        f"up to the last of {len(run.telemetry)} control epochs of "
+        f"{TUNE_EPOCH_S:g} s): measured p50 "
+        f"{np.percentile(lat, 50) * 1e3:.2f} ms  p99 "
+        f"{np.percentile(lat, 99) * 1e3:.2f} ms  miss {run.miss_rate:.4f}  "
+        f"released {run.released}  mean ${run.mean_cost_per_hr():.2f}/hr; "
+        f"injection lag p99 {lags['p99_lag_s'] * 1e3:.3f} ms, max "
+        f"{lags['max_lag_s'] * 1e3:.3f} ms")
+    return run, launches
+
+
+def close_the_loop(stages, store, config) -> dict:
+    """Step 5 of examples/serve_real_models.py on the card: the
+    ClosedLoopTuner drives the live executor serving the planned cascade
+    through the example's 3x spike (at least one scale-up is checked),
+    then the co-simulated twin runs a fresh, identical tuner on the same
+    trace, and the same spike is served once more with no controller
+    (the planned fleet throughout) to show what the scaling did on one
+    card. Returns the launches of both runs."""
+    pipe = cascade_pipeline()
+    service = Estimator(pipe, store).service_time(config)
+    info = TunerPlanInfo.from_plan(
+        pipe, config, store,
+        gamma_trace(PLAN_QPS, 1.0, TUNE_SAMPLE_S, seed=2), service)
+    solo = {s: store.get(pipe.stages[s].model_id).batch_latency("h100-1", 1)
+            for s in pipe.stages}
+    spike = spike_trace()
+    log(f"  the Tuner: service time {service * 1e3:.2f} ms (the "
+        f"Estimator's), sample {TUNE_SAMPLE_S:g} s at {PLAN_QPS:g} qps, "
+        f"max_replicas {TUNE_MAX_REPLICAS}")
+    run, launches = serve_spike(stages, pipe, config, service, solo,
+                                ClosedLoopTuner(
+                                    info, max_replicas=TUNE_MAX_REPLICAS),
+                                spike)
+    if not any(e.kind == "up" for e in run.events):
+        raise RuntimeError("the Tuner issued no scale-up on a 3x spike")
+    log_events("live", run.events)
+    for s, tl in run.replica_timeline.items():
+        log(f"  live {s} replicas: "
+            + " -> ".join(f"{c}@{t:.1f}s" for t, c in tl))
+    log(f"  live mean batch "
+        f"{ {s: round(v, 3) for s, v in run.batch_stats().items()} }")
+
+    twin = ControlLoopSession(pipe, store, config, SLO_S).run(
+        spike, ClosedLoopTuner(info, max_replicas=TUNE_MAX_REPLICAS))
+    log_events("twin", twin.events)
+    for s, tl in twin.replica_timeline.items():
+        log(f"  twin {s} replicas: "
+            + " -> ".join(f"{c}@{t:.1f}s" for t, c in tl))
+    log(f"  twin: estimated p50 {twin.sim.percentile(50) * 1e3:.2f} ms  "
+        f"p99 {twin.sim.p99 * 1e3:.2f} ms  miss {twin.miss_rate:.4f}  "
+        f"mean ${twin.mean_cost_per_hr():.2f}/hr")
+    log(f"  final fleet: live "
+        f"{ {s: tl[-1][1] for s, tl in run.replica_timeline.items()} }, "
+        f"twin { {s: tl[-1][1] for s, tl in twin.replica_timeline.items()} }"
+        f"; events live {len(run.events)}, twin {len(twin.events)}")
+    log("  the same spike with no controller (one replica a stage "
+        "throughout):")
+    static, static_launches = serve_spike(stages, pipe, config, service,
+                                          solo, NoOpController(), spike)
+    # where the tail lies: the spike's edges and each event's landing
+    edges = sorted({0.0, 8.0, 13.0, float(spike.max()) + 1e-6}
+                   | {float(e.t_effective) for e in run.events})
+    latency_by_window("live", run.arrival, run.latency, edges)
+    latency_by_window("twin", twin.sim.arrival, twin.sim.latency, edges)
+    latency_by_window("no controller", static.arrival, static.latency,
+                      edges)
+    log(f"  cost: each h100-1 replica is priced as a card of its own "
+        f"(${get_hardware('h100-1').cost_per_hr:.2f}/hr, an assumption), "
+        f"while all {TUNE_MAX_REPLICAS * len(pipe.stages)} replica slots "
+        f"of both stages run on this one card")
+    return {name: n + static_launches[name]
+            for name, n in launches.items()}
+
+
+def latency_by_window(label: str, arrival, lat, edges) -> None:
+    cells = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        m = (arrival >= lo) & (arrival < hi)
+        if m.any():
+            cells.append(f"[{lo:.0f}, {hi:.0f}) s n={int(m.sum())} p50 "
+                         f"{np.percentile(lat[m], 50) * 1e3:.2f} p99 "
+                         f"{np.percentile(lat[m], 99) * 1e3:.2f}")
+    log(f"  {label} latency ms by arrival window: " + "; ".join(cells))
+
+
+def log_events(label: str, events) -> None:
+    for e in events:
+        log(f"  {label} t={e.t:5.1f}s  {e.kind:4s} {e.stage:16s} "
+            f"{e.value:+g}  effective {e.t_effective:.1f}s")
+
+
+def replicas_on_one_card(stages, reps: int = 30) -> None:
+    """What a second, third and fourth replica of a stage add on one
+    card: 1, 2 and 4 threads at once, each replaying the bucket of
+    SERVE_BATCH on its own slot (its own graph and stream, each replay
+    followed by a synchronize of that stream), host clock. Prints the
+    batches a second all threads served and the ms a replay, against one
+    thread alone."""
+    for arch in STAGES:
+        slots = stages[arch].pool.slots
+        cells, base = [], None
+        for n in SLOT_THREADS:
+            per = [0.0] * n
+            start = threading.Barrier(n + 1)
+
+            def run(k: int) -> None:
+                slot = slots[k]
+                graph = slot.graphs[SERVE_BATCH].graph
+                with torch.cuda.stream(slot.stream):
+                    graph.replay()
+                    slot.stream.synchronize()
+                    start.wait()
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        graph.replay()
+                        slot.stream.synchronize()
+                    per[k] = (time.perf_counter() - t0) / reps * 1e3
+
+            threads = [threading.Thread(target=run, args=(k,))
+                       for k in range(n)]
+            for t in threads:
+                t.start()
+            start.wait()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join()
+            rate = n * reps / (time.perf_counter() - t0)
+            ms = sum(per) / n
+            base = base or (rate, ms)
+            cells.append(f"{n}: {rate:.1f} batches/s ({rate / base[0]:.2f}x),"
+                         f" {ms:.3f} ms a replay ({ms / base[1]:.2f}x)")
+        log(f"  {arch} replicas replaying a batch of {SERVE_BATCH} at once, "
+            f"each on its own slot: " + "; ".join(cells))
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1501,6 +1735,12 @@ def main() -> int:
     planned, plan_config = plan_and_serve(stages, store)
     log("[4c] serve each stage alone on its planned configuration")
     alone = serve_each_alone(stages, store, plan_config)
+    log("[4d] close the loop: the ClosedLoopTuner scales the planned "
+        "cascade through the 3x spike; its co-simulated twin beside it")
+    warm_slots(stages)
+    tuned = close_the_loop(stages, store, plan_config)
+    log("[4e] what a replica adds on one card")
+    replicas_on_one_card(stages)
     log("[5] trace one replay per stage")
     trace(stages, store)
     log("[6] full-width llama3.2-1b: prefill and greedy decode")
@@ -1516,10 +1756,10 @@ def main() -> int:
     log("[7] full-width expert-free one-period Jamba-1.5-Large: prefill, "
         "greedy decode, stage latency")
     hybrid_pre, hybrid_steps = hybrid_full_width()
-    # each kernel's launches come from the path that runs it: the three
-    # serves of the cascade's stages, the llama decode, the hybrid
+    # each kernel's launches come from the path that runs it: the serves
+    # of the cascade's stages (4-4d), the llama decode, the hybrid
     for name in launches:
-        launches[name] += planned[name] + alone[name]
+        launches[name] += planned[name] + alone[name] + tuned[name]
     launches["decode_attention"] = decode_launches["decode_attention"]
     launches["mamba_scan"] = hybrid_pre["mamba_scan"] + \
         hybrid_steps["mamba_scan"]

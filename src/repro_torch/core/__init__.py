@@ -1,6 +1,6 @@
 """Control plane of the port: hardware menu, pipeline spec, measured
-profiler, traffic envelopes, the Estimator and the Planner (copies of the
-reference's ``repro.core``; the tuner comes later)."""
+profiler, traffic envelopes, the Estimator, the Planner and the Tuner
+(copies of the reference's ``repro.core``)."""
 
 from repro_torch.core.envelope import (  # noqa: F401
     TrafficEnvelope,

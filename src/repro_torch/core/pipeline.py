@@ -8,8 +8,8 @@ probabilities; the Profiler folds those into per-model *scale factors*
 visits model m (§4.1).
 
 A copy of the reference's pipeline spec. The same structure is consumed
-by the Estimator (simulation), the Planner (configuration search) and
-the executor (serving); the tuner comes later.
+by the Estimator (simulation), the Planner (configuration search), the
+Tuner (scaling decisions) and the executor (serving).
 """
 
 from __future__ import annotations
@@ -146,8 +146,7 @@ class StageConfig:
     * ``policy`` — per-stage queueing policy name from
       ``repro_torch.sim.queueing.QUEUE_POLICIES``: ``"fifo"`` (paper),
       ``"edf"`` (earliest-deadline-first), or ``"slo-drop"`` (SLO-aware
-      load shedding). The simulator runs all three; the port's executor
-      serves ``"fifo"`` only until the tuner brings the policy queues.
+      load shedding). The simulator and the executor run all three.
     """
 
     hardware: str

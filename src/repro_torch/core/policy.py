@@ -14,9 +14,7 @@ policies live HERE, in one module, and both backends consume them:
   optimized equivalent, golden-guarded bit-identical to
   :func:`fifo_select`-driven stepping);
 * the wall-clock executor drives a :class:`LiveQueue` per stage, whose
-  ``form_batch`` applies the same primitives to streaming requests (the
-  port's executor serves ``fifo`` through its own queue until the tuner
-  arrives).
+  ``form_batch`` applies the same primitives to streaming requests.
 
 The module also hosts :func:`simulate_stage_ref` — a scalar reference
 simulator over the primitives. It is the equivalence oracle for the

@@ -8,31 +8,37 @@ receives the same shape. Batches are padded up to a power-of-two bucket.
 
 On CUDA a batch is one CUDA graph replay, the port's counterpart of the
 reference's one ``jax.jit`` call per batch. ``warmup`` runs ``score``
-eagerly once per bucket up to ``max_batch`` on the stage's own stream
-(the first call of each kernel sets its attributes, cuBLAS settles its
+eagerly once per bucket up to ``max_batch`` on a slot's own stream (the
+first call of each kernel sets its attributes, cuBLAS settles its
 kernels), then captures one ``torch.cuda.CUDAGraph`` per bucket, each
 with its own memory pool, a static ``(b, SEQ)`` int32 token buffer, and
 the logits and the answer as its static outputs. Call it before the
 executor starts: a capture fails while another thread uses the card, so
 nothing is ever captured from a worker thread. A capture that fails
 raises, and so does a batch whose bucket was not captured: there is no
-eager fallback on CUDA. ``run_batch`` and ``profile_fn`` copy the tokens
-into the bucket's buffer, replay on the stage's stream, and copy the
-answer out. The static buffers are shared state, so each bucket has a
-lock held around copy-in, replay and copy-out: replica threads of one
-stage that replay the same bucket take turns. A replay runs no Python
-wrapper, so each bucket records how many launches of each kernel its
-capture counted and adds them to the kernels' counters at every replay.
+eager fallback on CUDA.
+
+The graphs come in **replica slots**. ``warmup(max_batch, slots=N)``
+captures N independent sets of the buckets, each set with its own static
+buffers, pinned host buffers and stream; the weights are the stage's,
+shared by all. ``run_batch`` and ``profile_fn`` take any free slot (the
+lowest free one) for the whole of copy-in, replay and copy-out, and
+wait while every slot is busy, so replica threads of one stage replay at
+once on as many streams as there are slots. With one slot, replicas
+take turns. A replay runs no Python wrapper, so each bucket records how
+many launches of each kernel its capture counted and adds them to the
+kernels' counters at every replay.
 
 On the CPU the stage runs ``score`` eagerly and captures nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
-from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Tuple, Union)
 
 import numpy as np
 import torch
@@ -52,9 +58,9 @@ COUNTERS = tuple(m.counter for m in (rmsnorm, flash_attention,
 
 @dataclasses.dataclass
 class GraphBucket:
-    """One captured batch shape of a stage on CUDA: the graph, its static
-    tensors on the card, pinned host buffers for the copies, the launches
-    one replay makes, and the lock that guards all of them."""
+    """One captured batch shape of a slot on CUDA: the graph, its static
+    tensors on the card, pinned host buffers for the copies, and the
+    launches one replay makes. Its slot's holder owns all of them."""
     graph: torch.cuda.CUDAGraph
     tokens: torch.Tensor          # (b, SEQ) int32, the graph's input
     logits: torch.Tensor          # (b, SEQ, vocab) f32
@@ -62,7 +68,46 @@ class GraphBucket:
     host_in: torch.Tensor
     host_out: torch.Tensor
     launches: Tuple[Tuple[_build.LaunchCounter, int], ...]
-    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+
+@dataclasses.dataclass
+class Slot:
+    """One replica slot of a stage on CUDA: a captured bucket per batch
+    shape and the stream its replays run on."""
+    stream: torch.cuda.Stream
+    graphs: Dict[int, GraphBucket]
+
+
+class SlotPool:
+    """A stage's replica slots and which of them are free. ``slots`` only
+    grows, in ``warmup``, before any replica serves."""
+
+    def __init__(self) -> None:
+        self.slots: List[Slot] = []
+        self._cond = threading.Condition()
+        self._free: List[int] = []     # guarded-by: _cond
+
+    def add(self, slot: Slot) -> None:
+        with self._cond:
+            self.slots.append(slot)
+            self._free.append(len(self.slots) - 1)
+            self._cond.notify()
+
+    @contextlib.contextmanager
+    def take(self) -> Iterator[Slot]:
+        """Hold the lowest free slot for the ``with`` block; wait while
+        every slot is busy."""
+        with self._cond:
+            while not self._free:
+                self._cond.wait()
+            i = min(self._free)
+            self._free.remove(i)
+        try:
+            yield self.slots[i]
+        finally:
+            with self._cond:
+                self._free.append(i)
+                self._cond.notify()
 
 
 class ServedStage(NamedTuple):
@@ -72,8 +117,9 @@ class ServedStage(NamedTuple):
     run_batch: Callable[[List[Any]], List[np.ndarray]]
     profile_fn: Callable[[int], None]
     warmup: Callable[..., None]
-    graphs: Dict[int, GraphBucket]         # by bucket; empty on the CPU
-    stream: Optional[torch.cuda.Stream]    # replays run here; CPU: None
+    graphs: Dict[int, GraphBucket]         # slot 0's, by bucket; CPU: empty
+    stream: Optional[torch.cuda.Stream]    # slot 0's; CPU: None
+    pool: SlotPool                         # every slot; CPU: none
 
 
 def _bucket(n: int) -> int:
@@ -90,15 +136,17 @@ def make_stage(arch_id: str,
     """Build ``arch_id`` at its published widths (``full=False``: the
     smoke variant) with seeded random parameters on ``device`` (default
     ``cuda``) and return its batch scoring functions. On CUDA, call
-    ``warmup`` before serving: it captures the graphs."""
+    ``warmup`` before serving: it captures the graphs, in as many replica
+    slots as it is asked for."""
     cfg = get_arch(arch_id) if full else get_smoke(arch_id)
     model = build_model(cfg, device)
     dev = model.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = model.init(gen)
     cuda = dev.type == "cuda"
-    stream = torch.cuda.Stream(dev) if cuda else None
-    graphs: Dict[int, GraphBucket] = {}
+    pool = SlotPool()
+    if cuda:
+        pool.add(Slot(torch.cuda.Stream(dev), {}))
 
     @torch.inference_mode()
     def score(tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -106,7 +154,7 @@ def make_stage(arch_id: str,
         nxt = logits[:, -1].argmax(dim=-1).to(tokens.dtype)
         return logits, torch.cat([tokens[:, 1:], nxt[:, None]], dim=1)
 
-    def capture(b: int) -> GraphBucket:
+    def capture(b: int, stream: torch.cuda.Stream) -> GraphBucket:
         tokens = torch.ones((b, SEQ), dtype=torch.int32, device=dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
@@ -127,22 +175,22 @@ def make_stage(arch_id: str,
     @torch.inference_mode()
     def replay(rows: np.ndarray) -> np.ndarray:
         b = _bucket(len(rows))
-        bucket = graphs.get(b)
-        if bucket is None:
+        if b not in pool.slots[0].graphs:
             raise RuntimeError(
                 f"{arch_id}: no CUDA graph for a batch of {b}; warmup("
                 f"max_batch >= {b}) captures one per bucket before serving")
-        with bucket.lock:
+        with pool.take() as slot:
+            bucket = slot.graphs[b]
             host = bucket.host_in.numpy()
             host[:len(rows)] = rows
             host[len(rows):] = 0
-            with torch.cuda.stream(stream):
+            with torch.cuda.stream(slot.stream):
                 bucket.tokens.copy_(bucket.host_in, non_blocking=True)
                 bucket.graph.replay()
                 bucket.host_out.copy_(bucket.out, non_blocking=True)
             for counter, k in bucket.launches:
                 counter.add_many(k)
-            stream.synchronize()
+            slot.stream.synchronize()
             return bucket.host_out.numpy()[:len(rows)].copy()
 
     def run_batch(payloads: List[Any]) -> List[np.ndarray]:
@@ -161,14 +209,30 @@ def make_stage(arch_id: str,
         else:
             score(torch.ones((b, SEQ), dtype=torch.int32))
 
-    def warmup(max_batch: int = MAX_BATCH) -> None:
+    def fill(slot: Slot, max_batch: int) -> Slot:
         b = 1
         while b <= max_batch:
-            if not cuda:
-                profile_fn(b)
-            elif b not in graphs:
-                graphs[b] = capture(b)
+            if b not in slot.graphs:
+                slot.graphs[b] = capture(b, slot.stream)
             b *= 2
+        return slot
 
+    def warmup(max_batch: int = MAX_BATCH, slots: int = 1) -> None:
+        """CUDA: capture every bucket up to ``max_batch`` in each of at
+        least ``slots`` slots, before any replica serves. CPU: run each
+        bucket once."""
+        if not cuda:
+            b = 1
+            while b <= max_batch:
+                profile_fn(b)
+                b *= 2
+            return
+        for slot in pool.slots:
+            fill(slot, max_batch)
+        while len(pool.slots) < slots:
+            pool.add(fill(Slot(torch.cuda.Stream(dev), {}), max_batch))
+
+    slot0 = pool.slots[0] if cuda else None
     return ServedStage(cfg, model, params, run_batch, profile_fn, warmup,
-                       graphs, stream)
+                       slot0.graphs if cuda else {},
+                       slot0.stream if cuda else None, pool)

@@ -11,12 +11,21 @@ façade and the Planner/BeamPlanner/AnnealedPlanner search loops.
   ``slo-drop`` (SLO-aware load shedding w/ reprogrammable shed margin)
 * :mod:`repro_torch.sim.result`   — per-query SimResult (+ dropped mask),
   per-epoch EpochTelemetry / StageTelemetry control records
+* :mod:`repro_torch.sim.control`  — closed-loop Tuner co-simulation: epoch
+  stepping (ControlLoopSession), ControlEvent, replica cost timelines
 
-The closed-loop co-simulation (``control``) comes with the tuner, and
-the device planner sweep with a torch backend; until then the engine
-runs the numpy fill only.
+The device planner sweep comes with a torch backend; until then the
+engine runs the numpy fill only.
 """
 
+from repro_torch.sim.control import (  # noqa: F401
+    ClosedLoopResult,
+    ControlEvent,
+    ControlLoopSession,
+    NoOpController,
+    ScheduleController,
+    replica_cost_timeline,
+)
 from repro_torch.sim.engine import (  # noqa: F401
     DEFAULT_RPC_DELAY_S,
     SimEngine,

@@ -8,7 +8,9 @@ paper defines CV = sigma^2 / mu^2 over inter-arrival times, so:
   CV = var/mean^2 = 1/k  =>  k = 1/CV, theta = 1/(lam*k)
 
 CV=1 is Poisson; CV=4 is heavily bursty. A copy of the reference's
-``gamma_trace``; the time-varying traces arrive with the tuner slice.
+``gamma_trace``; a spike is segments of it concatenated, as the
+reference's example builds one. The reference's time-varying traces
+(``workload/traces.py``) are not ported yet.
 """
 
 from __future__ import annotations

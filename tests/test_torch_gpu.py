@@ -491,8 +491,8 @@ def test_replay_adds_the_launches_its_capture_counted(smoke_stages, arch):
 
 @pytest.mark.parametrize("arch", STAGES)
 def test_two_threads_replay_one_stage_at_once(smoke_stages, arch):
-    """The bucket's lock: two threads serving one stage, on one bucket and
-    on two, get every answer right."""
+    """One slot: two threads serving one stage, on one bucket and on two,
+    take turns on it and get every answer right."""
     st = smoke_stages[arch]
     jobs = [_rows(st, n, 100 + i) for i, n in enumerate((4, 4, 3, 8) * 5)]
     want = [np.stack(st.run_batch(list(r))) for r in jobs]
@@ -530,3 +530,179 @@ def test_a_failed_capture_raises(gen, monkeypatch):
     assert st.graphs == {}
     with pytest.raises(RuntimeError, match="no CUDA graph"):
         st.run_batch([np.zeros(SEQ, dtype=np.int32)])
+
+
+# ------------------------------------------------------------ replica slots
+
+SLOTS = 3
+
+
+@pytest.fixture(scope="module")
+def slotted_stages():
+    """Both cascade stages at smoke size, every bucket captured in
+    SLOTS replica slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stages = {a: make_stage(a, "cuda", full=False, seed=0) for a in STAGES}
+    for st in stages.values():
+        st.warmup(slots=SLOTS)
+    return stages
+
+
+class _OnlySlot:
+    """Hold every slot of a stage but ``k`` so the next batch replays on
+    slot ``k``."""
+
+    def __init__(self, st, k):
+        self.cms = [st.pool.take() for _ in st.pool.slots]
+        self.k = k
+
+    def __enter__(self):
+        for cm in self.cms:
+            cm.__enter__()
+        self.cms[self.k].__exit__(None, None, None)
+        return self
+
+    def __exit__(self, *exc):
+        for i, cm in enumerate(self.cms):
+            if i != self.k:
+                cm.__exit__(None, None, None)
+
+
+@pytest.mark.parametrize("arch", STAGES)
+def test_every_slot_replays_the_eager_forward(slotted_stages, arch):
+    """Each slot has its own graphs, streams and buffers, and each one's
+    replay at every bucket is bit-equal to the eager forward."""
+    st = slotted_stages[arch]
+    slots = st.pool.slots
+    assert len(slots) == SLOTS and slots[0].graphs is st.graphs
+    assert len({id(s.stream) for s in slots}) == SLOTS
+    for k, slot in enumerate(slots):
+        assert sorted(slot.graphs) == list(BUCKETS)
+        for b in BUCKETS:
+            rows = _rows(st, b, 10 * k + b)
+            with _OnlySlot(st, k):
+                out = np.stack(st.run_batch(list(rows)))
+            assert torch.equal(slot.graphs[b].tokens.cpu(),
+                               torch.from_numpy(rows))
+            with torch.inference_mode():
+                exp, _ = st.model.forward(st.params, {
+                    "tokens": torch.from_numpy(rows).cuda()})
+            assert torch.equal(slot.graphs[b].logits, exp), (k, b)
+            np.testing.assert_array_equal(out[:, :-1], rows[:, 1:])
+            np.testing.assert_array_equal(
+                out[:, -1], exp[:, -1].argmax(-1).cpu().numpy())
+    other = [s.graphs[8].logits.data_ptr() for s in slots]
+    assert len(set(other)) == SLOTS
+
+
+@pytest.mark.parametrize("arch", STAGES)
+def test_threads_on_their_own_slots_answer_as_one_thread(slotted_stages,
+                                                         arch):
+    """SLOTS threads serving one stage at once, over every bucket, get
+    the answers one thread gets."""
+    st = slotted_stages[arch]
+    jobs = [_rows(st, n, 300 + i) for i, n in enumerate(BUCKETS * SLOTS)]
+    want = [np.stack(st.run_batch(list(r))) for r in jobs]
+    got = [None] * len(jobs)
+    start = threading.Barrier(SLOTS)
+
+    def serve(idx):
+        start.wait(timeout=60)
+        for i in idx:
+            got[i] = np.stack(st.run_batch(list(jobs[i])))
+
+    threads = [threading.Thread(target=serve,
+                                args=(range(k, len(jobs), SLOTS),))
+               for k in range(SLOTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert sorted(st.pool._free) == list(range(SLOTS))
+
+
+def test_a_batch_finding_every_slot_busy_waits(slotted_stages):
+    st = slotted_stages["llama3.2-1b"]
+    rows = _rows(st, 4, 7)
+    want = np.stack(st.run_batch(list(rows)))
+    got = []
+    cms = [st.pool.take() for _ in range(SLOTS)]
+    for cm in cms:
+        cm.__enter__()
+    try:
+        t = threading.Thread(
+            target=lambda: got.append(np.stack(st.run_batch(list(rows)))))
+        t.start()
+        t.join(0.5)
+        assert t.is_alive() and got == []       # every slot busy: waits
+    finally:
+        for cm in cms:
+            cm.__exit__(None, None, None)
+    t.join(60)
+    assert not t.is_alive()
+    np.testing.assert_array_equal(got[0], want)
+
+
+@pytest.mark.parametrize("arch", STAGES)
+def test_slots_replay_the_launches_of_one_forward(slotted_stages, arch):
+    st = slotted_stages[arch]
+    rows = _rows(st, 8, 0)
+    before = _counts()
+    with torch.inference_mode():
+        st.model.forward(st.params, {"tokens": torch.from_numpy(rows).cuda()})
+    eager = [a - b for a, b in zip(_counts(), before)]
+    for k in range(SLOTS):
+        launches = {c: n for c, n in st.pool.slots[k].graphs[8].launches}
+        assert launches == {c: n for c, n in st.graphs[8].launches}
+        with _OnlySlot(st, k):
+            before = _counts()
+            st.run_batch(list(rows[:5]))
+            assert [a - b for a, b in zip(_counts(), before)] == eager
+
+
+def test_adding_a_replica_at_runtime_captures_nothing(slotted_stages,
+                                                      monkeypatch):
+    """A replica the control loop adds while the cascade serves replays
+    the slots captured before serving: no capture, no eager forward."""
+    from repro_torch.control import ControlEvent, ScheduleController
+    from repro_torch.core.pipeline import (PipelineConfig, StageConfig,
+                                           linear_pipeline)
+    from repro_torch.serving import LiveControlLoop, PipelineExecutor
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA graph was captured while serving")
+
+    stages = [slotted_stages[a] for a in STAGES]
+    n_graphs = [sum(len(s.graphs) for s in st.pool.slots) for st in stages]
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
+    monkeypatch.setattr(torch.cuda, "graph", refuse)
+    forwards = []
+    for st in stages:
+        monkeypatch.setattr(st.model, "forward",
+                            lambda *a, **k: forwards.append(1))
+    pipe = linear_pipeline("cascade", list(STAGES),
+                           {a: ["h100-1"] for a in STAGES})
+    cfg = PipelineConfig({s: StageConfig("h100-1", 8, 1)
+                          for s in pipe.stages})
+    ex = PipelineExecutor(pipe, cfg, {a: st.run_batch
+                                      for a, st in zip(STAGES, stages)})
+    names = list(pipe.stages)
+    sched = ScheduleController(
+        [ControlEvent(0.5, 0.5, s, "up", SLOTS - 1) for s in names])
+    loop = LiveControlLoop(ex, slo=1.0, epoch_s=0.5, drain_timeout_s=30.0)
+    rows = _rows(stages[0], 60, 5)
+    try:
+        res = loop.run(np.linspace(0.0, 2.0, 60), sched, lambda i: rows[i])
+    finally:
+        assert ex.shutdown()
+    assert res.released == 0 and np.isfinite(res.latency).all()
+    assert [tl[-1][1] for tl in res.replica_timeline.values()] == \
+        [SLOTS] * 2
+    assert forwards == []
+    assert [sum(len(s.graphs) for s in st.pool.slots)
+            for st in stages] == n_graphs

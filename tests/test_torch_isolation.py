@@ -49,8 +49,11 @@ def test_port_imports_with_jax_unavailable():
             "import repro_torch.serving, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.core.profiler, "
             "repro_torch.core.planner, repro_torch.core.estimator, "
-            "repro_torch.sim\n"
-            "from repro_torch.core import Planner, Estimator\n")
+            "repro_torch.sim, repro_torch.control, repro_torch.core.tuner, "
+            "repro_torch.sim.control, repro_torch.serving.loop, "
+            "repro_torch.serving.frontends\n"
+            "from repro_torch.core import Planner, Estimator\n"
+            "from repro_torch.serving import LiveControlLoop\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)

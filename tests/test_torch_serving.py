@@ -1,7 +1,11 @@
-"""The port's serving path on the CPU: the trimmed executor serving a
-two-stage smoke cascade, its FIFO formation rules, and the control-plane
-copies (hardware, pipeline, profiler, trace generator) against the JAX
-package's originals."""
+"""The port's serving path on the CPU: the executor serving a two-stage
+smoke cascade, its policy queues, AND-joins, hop delays and runtime
+scaling, the live control loop driving it, the stage's replica slots,
+and the control-plane copies (hardware, pipeline, profiler, trace
+generator) against the JAX package's originals.
+
+The wall-clock cases are the reference's (``tests/test_live_executor.py``)
+with the same sleep stages, parameters and timing bars."""
 
 import sys
 import threading
@@ -35,8 +39,19 @@ from repro_torch.core.profiler import (  # noqa: E402
     ProfileStore,
     profile_model_measured,
 )
-from repro_torch.serving import SEQ, PipelineExecutor, make_stage  # noqa: E402
-from repro_torch.serving.executor import FifoQueue  # noqa: E402
+from repro_torch.control import ControlEvent, ScheduleController  # noqa: E402
+from repro_torch.core.policy import LiveQueue  # noqa: E402
+from repro_torch.core.tuner import ClosedLoopTuner, TunerPlanInfo  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    SEQ,
+    Frontend,
+    LiveControlLoop,
+    PipelineExecutor,
+    make_stage,
+)
+from repro_torch.serving.executor import _Request  # noqa: E402
+from repro_torch.serving.stage import SlotPool  # noqa: E402
+from repro_torch.sim.result import EpochTelemetry  # noqa: E402
 from repro_torch.workload import gamma_trace  # noqa: E402
 
 
@@ -210,32 +225,36 @@ def test_conditional_edge_skips_the_child():
     assert set(seen) <= {10 * i + 1 for i in range(40)}
 
 
-@pytest.mark.parametrize("bad", ["edf", "join"])
+@pytest.mark.parametrize("bad", ["faults", "retry", "process"])
 def test_executor_rejects_what_this_slice_does_not_serve(bad):
-    stages = {s: Stage(s, s, ("cpu-1",)) for s in "abc"}
-    edges = [Edge(SOURCE, "a"), Edge(SOURCE, "b"), Edge("a", "c"),
-             Edge("b", "c")]
-    pipe = Pipeline("diamond", stages, edges)
-    config = _config(pipe, batch_size=1)
-    if bad == "edf":
-        pipe = linear_pipeline("one", ["m"], {"m": ["cpu-1"]})
-        config = PipelineConfig({s: StageConfig("cpu-1", 1, 1, policy="edf")
-                                 for s in pipe.stages})
-    with pytest.raises(ValueError):
-        PipelineExecutor(pipe, config, {s: (lambda p: p) for s in "abcm"})
+    """Fault injection, retries and the process backend are not ported:
+    asking for one raises and names the roadmap item that brings it."""
+    pipe = linear_pipeline("one", ["m"], {"m": ["cpu-1"]})
+    kwargs = {"faults": {"faults": object()},
+              "retry": {"retry": object()},
+              "process": {"backend": "process"}}[bad]
+    with pytest.raises(NotImplementedError, match="A3"):
+        PipelineExecutor(pipe, _config(pipe, batch_size=1),
+                         {"m": lambda p: p}, **kwargs)
+    with pytest.raises(ValueError, match="backend"):
+        PipelineExecutor(pipe, _config(pipe, batch_size=1),
+                         {"m": lambda p: p}, backend="gpu")
 
 
 def test_fifo_queue_holds_a_partial_batch_until_its_timeout():
-    q = FifoQueue(timeout_s=0.1)
+    """The executor's queue is the policy core's ``LiveQueue``: its fifo
+    formation hold keeps a partial batch until the timeout or a full
+    batch."""
+    q = LiveQueue("fifo", timeout_s=0.1)
     for i in range(3):
         q.push(i, ready=0.0)
-    assert q.form_batch(0.05, max_batch=4) == []
+    assert q.form_batch(0.05, max_batch=4) == ([], [])
     assert q.next_ready_after(0.05, max_batch=4) == pytest.approx(0.1)
-    assert q.form_batch(0.1, max_batch=4) == [0, 1, 2]
+    assert q.form_batch(0.1, max_batch=4) == ([0, 1, 2], [])
     for i in range(5):
         q.push(i, ready=1.0)
-    assert q.form_batch(0.5, max_batch=4) == []          # none ready yet
-    assert q.form_batch(1.0, max_batch=4) == [0, 1, 2, 3]  # full: no hold
+    assert q.form_batch(0.5, max_batch=4) == ([], [])          # none ready
+    assert q.form_batch(1.0, max_batch=4) == ([0, 1, 2, 3], [])  # full
     assert len(q) == 1
 
 
@@ -305,3 +324,440 @@ def test_make_stage_without_a_gpu_raises():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no GPU"):
         make_stage("llama3.2-1b", full=False)
+
+
+# ------------------------------------------- the live executor and loop
+
+def _sleep_fn(per_batch_s, counter=None):
+    def fn(payloads):
+        if counter is not None:
+            counter.append(len(payloads))
+        time.sleep(per_batch_s)
+        return list(payloads)
+    return fn
+
+
+def _linear(n_stages=1, batch=4, replicas=1, policy="fifo"):
+    names = [f"m{i}" for i in range(n_stages)]
+    pipe = linear_pipeline("t", names, {n: ["cpu-1"] for n in names})
+    cfg = PipelineConfig({
+        s: StageConfig("cpu-1", batch, replicas, policy=policy)
+        for s in pipe.stages})
+    return pipe, cfg
+
+
+def _diamond(prob_c=1.0):
+    """a -> (b, c) -> d; the c branch optionally conditional."""
+    stages = {n: Stage(n, n, ("cpu-1",)) for n in "abcd"}
+    edges = [Edge(SOURCE, "a"), Edge("a", "b"),
+             Edge("a", "c", probability=prob_c),
+             Edge("b", "d"), Edge("c", "d")]
+    pipe = Pipeline("diamond", stages, edges)
+    cfg = PipelineConfig({s: StageConfig("cpu-1", 4, 1) for s in stages})
+    return pipe, cfg, {n: _sleep_fn(0.002) for n in "abcd"}
+
+
+def test_shutdown_joins_all_workers_mid_load():
+    """shutdown() joins every worker, even called mid-load, twice."""
+    pipe, cfg = _linear(n_stages=2, replicas=3)
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.01),
+                                      "m1": _sleep_fn(0.01)})
+    workers = [t for st in ex._stages.values() for t in st.workers]
+    for i in range(40):
+        ex.inject(_Request(i, ex.now(), i))
+    assert ex.shutdown(join_timeout_s=5.0)
+    assert ex.shutdown(join_timeout_s=1.0)      # idempotent
+    assert len(workers) == 6 and not any(t.is_alive() for t in workers)
+
+
+def test_scale_down_drains_in_service_batch():
+    """Retiring a replica lets its in-service batch complete (no request
+    is ever abandoned) and the thread exits afterwards."""
+    pipe, cfg = _linear(replicas=2, batch=2)
+    sizes = []
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.15, sizes)})
+    reqs = [_Request(i, ex.now(), i) for i in range(6)]
+    for r in reqs:
+        ex.inject(r)
+    time.sleep(0.05)                  # both workers mid-batch
+    ex.retire_replicas("s0_m0", 1)
+    assert ex.replica_target("s0_m0") == 1
+    for r in reqs:
+        assert r.done.wait(5.0), "request lost during scale-down drain"
+    deadline = time.time() + 2.0
+    while ex.live_worker_count("s0_m0") > 1 and time.time() < deadline:
+        time.sleep(0.02)
+    assert ex.live_worker_count("s0_m0") == 1
+    assert ex.shutdown()
+
+
+def test_scale_up_with_activation_delay():
+    """add_replicas(t_active) workers do not serve before t_active — the
+    runtime analogue of the engine's (t, +1) activation events."""
+    pipe, cfg = _linear(replicas=1, batch=1)
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.3)})
+    t_act = ex.now() + 0.35
+    ex.add_replicas("s0_m0", 1, t_active=t_act)
+    reqs = [_Request(i, ex.now(), i) for i in range(3)]
+    for r in reqs:
+        ex.inject(r)
+    for r in reqs:
+        assert r.done.wait(5.0)
+    # the original replica can finish exactly one 300 ms batch before
+    # t_act = 0.35; were the new worker serving from t=0, a second
+    # completion would land by ~0.3 as well
+    assert sum(1 for r in reqs if r.t_done < t_act) <= 1
+    timeline = ex.replica_timeline["s0_m0"]
+    assert timeline[0][1] == 1 and timeline[-1][1] == 2
+    assert timeline[-1][0] == pytest.approx(t_act)
+    ex.scale("s0_m0", 1)
+    assert ex.replica_target("s0_m0") == 1
+    assert ex.shutdown()
+
+
+def test_a_replica_waiting_for_activation_takes_no_wake_up():
+    """Replicas added with a future activation wait on the stage's
+    condition beside the active one. An arrival wakes every worker, so
+    the active replica serves it at once instead of sleeping out its
+    timed wait while a waiting replica takes the only wake-up."""
+    pipe, cfg = _linear(replicas=1, batch=4)
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.001)})
+    ex.add_replicas("s0_m0", 3, t_active=ex.now() + 1e6)
+    time.sleep(0.3)
+    lat = []
+    for i in range(20):
+        r = _Request(i, ex.now(), i)
+        ex.inject(r)
+        assert r.done.wait(5.0)
+        lat.append(r.t_done - r.t_arrival)
+        time.sleep(0.037)
+    assert ex.shutdown()
+    # a lost wake-up costs the active worker's timed wait (up to 0.25 s)
+    assert np.median(lat) < 0.05, lat
+
+
+def test_serve_trace_releases_timed_out_requests():
+    """A timed-out serve_trace reports inf AND cancels the backlog so
+    stages stop grinding through work nobody waits for."""
+    pipe, cfg = _linear(replicas=1, batch=1)
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.25)})
+    trace = np.linspace(0.0, 0.05, 12)      # ~3 s of service, 0.6 s budget
+    lat = ex.serve_trace(trace, lambda i: i, timeout_s=0.6)
+    assert np.isinf(lat).any()
+    assert np.isfinite(lat).any()
+    deadline = time.time() + 2.0
+    while time.time() < deadline:
+        if ex.telemetry_counters()["s0_m0"]["queue_depth"] == 0:
+            break
+        time.sleep(0.05)
+    assert ex.telemetry_counters()["s0_m0"]["queue_depth"] == 0
+    assert ex.outputs().count(None) == int(np.isinf(lat).sum())
+    assert ex.shutdown()
+
+
+def test_executor_reuse_after_timed_out_run():
+    """Request ids restart at 0 every run: a second run on the same
+    executor does not collide with run 1's released backlog."""
+    pipe, cfg = _linear(replicas=1, batch=1)
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.2)})
+    lat1 = ex.serve_trace(np.zeros(8), lambda i: i, timeout_s=0.3)
+    assert np.isinf(lat1).any()
+    lat2 = ex.serve_trace(np.linspace(0, 0.2, 4), lambda i: i,
+                          timeout_s=10.0)
+    assert np.isfinite(lat2).all(), lat2
+    assert (lat2 > 0).all()
+    assert ex.shutdown()
+
+
+def test_live_slo_drop_sheds_and_reports_inf():
+    pipe, cfg = _linear(replicas=1, batch=4, policy="slo-drop")
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.2)},
+                          solo_latency_s={"s0_m0": 0.2})
+    # one long batch occupies the replica; the backlog behind it has
+    # deadlines too tight to survive the wait and is shed
+    lat = ex.serve_trace(np.zeros(6), lambda i: i, timeout_s=5.0,
+                         slo_s=0.25)
+    assert np.isinf(lat).sum() >= 1, lat
+    assert np.isfinite(lat).sum() >= 1
+    assert ex.telemetry_counters()["s0_m0"]["dropped"] >= 1
+    outs = ex.outputs()
+    assert all((o is None) == bool(np.isinf(x)) for o, x in zip(outs, lat))
+    assert ex.shutdown()
+
+
+def test_live_edf_serves_urgent_first():
+    pipe, cfg = _linear(replicas=1, batch=1, policy="edf")
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.2)})
+    ex.start_run()
+    blocker = _Request(0, ex.now(), 0, deadline=99.0)
+    ex.inject(blocker)                 # occupies the replica
+    time.sleep(0.05)
+    relaxed = _Request(1, ex.now(), 1, deadline=50.0)
+    ex.inject(relaxed)
+    urgent = _Request(2, ex.now(), 2, deadline=1.0)   # arrives later
+    ex.inject(urgent)
+    for r in (blocker, relaxed, urgent):
+        assert r.done.wait(5.0)
+    assert urgent.t_done < relaxed.t_done
+    assert ex.shutdown()
+
+
+def test_live_policy_switch_and_shed_margin_events():
+    pipe, cfg = _linear(replicas=1, batch=2)
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.02)})
+    ex.apply_control_event(
+        ControlEvent(0.0, 0.0, "s0_m0", "policy", 0.0, policy="edf"))
+    assert ex._stages["s0_m0"].queue.policy == "edf"
+    ex.apply_control_event(ControlEvent(0.0, 0.0, "s0_m0", "shed", 0.1))
+    assert ex._stages["s0_m0"].queue.shed_margin == pytest.approx(0.1)
+    with pytest.raises(ValueError):
+        ex.apply_control_event(ControlEvent(0.0, 0.0, "nope", "up", 1))
+    with pytest.raises(ValueError):
+        ex.apply_control_event(
+            ControlEvent(0.0, 0.0, "s0_m0", "policy", 0.0))
+    assert ex.shutdown()
+
+
+def test_executor_timeout_hold_batches_sparse_arrivals():
+    """Two sparse arrivals within one hold window serve as ONE batch."""
+    pipe = linear_pipeline("t", ["m0"], {"m0": ["cpu-1"]})
+    cfg = PipelineConfig({s: StageConfig("cpu-1", 2, 1, timeout_s=0.4)
+                          for s in pipe.stages})
+    sizes = []
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.01, sizes)})
+    ex.start_run()
+    r0 = _Request(0, ex.now(), 0)
+    ex.inject(r0)
+    time.sleep(0.15)                  # well inside the 0.4 s hold
+    r1 = _Request(1, ex.now(), 1)
+    ex.inject(r1)
+    for r in (r0, r1):
+        assert r.done.wait(5.0)
+    assert sizes and sizes[0] == 2, sizes   # held and served together
+    assert r0.t_done >= r1.t_arrival
+    assert ex.shutdown()
+
+
+@pytest.mark.parametrize("prob_c", [1.0, 0.5])
+def test_diamond_and_join_serves_each_request_once(prob_c):
+    """The AND-join stage d serves each request exactly once, after every
+    parent reported: with a 0.5-probability branch the branch that did
+    not fire sends an anti-token instead of leaving the barrier
+    hanging."""
+    pipe, cfg, fns = _diamond(prob_c)
+    ex = PipelineExecutor(pipe, cfg, fns)
+    done_rids = []
+    done_lock = threading.Lock()
+
+    def on_done(req):
+        with done_lock:
+            done_rids.append(req.rid)
+
+    ex.on_request_done = on_done
+    try:
+        lat = ex.serve_trace(np.linspace(0.0, 0.3, 30), lambda i: i,
+                             timeout_s=20.0)
+        counters = ex.telemetry_counters()
+    finally:
+        assert ex.shutdown()
+    assert np.isfinite(lat).all(), lat
+    assert sorted(done_rids) == list(range(30))      # exactly once each
+    assert counters["d"]["arrived"] == 30            # once, not per parent
+    if prob_c < 1.0:
+        assert 0 < counters["c"]["arrived"] < 30     # the coin flipped
+    else:
+        assert counters["c"]["arrived"] == 30
+
+
+def test_frontend_hop_delays_every_hand_off_and_the_reply():
+    """A frontend's hop delay lands on the entry hop, each inter-stage
+    hand-off and the reply hop: three hops through two stages."""
+    hop = 0.05
+    slow = Frontend("slow", rpc_delay_s=hop, serialization_s=0.0)
+    assert slow.hop_delay_s == hop
+    pipe, cfg = _linear(n_stages=2, replicas=1, batch=4)
+    fns = {"m0": _sleep_fn(0.001), "m1": _sleep_fn(0.001)}
+    lat = {}
+    for name, frontend in (("none", None), ("slow", slow)):
+        ex = PipelineExecutor(pipe, cfg, fns, frontend=frontend)
+        try:
+            lat[name] = ex.serve_trace(np.arange(5) * 0.2, lambda i: i,
+                                       timeout_s=10.0)
+        finally:
+            assert ex.shutdown()
+    assert np.isfinite(lat["slow"]).all()
+    assert (lat["slow"] >= 3 * hop).all(), lat["slow"]
+    assert (lat["none"] < 3 * hop).all(), lat["none"]
+
+
+def test_live_loop_schedule_controller_scales_up_and_down():
+    """The LiveControlLoop lands the same ControlEvents the co-sim loop
+    folds — scale up (activation-delayed) then back down (drained) —
+    and records them in the replica timeline."""
+    pipe, cfg = _linear(replicas=1, batch=4)
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.01)})
+    loop = LiveControlLoop(ex, slo=0.5, epoch_s=0.5, service_time_s=0.01,
+                           drain_timeout_s=5.0)
+    stage = "s0_m0"
+    sched = ScheduleController([
+        ControlEvent(1.0, 1.5, stage, "up", 2),
+        ControlEvent(3.0, 3.0, stage, "down", -2),
+    ])
+    trace = gamma_trace(40, 1.0, 4, seed=0)
+    res = loop.run(trace, sched, lambda i: i)
+    assert [e.kind for e in res.events] == ["up", "down"]
+    assert res.replica_schedules[stage] == [(1.5, 2), (3.0, -2)]
+    assert res.replica_timeline[stage] == [(0.0, 1), (1.5, 3), (3.0, 1)]
+    assert res.released == 0
+    assert np.isfinite(res.latency).all()
+    assert res.miss_rate < 0.5
+    # telemetry: epochs partition [0, t_stop]; every injection landing
+    # at/before the last boundary is counted in exactly one window
+    assert len(res.telemetry) == int(trace.max() // 0.5)
+    t_last = res.telemetry[-1].t_end
+    in_epochs = int(np.searchsorted(res.arrival, t_last, side="right"))
+    assert sum(t.ingress for t in res.telemetry) == in_epochs
+    assert all(isinstance(t, EpochTelemetry) for t in res.telemetry)
+    by_t = {t.t_end: t.stages[stage].replicas for t in res.telemetry}
+    assert by_t[1.0] == 1 and by_t[2.0] == 3 and by_t[3.5] == 1
+    assert res.total_cost() > 0.0
+    assert ex.shutdown()
+
+
+def test_live_loop_closed_loop_tuner_scales_real_threads():
+    """ClosedLoopTuner — unchanged from co-simulation — reacts to a real
+    spike on the real executor."""
+    fn = _sleep_fn(0.004)
+    pipe, cfg = _linear(replicas=2, batch=4)
+    store = ProfileStore()
+    store.add(profile_model_measured("m0", lambda b: fn([0] * b),
+                                     batch_sizes=(1, 2, 4), repeats=2))
+    lut1 = store.get("m0").batch_latency("cpu-1", 1)
+    sample = gamma_trace(30, 1.0, 4, seed=0)
+    info = TunerPlanInfo.from_plan(pipe, cfg, store, sample, lut1)
+    ex = PipelineExecutor(pipe, cfg, {"m0": fn},
+                          solo_latency_s={"s0_m0": lut1})
+    loop = LiveControlLoop(ex, slo=0.15, epoch_s=0.5, service_time_s=lut1,
+                           drain_timeout_s=5.0)
+    trace = np.concatenate([sample, 4.0 + gamma_trace(250, 0.5, 2, seed=1)])
+    tuner = ClosedLoopTuner(info, activation_delay_s=0.5)
+    res = loop.run(trace, tuner, lambda i: i)
+    ups = [e for e in res.events if e.kind == "up"]
+    assert ups, "closed-loop tuner never scaled the real executor"
+    assert res.replica_timeline["s0_m0"][-1][1] > 2
+    assert np.isfinite(res.latency).mean() > 0.9
+    assert ex.shutdown()
+
+
+def test_live_loop_t_end_interrupts_idle_injector():
+    """A t_end before a far-future arrival ends the run promptly; the
+    pending arrival is never injected."""
+    pipe, cfg = _linear(replicas=1, batch=2)
+    ex = PipelineExecutor(pipe, cfg, {"m0": _sleep_fn(0.005)})
+    loop = LiveControlLoop(ex, slo=0.5, epoch_s=0.5, drain_timeout_s=2.0)
+    t0 = time.time()
+    res = loop.run(np.array([0.1, 0.2, 30.0]), ScheduleController([]),
+                   lambda i: i, t_end=1.5)
+    assert time.time() - t0 < 10.0
+    assert res.latency.size == 2
+    assert np.isfinite(res.latency).all()
+    with pytest.raises(ValueError):
+        loop.run(np.array([1.0, 0.5]), ScheduleController([]), lambda i: i)
+    assert ex.shutdown()
+
+
+def test_a_crashing_stage_fails_the_live_loop():
+    """A worker crash wakes the epoch loop and fails the run at once."""
+    def boom(payloads):
+        raise ValueError("stage exploded")
+
+    pipe, cfg = _linear(replicas=1, batch=2)
+    ex = PipelineExecutor(pipe, cfg, {"m0": boom})
+    loop = LiveControlLoop(ex, slo=0.5, epoch_s=0.5, drain_timeout_s=5.0)
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="stage exploded"):
+        loop.run(np.linspace(0.1, 3.0, 10), ScheduleController([]),
+                 lambda i: i)
+    assert time.perf_counter() - t0 < 2.5
+    assert ex.shutdown()
+
+
+# ------------------------------------------------------------ replica slots
+
+def test_slot_pool_hands_out_the_lowest_free_slot_and_waits_when_busy():
+    """Slot 0 serves whenever it is free; a taker finding every slot busy
+    waits until one is given back, then holds it alone."""
+    pool = SlotPool()
+    for name in ("s0", "s1"):
+        pool.add(name)
+    with pool.take() as a:
+        assert a == "s0"
+        with pool.take() as b:
+            assert b == "s1"
+            got = []
+            waiter = threading.Thread(
+                target=lambda: got.append(pool.take().__enter__()))
+            waiter.start()
+            waiter.join(0.2)
+            assert waiter.is_alive() and got == []   # all busy: waits
+        waiter.join(5.0)
+        assert not waiter.is_alive() and got == ["s1"]
+
+
+def test_slot_pool_never_gives_one_slot_to_two_holders():
+    """Eight threads share three slots under a short switch interval: no
+    slot ever has two holders, and every taker gets one."""
+    pool = SlotPool()
+    for i in range(3):
+        pool.add(i)
+    holders = [0, 0, 0]
+    lock = threading.Lock()
+    errors = []
+
+    def work():
+        for _ in range(300):
+            with pool.take() as i:
+                with lock:
+                    holders[i] += 1
+                    if holders[i] != 1:
+                        errors.append(i)
+                with lock:
+                    holders[i] -= 1
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == [] and holders == [0, 0, 0]
+    assert sorted(pool._free) == [0, 1, 2]
+
+
+def test_a_cpu_stage_has_no_slots(cascade):
+    """On the CPU a stage captures nothing, whatever slots it is asked
+    for, and serves from several threads at once eagerly."""
+    a, _ = cascade
+    a.warmup(2, slots=4)
+    assert a.pool.slots == [] and a.graphs == {}
+    rows = [_payload(i) for i in range(6)]
+    want = [a.run_batch([r])[0] for r in rows]
+    got = [None] * len(rows)
+
+    def serve(k):
+        got[k] = a.run_batch([rows[k]])[0]
+
+    threads = [threading.Thread(target=serve, args=(k,))
+               for k in range(len(rows))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
