@@ -55,6 +55,21 @@ Phases, in order; any failure exits non-zero:
    spike served with no controller, window by window;
 4e. what a replica adds on one card: 1, 2 and 4 threads replaying one
    stage's batch of 8 at once, each on its own slot, for both stages;
+4f. the process backend on this card (the slots past the first freed
+   first): a worker process per stage answers a fixed batch bit-equal to
+   this process's stage, with the IPC a batch costs; then phase 4b's plan
+   served from spawned worker processes, one a replica, through 4b's
+   live trace while a FaultSchedule SIGKILLs each stage's worker mid-run
+   and ClosedLoopTuner(failure_recovery=True) buys the replacement,
+   beside the co-simulated twin on the same trace and schedule: every
+   request delivered exactly once, the killed pids gone, every answer,
+   the workers' launch counts, and the live final fleet equal to the
+   twin's; spawn-to-ready per worker, p50/p99/miss against the twin's,
+   device memory per process;
+4g. with at least 4 cards (else it says why it did not run): (a) 4
+   worker processes a stage, one a card, answering phase 4e's batch of 8
+   from 1, 2 and 4 of them at once; (b) phase 4d's spike served with
+   each stage's replicas placed one a card, beside the twin;
 5. trace one replay per stage with torch.profiler: the device's busy
    share of the stage's batch latency, the kernels that fill it, and a
    check that the port's kernels in it are one forward's; then both
@@ -84,6 +99,7 @@ import operator
 import re
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -113,7 +129,12 @@ from repro_torch.core.profiler import (  # noqa: E402
     ProfileStore,
     profile_model_measured,
 )
-from repro_torch.core.tuner import ClosedLoopTuner, TunerPlanInfo  # noqa: E402
+from repro_torch.core.tuner import (  # noqa: E402
+    REPLICA_ACTIVATION_S,
+    ClosedLoopTuner,
+    TunerPlanInfo,
+)
+from repro_torch.faults import FaultSchedule, RecoveryPolicy, crash  # noqa: E402
 from repro_torch.configs import get_arch, get_smoke, without_experts  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
@@ -125,7 +146,10 @@ from repro_torch.serving import (  # noqa: E402
     SEQ,
     LiveControlLoop,
     PipelineExecutor,
+    ProcessReplicaPool,
+    ProcessStage,
     make_stage,
+    worker_counts,
 )
 from repro_torch.sim import ControlLoopSession, NoOpController  # noqa: E402
 from repro_torch.workload import gamma_trace  # noqa: E402
@@ -143,7 +167,16 @@ PROFILE_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
 # examples/serve_real_models.py step 5: the Tuner's cap, its sample trace
 # and control epoch; the spike is spike_trace()
 TUNE_MAX_REPLICAS, TUNE_SAMPLE_S, TUNE_EPOCH_S = 4, 60.0, 1.0
-SLOT_THREADS = (1, 2, 4)        # phase 4e: replicas replaying at once
+SLOT_THREADS = (1, 2, 4)        # phases 4e, 4g: replicas at once
+# phase 4f: when each stage's worker is SIGKILLed (mid-epoch, after 4b's
+# live trace has filled both stages), the bound on a fleet of workers
+# becoming ready, round trips timed a stage, and the ring's depth (the
+# batches a killed worker can hold)
+PROC_CRASH_T = (4.5, 6.5)
+PROC_READY_S = 300.0
+PROC_REPS = 20
+PROC_RING = 2
+GPU_CARDS = 4                   # phase 4g: one replica a card
 STAGES = ("xlstm-125m", "llama3.2-1b")
 DECODE_BATCH, PROMPT, SMAX, STEPS = 8, 512, 1024, 64
 HYBRID = "jamba-1.5-large-398b"
@@ -1462,6 +1495,466 @@ def replicas_on_one_card(stages, reps: int = 30) -> None:
             f"each on its own slot: " + "; ".join(cells))
 
 
+# ----------------------------------------------------------- phases 4f, 4g
+
+def device_used_gb() -> list:
+    """GB in use on each card, by every process (cudaMemGetInfo). In a
+    container nvidia-smi may not tell its processes apart, so a worker's
+    footprint is the rise it causes."""
+    out = []
+    for k in range(torch.cuda.device_count()):
+        free, total = torch.cuda.mem_get_info(k)
+        out.append((total - free) / 1e9)
+    return out
+
+
+def gb_line(used: list) -> str:
+    return ", ".join(f"cuda:{k} {g:.2f} GB" for k, g in enumerate(used))
+
+
+def proc_specs(arches, cards, max_batch: int, counts_dir) -> dict:
+    """The process backend's stage fns: each stage built at full width
+    from seed 0 (the parent's weights) in every worker, on the least
+    loaded of ``cards``, warmed up to ``max_batch``."""
+    return {a: ProcessStage(a, full=True, seed=0, devices=tuple(cards),
+                            max_batch=max_batch, counts_dir=str(counts_dir))
+            for a in arches}
+
+
+def wait_for_workers(ex, pipe) -> None:
+    """Wait, at most PROC_READY_S, until every stage's replica target is
+    served by a live worker process; a worker that failed to start fails
+    the run."""
+    deadline = time.perf_counter() + PROC_READY_S
+    while not all(ex.live_process_count(s) == ex.replica_target(s)
+                  for s in pipe.stages):
+        ex.check_worker_failures("the worker processes' start")
+        if time.perf_counter() > deadline:
+            raise RuntimeError(
+                f"worker processes not ready within {PROC_READY_S:g} s: "
+                f"{ {s: ex.live_process_count(s) for s in pipe.stages} }")
+        time.sleep(0.1)
+
+
+def log_spawns(ex, pipe) -> list:
+    """Print each worker's card and spawn-to-ready time beside the
+    Tuner's activation delay; returns every worker's pid."""
+    pids = []
+    for s in pipe.stages:
+        spawns = ex.worker_spawns(s)
+        pids += [pid for pid, _, _ in spawns]
+        log(f"  {s} workers, spawn to ready: " + ", ".join(
+            f"pid {pid} on {dev} {t:.2f} s" for pid, dev, t in spawns)
+            + f" (a replica the Tuner adds serves {REPLICA_ACTIVATION_S:g}"
+            f" s after its event)")
+    return pids
+
+
+def pid_gone(pid: int) -> bool:
+    return not Path(f"/proc/{pid}").exists()
+
+
+def check_child_counts(stages, arches, counts_dir, sizes, kills) -> dict:
+    """The launch counts the worker processes wrote: each worker's
+    launches exactly one forward's times the batches it served, and each
+    stage's workers' batches those the executor formed, less at most
+    PROC_RING batches a SIGKILLed worker had in flight. Returns the
+    launches summed over the workers."""
+    total = dict.fromkeys(COUNTERS, 0)
+    served = dict.fromkeys(arches, 0)
+    for (arch, pid), c in worker_counts(counts_dir).items():
+        per = launches_per_forward(stages[arch].cfg, SEQ)
+        want = {k: per[k] * c["batches"] for k in COUNTERS}
+        got = {k: c[k] for k in COUNTERS}
+        if got != want:
+            raise RuntimeError(f"{arch} worker {pid}: launches {got} != "
+                               f"{want} of {c['batches']} batches")
+        served[arch] += c["batches"]
+        for k in COUNTERS:
+            total[k] += got[k]
+    for i, a in enumerate(arches):
+        formed = int(sizes[f"s{i}_{a}"].size)
+        if not formed - PROC_RING * kills.get(a, 0) <= served[a] <= formed:
+            raise RuntimeError(f"{a}: workers served {served[a]} batches, "
+                               f"the executor formed {formed}")
+    log(f"  worker launches {total}: one forward's per batch in every "
+        f"worker; batches served by the workers {served}")
+    return total
+
+
+def worker_matches_the_parent(stages) -> None:
+    """A worker process per stage, on cuda:0, answers a fixed batch of
+    SERVE_BATCH as the parent's in-process stage does, bit for bit, with
+    one forward's launches; then the round trip through the ring against
+    a replay in this process (best of PROC_REPS each): the IPC a batch
+    costs."""
+    with tempfile.TemporaryDirectory() as counts_dir:
+        for arch in STAGES:
+            st = stages[arch]
+            pool = ProcessReplicaPool(ProcessStage(
+                arch, full=True, seed=0, devices=("cuda:0",),
+                max_batch=SERVE_BATCH, counts_dir=counts_dir))
+            try:
+                used0 = device_used_gb()[0]
+                rep = pool.spawn()
+                footprint = device_used_gb()[0] - used0
+                rows = list(np.random.default_rng(7).integers(
+                    0, st.cfg.vocab_size, (SERVE_BATCH, SEQ),
+                    dtype=np.int32))
+                got, exp = rep.run(rows), st.run_batch(rows)
+                if not all(g.dtype == e.dtype and np.array_equal(g, e)
+                           for g, e in zip(got, exp)):
+                    raise RuntimeError(f"{arch}: the worker's answers differ "
+                                       f"from the parent's stage")
+                c = worker_counts(counts_dir)[(arch, rep.pid)]
+                per = launches_per_forward(st.cfg, SEQ)
+                if {k: c[k] for k in COUNTERS} != per or c["batches"] != 1:
+                    raise RuntimeError(f"{arch} worker launches {c} != one "
+                                       f"forward's {per}")
+                ring, local = [], []
+                for _ in range(PROC_REPS):
+                    t0 = time.perf_counter()
+                    rep.run(rows)
+                    ring.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    st.run_batch(rows)
+                    local.append(time.perf_counter() - t0)
+                ts = rep.transport_stats()
+                batches = ts.typed_batches + ts.pickle_batches
+                log(f"  {arch}: a worker on cuda:0 (pid {rep.pid}, ready in "
+                    f"{rep.ready_s:.2f} s, {footprint:.2f} GB of device "
+                    f"memory with its graphs to {SERVE_BATCH}) answers a "
+                    f"batch of {SERVE_BATCH} "
+                    f"bit-equal to this process's stage, one forward's "
+                    f"launches; a batch through the ring {min(ring) * 1e3:.3f}"
+                    f" ms against {min(local) * 1e3:.3f} ms in this process "
+                    f"(best of {PROC_REPS}): {(min(ring) - min(local)) * 1e3:.3f}"
+                    f" ms of IPC, {ts.bytes_copied / batches:.0f} bytes "
+                    f"copied a batch, both ways, parent side")
+            finally:
+                pool.close_all()
+            if not pid_gone(rep.pid):
+                raise RuntimeError(f"{arch} worker {rep.pid} outlived its "
+                                   f"pool")
+
+
+def serve_processes(stages, pipe, config, specs, counts_dir, controller,
+                    trace, service, solo, faults=None) -> dict:
+    """Serve ``trace`` through the live control loop with ``controller``
+    on a process-backend executor of ``config`` (one worker process a
+    replica, built from ``specs``), after every worker is ready. Checks:
+    every request delivered exactly once and answered with the chain of
+    shifted windows, nothing released, each batch within its cap, the
+    workers' launch counts, every worker reaped at the end, and every
+    scheduled crash a dead pid. Returns what the caller prints."""
+    arches = [st.model_id for st in pipe.stages.values()]
+    used0 = device_used_gb()
+    ex = PipelineExecutor(pipe, config, specs, solo_latency_s=solo,
+                          faults=faults, backend="process")
+    payload = payload_fn(stages, arches)
+    answers: dict = {}
+    delivered: dict = {}
+    lock = threading.Lock()
+
+    def on_done(r) -> None:
+        with lock:
+            answers[r.rid] = r.payload
+            delivered[r.rid] = delivered.get(r.rid, 0) + 1
+
+    ex.on_request_done = on_done
+    loop = LiveControlLoop(ex, SLO_S, epoch_s=TUNE_EPOCH_S,
+                           service_time_s=service,
+                           drain_timeout_s=PROC_READY_S)
+    try:
+        t0 = time.perf_counter()
+        wait_for_workers(ex, pipe)
+        used = device_used_gb()
+        log(f"  {sum(config[s].replicas for s in pipe.stages)} worker "
+            f"processes ready {time.perf_counter() - t0:.1f} s after the "
+            f"executor started them; the workers hold "
+            f"{gb_line([u - b for u, b in zip(used, used0)])} (their rise "
+            f"in device memory), every process {gb_line(used)}")
+        if any(v for c in worker_counts(counts_dir).values()
+               for v in c.values()):
+            raise RuntimeError("a worker counted launches before the run")
+        reset_counts()
+        run = loop.run(trace, controller, payload)
+        parent = counts()
+        killed = {s: ex.killed_worker_pids(s) for s in pipe.stages}
+        sizes = ex.batch_sizes()
+        fleet = {s: tl[-1][1] for s, tl in ex.replica_timeline.items()}
+        deltas = ex.fault_deltas()
+        dataplane = ex.dataplane_stats()
+        lags = ex.injection_stats()
+        memory = gb_line(device_used_gb())
+        pids = log_spawns(ex, pipe)
+    finally:
+        if not ex.shutdown(join_timeout_s=60.0):
+            raise RuntimeError("executor workers did not stop")
+    if any(parent.values()):
+        raise RuntimeError(f"the parent launched kernels while the workers "
+                           f"served: {parent}")
+    lat = run.latency
+    n = lat.size
+    # the loop injects up to its last epoch boundary (an arrival the
+    # injector reached before the loop stopped it may follow)
+    if run.released or not np.isfinite(lat).all() or not int(
+            (trace <= run.telemetry[-1].t_end).sum()) <= n <= trace.size:
+        raise RuntimeError(f"{run.released} released, "
+                           f"{int((~np.isfinite(lat)).sum())} unanswered of "
+                           f"{n} ({trace.size} in the trace)")
+    if sorted(delivered) != list(range(n)) or \
+            any(v != 1 for v in delivered.values()):
+        raise RuntimeError(f"delivery was not exactly once: "
+                           f"{ {r: v for r, v in delivered.items() if v != 1} }"
+                           f", {n - len(delivered)} never delivered")
+    check_answers(stages, arches, [answers.get(i) for i in range(n)],
+                  payload)
+    for s, v in sizes.items():
+        if int(v.max()) > config[s].batch_size:
+            raise RuntimeError(f"{s}: a batch exceeded its cap")
+    kills = {pipe.stages[s].model_id: -sum(d for _, d in deltas[s])
+             for s in pipe.stages}
+    scheduled = {pipe.stages[s].model_id: (
+        sum(k for _, k in faults.stage(s).crashes())
+        if faults and faults.stage(s) else 0) for s in pipe.stages}
+    signalled = {pipe.stages[s].model_id: len(killed[s])
+                 for s in pipe.stages}
+    if not kills == scheduled == signalled:
+        raise RuntimeError(f"crashes landed {kills}, scheduled {scheduled}, "
+                           f"worker processes SIGKILLed {signalled}")
+    stray = [p for p in pids if not pid_gone(p)]
+    if stray:
+        raise RuntimeError(f"worker processes left running: {stray}")
+    launches = check_child_counts(stages, arches, counts_dir, sizes, kills)
+    per_batch = {s: (d.bytes_copied / max(1, d.typed_batches
+                                          + d.pickle_batches))
+                 for s, d in dataplane.items()}
+    log(f"  delivered {n} of {n} requests exactly once; every answer the "
+        f"chain of shifted windows; SIGKILLed pids {killed}, gone; every "
+        f"worker reaped")
+    log(f"  live: p50 {np.percentile(lat, 50) * 1e3:.2f} ms  p99 "
+        f"{np.percentile(lat, 99) * 1e3:.2f} ms  miss {run.miss_rate:.4f}  "
+        f"mean ${run.mean_cost_per_hr():.2f}/hr; injection lag p99 "
+        f"{lags['p99_lag_s'] * 1e3:.3f} ms; data plane "
+        + ", ".join(f"{s} {b:.0f} bytes copied a batch (parent side)"
+                    for s, b in per_batch.items())
+        + f"; device memory in use before shutdown: {memory}")
+    return {"run": run, "fleet": fleet, "launches": launches}
+
+
+def twin_line(label: str, twin) -> None:
+    log(f"  {label}: estimated p50 {twin.sim.percentile(50) * 1e3:.2f} ms  "
+        f"p99 {twin.sim.p99 * 1e3:.2f} ms  miss {twin.miss_rate:.4f}  "
+        f"mean ${twin.mean_cost_per_hr():.2f}/hr")
+
+
+def twin_fleet(config, twin, faults=None) -> dict:
+    """The twin's final fleet: the plan, less the crashes, plus the
+    control schedule's deltas (the executor's timeline counts both)."""
+    return {s: config[s].replicas
+            - (sum(k for _, k in faults.stage(s).crashes())
+               if faults and faults.stage(s) else 0)
+            + sum(d for _, d in twin.replica_schedules.get(s, ()))
+            for s in config.stage_configs}
+
+
+def processes_under_faults(stages, store, config) -> dict:
+    """Phase 4b's plan served by the process backend on this card, one
+    worker a replica, through 4b's live trace, while a FaultSchedule
+    SIGKILLs the worker of each stage mid-run (PROC_CRASH_T) and
+    ClosedLoopTuner(failure_recovery=True) buys each replacement; the
+    co-simulated twin runs the same trace and schedule. The live final
+    fleet must equal the twin's. Returns the workers' launches."""
+    pipe = cascade_pipeline()
+    service = Estimator(pipe, store).service_time(config)
+    info = TunerPlanInfo.from_plan(
+        pipe, config, store,
+        gamma_trace(PLAN_QPS, 1.0, TUNE_SAMPLE_S, seed=2), service)
+    solo = {s: store.get(pipe.stages[s].model_id).batch_latency("h100-1", 1)
+            for s in pipe.stages}
+    live = gamma_trace(PLAN_QPS, 1.0, PLAN_LIVE_S, seed=1)
+
+    def schedule() -> FaultSchedule:
+        return FaultSchedule([crash(s, t) for s, t in
+                              zip(pipe.stages, PROC_CRASH_T)], seed=0,
+                             recovery=RecoveryPolicy())
+
+    log(f"  crashes {[(s, t) for s, t in zip(pipe.stages, PROC_CRASH_T)]}"
+        f" (SIGKILL), recovery {RecoveryPolicy()}")
+    max_batch = max(config[s].batch_size for s in pipe.stages)
+    with tempfile.TemporaryDirectory() as counts_dir:
+        out = serve_processes(
+            stages, pipe, config,
+            proc_specs(STAGES, ("cuda:0",), max_batch, counts_dir),
+            counts_dir, ClosedLoopTuner(info, failure_recovery=True), live,
+            service, solo, faults=schedule())
+    run = out["run"]
+    log_events("live", run.events)
+    twin = ControlLoopSession(pipe, store, config, SLO_S).run(
+        live, ClosedLoopTuner(info, failure_recovery=True),
+        faults=schedule())
+    log_events("twin", twin.events)
+    twin_line("twin", twin)
+    fleet = twin_fleet(config, twin, schedule())
+    log(f"  final fleet: live {out['fleet']}, twin {fleet}")
+    if out["fleet"] != fleet:
+        raise RuntimeError(f"the live final fleet {out['fleet']} is not "
+                           f"the twin's {fleet}")
+    edges = sorted({0.0, float(live.max()) + 1e-6}
+                   | {float(t) for t in PROC_CRASH_T}
+                   | {float(e.t_effective) for e in run.events})
+    latency_by_window("live", run.arrival, run.latency, edges)
+    latency_by_window("twin", twin.sim.arrival, twin.sim.latency, edges)
+    return out["launches"]
+
+
+def processes_on_their_own_cards(stages, reps: int = 30) -> None:
+    """Phase 4g (a), the counterpart of 4e across cards: GPU_CARDS worker
+    processes a stage, one a card, each answering the fixed batch of
+    SERVE_BATCH bit-equal to this process's stage; then 1, 2 and 4 of
+    them at once, each fed by its own thread through its ring: batches a
+    second against one, and ms a batch. Every worker's launches are
+    checked against the batches it served."""
+    cards = tuple(f"cuda:{k}" for k in range(GPU_CARDS))
+    with tempfile.TemporaryDirectory() as counts_dir:
+        pools = {a: ProcessReplicaPool(ProcessStage(
+            a, full=True, seed=0, devices=cards, max_batch=SERVE_BATCH,
+            counts_dir=counts_dir)) for a in STAGES}
+        reps_by = {a: [None] * GPU_CARDS for a in STAGES}
+        errors = []
+
+        def start(a: str, k: int) -> None:
+            try:
+                reps_by[a][k] = pools[a].spawn()
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        try:
+            used0 = device_used_gb()
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=start, args=(a, k))
+                       for a in STAGES for k in range(GPU_CARDS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(PROC_READY_S)
+            if errors or any(r is None for v in reps_by.values() for r in v):
+                raise RuntimeError(f"workers failed to start: {errors}")
+            log(f"  {GPU_CARDS} workers a stage ready in "
+                f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+                    f"{a} " + ", ".join(f"{r.device} {r.ready_s:.2f} s"
+                                        for r in reps_by[a])
+                    for a in STAGES))
+            used = device_used_gb()
+            log(f"  the workers hold "
+                f"{gb_line([u - b for u, b in zip(used, used0)])} (their "
+                f"rise in device memory), every process {gb_line(used)}")
+            for a in STAGES:
+                if len({r.device for r in reps_by[a]}) != GPU_CARDS:
+                    raise RuntimeError(f"{a}: workers placed on "
+                                       f"{[r.device for r in reps_by[a]]}")
+                rows = list(np.random.default_rng(7).integers(
+                    0, stages[a].cfg.vocab_size, (SERVE_BATCH, SEQ),
+                    dtype=np.int32))
+                exp = stages[a].run_batch(rows)
+                for r in reps_by[a]:
+                    if not all(np.array_equal(g, e)
+                               for g, e in zip(r.run(rows), exp)):
+                        raise RuntimeError(f"{a} worker on {r.device}: "
+                                           f"answers differ from cuda:0's")
+                cells, base = [], None
+                for n in SLOT_THREADS:
+                    per = [0.0] * n
+                    gate = threading.Barrier(n + 1)
+
+                    def run(k: int) -> None:
+                        rep = reps_by[a][k]
+                        rep.run(rows)
+                        gate.wait()
+                        t1 = time.perf_counter()
+                        for _ in range(reps):
+                            rep.run(rows)
+                        per[k] = (time.perf_counter() - t1) / reps * 1e3
+
+                    threads = [threading.Thread(target=run, args=(k,))
+                               for k in range(n)]
+                    for t in threads:
+                        t.start()
+                    gate.wait()
+                    t1 = time.perf_counter()
+                    for t in threads:
+                        t.join()
+                    rate = n * reps / (time.perf_counter() - t1)
+                    ms = sum(per) / n
+                    base = base or (rate, ms)
+                    cells.append(f"{n}: {rate:.1f} batches/s "
+                                 f"({rate / base[0]:.2f}x), {ms:.3f} ms a "
+                                 f"batch ({ms / base[1]:.2f}x)")
+                log(f"  {a} worker processes, one a card, each answering a "
+                    f"batch of {SERVE_BATCH} through its ring: "
+                    + "; ".join(cells))
+            for (arch, pid), c in worker_counts(counts_dir).items():
+                per = launches_per_forward(stages[arch].cfg, SEQ)
+                if {k: c[k] for k in COUNTERS} != \
+                        {k: per[k] * c["batches"] for k in COUNTERS}:
+                    raise RuntimeError(f"{arch} worker {pid}: launches {c}")
+        finally:
+            for pool in pools.values():
+                pool.close_all()
+    stray = [r.pid for v in reps_by.values() for r in v
+             if r is not None and not pid_gone(r.pid)]
+    if stray:
+        raise RuntimeError(f"worker processes left running: {stray}")
+
+
+def spike_on_four_cards(stages, store, config) -> dict:
+    """Phase 4g (b): phase 4d's spike, verbatim, served by the process
+    backend with each stage's replicas placed one a card, under
+    ClosedLoopTuner(max_replicas=4), beside the twin. Returns the
+    workers' launches."""
+    pipe = cascade_pipeline()
+    service = Estimator(pipe, store).service_time(config)
+    info = TunerPlanInfo.from_plan(
+        pipe, config, store,
+        gamma_trace(PLAN_QPS, 1.0, TUNE_SAMPLE_S, seed=2), service)
+    solo = {s: store.get(pipe.stages[s].model_id).batch_latency("h100-1", 1)
+            for s in pipe.stages}
+    spike = spike_trace()
+    cards = tuple(f"cuda:{k}" for k in range(GPU_CARDS))
+    max_batch = max(config[s].batch_size for s in pipe.stages)
+    with tempfile.TemporaryDirectory() as counts_dir:
+        out = serve_processes(
+            stages, pipe, config,
+            proc_specs(STAGES, cards, max_batch, counts_dir), counts_dir,
+            ClosedLoopTuner(info, max_replicas=TUNE_MAX_REPLICAS), spike,
+            service, solo)
+    run = out["run"]
+    if not any(e.kind == "up" for e in run.events):
+        raise RuntimeError("the Tuner issued no scale-up on a 3x spike")
+    log_events("live", run.events)
+    for s, tl in run.replica_timeline.items():
+        log(f"  live {s} replicas: "
+            + " -> ".join(f"{c}@{t:.1f}s" for t, c in tl))
+    log(f"  live mean batch "
+        f"{ {s: round(v, 3) for s, v in run.batch_stats().items()} }")
+    twin = ControlLoopSession(pipe, store, config, SLO_S).run(
+        spike, ClosedLoopTuner(info, max_replicas=TUNE_MAX_REPLICAS))
+    log_events("twin", twin.events)
+    for s, tl in twin.replica_timeline.items():
+        log(f"  twin {s} replicas: "
+            + " -> ".join(f"{c}@{t:.1f}s" for t, c in tl))
+    twin_line("twin", twin)
+    log(f"  final fleet: live {out['fleet']}, twin "
+        f"{twin_fleet(config, twin)}; events live {len(run.events)}, twin "
+        f"{len(twin.events)}")
+    edges = sorted({0.0, 8.0, 13.0, float(spike.max()) + 1e-6}
+                   | {float(e.t_effective) for e in run.events})
+    latency_by_window("live", run.arrival, run.latency, edges)
+    latency_by_window("twin", twin.sim.arrival, twin.sim.latency, edges)
+    return out["launches"]
+
+
 # ---------------------------------------------------------------- phase 5
 
 def trace(stages, store) -> None:
@@ -1741,6 +2234,27 @@ def main() -> int:
     tuned = close_the_loop(stages, store, plan_config)
     log("[4e] what a replica adds on one card")
     replicas_on_one_card(stages)
+    for arch in STAGES:
+        stages[arch].pool.keep(1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[4f] the process backend on this card: a worker against this "
+        "process's stage; the plan served from worker processes while a "
+        "FaultSchedule SIGKILLs them, beside the twin")
+    log(f"  replica slots past the first freed: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    worker_matches_the_parent(stages)
+    proc_launches = processes_under_faults(stages, store, plan_config)
+    if torch.cuda.device_count() >= GPU_CARDS:
+        log(f"[4g] {torch.cuda.device_count()} cards: worker processes one "
+            f"a card")
+        processes_on_their_own_cards(stages)
+        four = spike_on_four_cards(stages, store, plan_config)
+        proc_launches = {k: n + four[k] for k, n in proc_launches.items()}
+    else:
+        log(f"[4g] not run: it places one worker a card on {GPU_CARDS} "
+            f"cards, and torch sees {torch.cuda.device_count()}")
     log("[5] trace one replay per stage")
     trace(stages, store)
     log("[6] full-width llama3.2-1b: prefill and greedy decode")
@@ -1757,9 +2271,11 @@ def main() -> int:
         "greedy decode, stage latency")
     hybrid_pre, hybrid_steps = hybrid_full_width()
     # each kernel's launches come from the path that runs it: the serves
-    # of the cascade's stages (4-4d), the llama decode, the hybrid
+    # of the cascade's stages (4-4d; 4f-4g in the worker processes), the
+    # llama decode, the hybrid
     for name in launches:
-        launches[name] += planned[name] + alone[name] + tuned[name]
+        launches[name] += planned[name] + alone[name] + tuned[name] + \
+            proc_launches[name]
     launches["decode_attention"] = decode_launches["decode_attention"]
     launches["mamba_scan"] = hybrid_pre["mamba_scan"] + \
         hybrid_steps["mamba_scan"]

@@ -113,15 +113,21 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def fresh() -> bool:
+    """Whether the shared library exists and is newer than every source."""
+    out = BUILD_DIR / LIB_NAME
+    newest = max(p.stat().st_mtime
+                 for p in sources() + sorted(CSRC.glob("*.cuh")))
+    return out.exists() and out.stat().st_mtime >= newest
+
+
 def build() -> Path:
     """Compile every source into the shared library unless it is newer
     than all of them. Returns its path."""
     global build_log
     out = BUILD_DIR / LIB_NAME
     srcs = sources()
-    newest = max(p.stat().st_mtime
-                 for p in srcs + sorted(CSRC.glob("*.cuh")))
-    if out.exists() and out.stat().st_mtime >= newest:
+    if fresh():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = find_nvcc(), os.getpid()
@@ -151,11 +157,19 @@ def build() -> Path:
     return out
 
 
-def load() -> ctypes.CDLL:
-    """Build if stale, then load the library once per process."""
+def load(rebuild: bool = True) -> ctypes.CDLL:
+    """Build if stale, then load the library once per process. With
+    ``rebuild=False`` a missing or stale library raises instead: a
+    serving worker process loads the build its parent made and never
+    starts ``nvcc`` itself."""
     global _lib
     with _lock:
         if _lib is None:
+            if not rebuild and not fresh():
+                raise RuntimeError(
+                    f"{BUILD_DIR / LIB_NAME} is missing or older than its "
+                    f"sources: build it (kernels._build.build()) before "
+                    f"starting worker processes")
             lib = ctypes.CDLL(str(build()))
             for name, (argtypes, restype) in SIGNATURES.items():
                 fn = getattr(lib, name)

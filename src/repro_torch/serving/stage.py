@@ -30,13 +30,22 @@ many launches of each kernel its capture counted and adds them to the
 kernels' counters at every replay.
 
 On the CPU the stage runs ``score`` eagerly and captures nothing.
+
+:class:`ProcessStage` is the same stage for a worker process of the
+process backend (:mod:`repro_torch.serving.procpool`): a picklable spec
+from which a spawned child builds, on its own card and from the same
+seed, the stage ``make_stage`` builds, warms one slot, and serves
+``run_batch``. A closure such as ``run_batch`` cannot reach a spawned
+child except by pickling, which it does not survive.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
+from pathlib import Path
 from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
                     Optional, Tuple, Union)
 
@@ -79,8 +88,9 @@ class Slot:
 
 
 class SlotPool:
-    """A stage's replica slots and which of them are free. ``slots`` only
-    grows, in ``warmup``, before any replica serves."""
+    """A stage's replica slots and which of them are free. ``slots``
+    changes only while no replica serves: it grows in ``warmup`` and
+    shrinks in ``keep``."""
 
     def __init__(self) -> None:
         self.slots: List[Slot] = []
@@ -92,6 +102,17 @@ class SlotPool:
             self.slots.append(slot)
             self._free.append(len(self.slots) - 1)
             self._cond.notify()
+
+    def keep(self, n: int) -> None:
+        """Drop every slot past the first ``n`` (their graphs and
+        buffers go with them). Only while no replica serves: raises if
+        one of them is taken."""
+        with self._cond:
+            extra = set(range(n, len(self.slots)))
+            if not extra <= set(self._free):
+                raise RuntimeError("a slot to drop is in use")
+            del self.slots[n:]
+            self._free = [i for i in self._free if i < n]
 
     @contextlib.contextmanager
     def take(self) -> Iterator[Slot]:
@@ -236,3 +257,85 @@ def make_stage(arch_id: str,
     return ServedStage(cfg, model, params, run_batch, profile_fn, warmup,
                        slot0.graphs if cuda else {},
                        slot0.stream if cuda else None, pool)
+
+
+COUNT_FIELDS = ("batches",) + tuple(
+    m.__name__.rsplit(".", 1)[-1] for m in (rmsnorm, flash_attention,
+                                             decode_attention, mamba_scan))
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessStage:
+    """The served stage as a worker process builds it (the process
+    backend's stage fn): picklable, so a spawned child receives it, and
+    a worker factory (:mod:`repro_torch.serving.procpool`).
+
+    ``devices`` are the cards the pool places this stage's workers on
+    (the least-loaded one, lowest index first); ``placed(device)`` is
+    the copy a worker on ``device`` gets. In the child,
+    :meth:`start_worker` makes that card current — the kernels launch
+    through ctypes on the calling thread's current device — loads the
+    kernel library the parent built (never building it), builds
+    ``make_stage(arch_id, device, full, seed)``, runs ``warmup`` for one
+    slot up to ``max_batch``, and returns the stage's ``run_batch``; the
+    worker says ``ready`` after that.
+
+    Launch counts live in the child. With ``counts_dir`` set, the child
+    keeps a file ``<arch_id>.<pid>.counts`` there, a memory map of
+    ``COUNT_FIELDS`` (batches served, then each kernel's launches), zeroed
+    after the warm-up and rewritten after every batch, so the counts of
+    a worker that is SIGKILLed survive it: :func:`worker_counts` reads
+    them. ``matmul_tf32`` is the parent's float32 matmul switch, taken
+    when the spec is made, so a worker computes as its parent does.
+    """
+    arch_id: str
+    full: bool = True
+    seed: int = 0
+    devices: Tuple[str, ...] = ("cuda",)
+    max_batch: int = MAX_BATCH
+    counts_dir: Optional[str] = None
+    device: Optional[str] = None
+    matmul_tf32: bool = dataclasses.field(
+        default_factory=lambda: torch.backends.cuda.matmul.allow_tf32)
+
+    def placed(self, device: str) -> "ProcessStage":
+        return dataclasses.replace(self, device=device)
+
+    def start_worker(self) -> Callable[[List[Any]], List[np.ndarray]]:
+        dev = torch.device(self.device or self.devices[0])
+        torch.backends.cuda.matmul.allow_tf32 = self.matmul_tf32
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+            _build.load(rebuild=False)
+        st = make_stage(self.arch_id, dev, full=self.full, seed=self.seed)
+        st.warmup(self.max_batch)
+        for c in COUNTERS:
+            c.reset()
+        if self.counts_dir is None:
+            return st.run_batch
+        path = Path(self.counts_dir) / f"{self.arch_id}.{os.getpid()}.counts"
+        counts = np.memmap(path, dtype=np.int64, mode="w+",
+                           shape=(len(COUNT_FIELDS),))
+        served = [0]
+
+        def run_batch(payloads: List[Any]) -> List[np.ndarray]:
+            out = st.run_batch(payloads)
+            served[0] += 1
+            counts[:] = [served[0]] + [c.count for c in COUNTERS]
+            return out
+        return run_batch
+
+
+def worker_counts(counts_dir: Union[str, Path]
+                  ) -> Dict[Tuple[str, int], Dict[str, int]]:
+    """The counts every worker of :class:`ProcessStage` wrote under
+    ``counts_dir``, by (arch_id, pid): ``{field: n}`` over
+    ``COUNT_FIELDS``."""
+    out: Dict[Tuple[str, int], Dict[str, int]] = {}
+    for path in sorted(Path(counts_dir).glob("*.counts")):
+        arch, pid = path.name[:-len(".counts")].rsplit(".", 1)
+        vals = np.fromfile(path, dtype=np.int64)
+        out[(arch, int(pid))] = dict(zip(COUNT_FIELDS, map(int, vals)))
+    return out

@@ -1,10 +1,11 @@
 """Closed-loop Tuner x SimEngine co-simulation (epoch stepping): a copy
 of the reference's ``repro.sim.control``, held bit-equal to it by
-``tests/test_torch_control.py``. Fault schedules raise until they are
-ported (the engine refuses them).
+``tests/test_torch_control.py`` (with fault schedules by
+``tests/test_torch_faults.py``).
 
 The paper's high-frequency Tuner (§5) is a pure function of ingress, so
-its whole scaling schedule can be precomputed before simulating
+the live-cluster path (:class:`repro_torch.serving.cluster.LiveClusterSim`)
+could precompute its whole scaling schedule before simulating
 (``run_tuner_offline``). This module closes the loop instead:
 the engine advances in fixed control epochs (default 1 s), samples
 per-stage telemetry at each boundary (:class:`repro_torch.sim.result.
@@ -138,6 +139,7 @@ class ControlLoopSession:
         states,
         sched: Dict[str, List[Tuple[float, int]]],
         env: IncrementalEnvelope,
+        faults=None,
     ) -> EpochTelemetry:
         # the first epoch's window is closed at BOTH ends ([0, t1], not
         # (0, t1]) so an arrival at exactly t=0 is counted somewhere —
@@ -177,12 +179,16 @@ class ControlLoopSession:
             replicas = self.config[s].replicas + sum(
                 d for (t, d) in sched.get(s, ()) if t <= t1)
             # alive mirrors the live loop's fault_deltas accounting:
-            # the replica target, less crash losses once faults exist
+            # replica target minus crash losses observed by t1, floored
+            # at 0 — a schedule can ask for more kills than exist, and
+            # a negative value would read as the "untracked" sentinel
+            sf = faults.stage(s) if faults else None
+            alive = max(0, replicas - (sum(n for (t, n) in sf.crashes()
+                                           if t <= t1) if sf else 0))
             stages[s] = StageTelemetry(
                 stage=s, arrived=arrived, completed=completed,
                 dropped=dropped, queue_depth=int(backlog.sum()),
-                in_flight=in_flight, replicas=replicas,
-                alive=max(0, replicas))
+                in_flight=in_flight, replicas=replicas, alive=alive)
 
         # pipeline-level windowed accounting (causal: completions and
         # deadline passages inside this window only — each missing query
@@ -210,10 +216,6 @@ class ControlLoopSession:
     def run(self, arrivals: np.ndarray, controller,
             t_end: Optional[float] = None,
             faults=None) -> ClosedLoopResult:
-        if faults is not None:
-            raise NotImplementedError(
-                "fault schedules are not ported yet (ROADMAP A3: faults/ "
-                "and the process backend)")
         arr = np.asarray(arrivals, dtype=np.float64)
         if arr.size > 1 and np.any(np.diff(arr) < 0):
             # the engine tolerates unsorted traces (it sorts per stage)
@@ -238,11 +240,11 @@ class ControlLoopSession:
         while t <= t_stop + 1e-9:
             epoch += 1
             res = session.simulate(self.config, sched, shed or None,
-                                   pols or None)
+                                   pols or None, faults)
             states = session.stage_states(self.config, sched, shed or None,
-                                          pols or None)
+                                          pols or None, faults)
             tele = self._telemetry(epoch, t0, t, arr, res, states, sched,
-                                   env)
+                                   env, faults)
             telemetry.append(tele)
             for ev in controller.step(tele) or ():
                 # shared validation + schedule folding (repro_torch.control):
@@ -253,7 +255,8 @@ class ControlLoopSession:
             t0 = t
             t += self.epoch_s
 
-        res = session.simulate(self.config, sched, shed or None, pols or None)
+        res = session.simulate(self.config, sched, shed or None, pols or None,
+                               faults)
         times, costs, timeline = replica_cost_timeline(
             self.pipeline, self.config, sched, t_stop)
         return ClosedLoopResult(

@@ -5,8 +5,8 @@ and the Planner/BeamPlanner/AnnealedPlanner search — drives this engine.
 A copy of the reference's ``repro.sim.engine`` that scores candidates on
 the host only: the reference's device grid (``percentile_many`` through
 ``repro.sim.jax_backend``) is left out, a ``backend`` other than
-``"numpy"`` raises ``ValueError``, and fault schedules raise
-``NotImplementedError`` until fault injection is ported.
+``"numpy"`` raises ``ValueError``. Fault schedules
+(:class:`repro_torch.faults.FaultSchedule`) run as the reference's do.
 ``tests/test_torch_plan.py`` holds it bit-identical to the reference.
 
 Engine design (recorded in EXPERIMENTS.md §Perf): the paper implements a
@@ -71,23 +71,15 @@ def _policy_key(sched: Optional[PolicySchedule]) -> Tuple:
 
 
 def _fault_key(spec) -> Tuple:
-    """Cache-key component for one stage's fault spec (the reference's
-    ``repro.faults.schedule.StageFaults``); faults change stage outcomes
-    just like replica/shed/policy schedules, so they must reach the cone
-    keys (KEY01). The port rejects fault schedules for now
-    (:func:`_no_faults`), so this folds ``None`` until faults arrive."""
+    """Cache-key component for one stage's fault spec
+    (:class:`repro_torch.faults.schedule.StageFaults`); faults change stage
+    outcomes just like replica/shed/policy schedules, so they must reach
+    the cone keys (KEY01)."""
     if spec is None:
         return ()
     return (int(spec.seed), spec.recovery.key(), tuple(
         (str(kind), float(t0), float(t1), float(v))
         for kind, t0, t1, v in spec.events))
-
-
-def _no_faults(fault_schedules) -> None:
-    if fault_schedules is not None:
-        raise NotImplementedError(
-            "fault schedules are not ported yet (the faults work: "
-            "faults/schedule and faults/simstage)")
 
 
 class SimEngine:
@@ -478,10 +470,10 @@ class TraceSession:
         so repeat calls with partially-overlapping configurations only
         simulate the stages whose cone actually changed.
 
-        ``fault_schedules`` must be ``None``: fault injection is not
-        ported yet (it raises ``NotImplementedError``).
+        ``fault_schedules`` (a :class:`repro_torch.faults.FaultSchedule`)
+        adds deterministic crash/straggle/error disruptions; its per-stage
+        components are part of the cone cache keys.
         """
-        _no_faults(fault_schedules)
         engine = self.engine
         n = self.n
         self.stats["full_sims"] += 1
@@ -556,7 +548,6 @@ class TraceSession:
         simulation as :meth:`simulate`; the ready times are reconstructed
         with the identical :meth:`_stage_ready` computation, so queue
         depths derived from them match what the queueing policy saw."""
-        _no_faults(fault_schedules)
         engine = self.engine
         n = self.n
         visited: Dict[str, np.ndarray] = {SOURCE: np.ones(n, dtype=bool)}

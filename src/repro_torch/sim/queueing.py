@@ -82,9 +82,9 @@ bit-identical to every policy here and carries the piecewise
 policy-switching path (:func:`switched`).
 
 The port's copy runs the numpy fill only: a ``backend`` other than
-``"numpy"`` raises ``ValueError`` (a device fill is later work), and a
-fault spec with events raises ``NotImplementedError`` (fault injection
-arrives with the faults work).
+``"numpy"`` raises ``ValueError`` (a device fill is later work). A fault
+spec with events routes through the fault-aware event loop
+(:func:`repro_torch.faults.simstage.simulate_stage_faults`).
 """
 
 from __future__ import annotations
@@ -757,16 +757,22 @@ def simulate_stage(
     ``backend`` names the fill kernel implementation; the port has the
     numpy one only.
 
-    A fault spec with events (the reference's ``StageFaults``) raises
-    ``NotImplementedError``: the fault-aware event loop arrives with the
-    faults work. ``None`` or empty specs take the no-fault paths.
+    A non-empty ``fault_spec`` (:class:`repro_torch.faults.schedule
+    .StageFaults`) routes through the scalar fault-aware event loop
+    (:func:`repro_torch.faults.simstage.simulate_stage_faults`) which
+    handles crashes/stragglers/transient errors plus retry/hedge recovery
+    and folds ``policy_events`` itself; ``None`` or empty specs take the
+    existing paths untouched (bit-identical no-fault guarantee).
     """
     if backend != "numpy":
         raise ValueError(f"unknown backend {backend!r}; have ('numpy',)")
     if fault_spec is not None and fault_spec.events:
-        raise NotImplementedError(
-            "fault injection is not ported yet (the faults work: "
-            "faults/schedule and faults/simstage)")
+        from repro_torch.faults.simstage import simulate_stage_faults
+
+        return simulate_stage_faults(
+            policy, ready, latency_lut, max_batch, replicas,
+            replica_events, timeout_s, deadline, shed_events,
+            policy_events, fault_spec)
     if policy_events:
         return switched(ready, latency_lut, max_batch, replicas,
                         replica_events, timeout_s, deadline, shed_events,

@@ -29,6 +29,8 @@ from repro.control import (
     replica_cost_timeline as ref_replica_cost_timeline,
 )
 from repro.core.envelope import TrafficEnvelope as RefTrafficEnvelope
+from repro.faults import FaultSchedule as RefFaultSchedule
+from repro.faults import crash as ref_crash
 from repro.core.estimator import Estimator as RefEstimator
 from repro.core.planner import Planner as RefPlanner
 from repro.core.tuner import (
@@ -55,6 +57,7 @@ from repro_torch.control import (
 from repro_torch.core.envelope import TrafficEnvelope
 from repro_torch.core.estimator import Estimator
 from repro_torch.core.pipeline import PipelineConfig, StageConfig
+from repro_torch.faults import FaultSchedule, crash
 from repro_torch.core.tuner import (
     ClosedLoopTuner,
     OpenLoopTunerController,
@@ -318,10 +321,22 @@ def test_control_loop_session_matches_the_reference(planned, kind):
 
 
 def test_control_loop_session_refuses_faults_and_unsorted_traces(planned):
-    _, (pipe, store, config, info), spike = planned
+    """An unsorted trace still raises. A fault schedule, which the port
+    refused before it had fault injection, now runs as the reference's
+    does (``tests/test_torch_faults.py`` compares it in full)."""
+    (ref_pipe, ref_store, ref_config, ref_info), \
+        (pipe, store, config, info), spike = planned
     sess = ControlLoopSession(pipe, store, config, SLO)
-    with pytest.raises(NotImplementedError, match="A3"):
-        sess.run(spike, ClosedLoopTuner(info), faults=object())
+    stage = max(config.stage_configs, key=lambda s: config[s].replicas)
+    ours = sess.run(spike, ClosedLoopTuner(info),
+                    faults=FaultSchedule([crash(stage, 65.5)], seed=4))
+    theirs = RefControlLoopSession(ref_pipe, ref_store, ref_config,
+                                   SLO).run(
+        spike, RefClosedLoopTuner(ref_info),
+        faults=RefFaultSchedule([ref_crash(stage, 65.5)], seed=4))
+    assert np.array_equal(ours.sim.latency, theirs.sim.latency)
+    assert _events(ours.events) == _events(theirs.events)
+    assert_same_telemetry(ours.telemetry, theirs.telemetry)
     with pytest.raises(ValueError, match="sorted"):
         sess.run(spike[::-1], ClosedLoopTuner(info))
 

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card,
+and the stages built on them: their CUDA graphs, replica slots and
+worker processes (one card and, where the host has them, two).
 
 Every test here needs a CUDA GPU and the CUDA toolkit (the kernels have
 no CPU mode) and skips without one. The module imports no JAX, so it
@@ -7,7 +9,9 @@ runs on a GPU host that has only PyTorch:
     PYTHONPATH=src python -m pytest -m gpu -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -22,7 +26,21 @@ from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving import SEQ, make_stage  # noqa: E402
+from repro_torch.core.pipeline import (  # noqa: E402
+    PipelineConfig,
+    StageConfig,
+    linear_pipeline,
+)
+from repro_torch.faults import FaultSchedule, crash  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    SEQ,
+    PipelineExecutor,
+    ProcessReplicaPool,
+    ProcessStage,
+    make_stage,
+    worker_counts,
+)
+from repro_torch.serving import stage as stage_mod  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -706,3 +724,134 @@ def test_adding_a_replica_at_runtime_captures_nothing(slotted_stages,
     assert forwards == []
     assert [sum(len(s.graphs) for s in st.pool.slots)
             for st in stages] == n_graphs
+
+
+# ------------------------------------------------- worker processes
+
+PROC_ARCH = "llama3.2-1b"
+PROC_READY_S = 120.0
+
+
+@pytest.fixture(scope="module")
+def in_process():
+    """The stage a worker process must match, built here from the same
+    seed, and the kernel library built before any worker starts (a
+    worker loads it and never builds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    st = make_stage(PROC_ARCH, "cuda", full=False, seed=0)
+    st.warmup(8)
+    return st
+
+
+def _need_cards(n: int) -> None:
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA GPUs, torch sees "
+                    f"{torch.cuda.device_count()}")
+
+
+def _spec(cards, counts_dir=None):
+    return ProcessStage(PROC_ARCH, full=False, seed=0, devices=tuple(cards),
+                        max_batch=8, counts_dir=counts_dir)
+
+
+def _wait_for(pred, timeout_s=PROC_READY_S):
+    deadline = time.perf_counter() + timeout_s
+    while not pred():
+        if time.perf_counter() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+@pytest.mark.parametrize("card", [0, 1])
+def test_a_worker_process_answers_like_the_in_process_stage(
+        in_process, tmp_path, card):
+    """A spawned worker on ``cuda:<card>`` answers a fixed batch bit for
+    bit as the stage in this process on cuda:0 does, and counts one
+    replay's launches. On card 1 this holds the worker's current device:
+    its ctypes launches go to the card its tensors are on."""
+    if card:
+        _need_cards(2)
+    rows = list(_rows(in_process, 5, 11))
+    pool = ProcessReplicaPool(_spec([f"cuda:{card}"], str(tmp_path)))
+    try:
+        rep = pool.spawn()
+        assert rep.device == f"cuda:{card}"
+        got = rep.run(rows)
+        counts = worker_counts(tmp_path)[(PROC_ARCH, rep.pid)]
+    finally:
+        pool.close_all()
+    for g, e in zip(got, in_process.run_batch(rows)):
+        assert g.dtype == e.dtype and np.array_equal(g, e)
+    names = dict(zip(stage_mod.COUNTERS, stage_mod.COUNT_FIELDS[1:]))
+    want = dict.fromkeys(stage_mod.COUNT_FIELDS, 0)
+    want["batches"] = 1
+    for counter, k in in_process.graphs[8].launches:
+        want[names[counter]] = k
+    assert counts == want
+
+
+def test_a_sigkill_mid_replay_requeues_and_the_survivor_delivers(in_process):
+    """Two workers replay a burst; a crash SIGKILLs one of them while
+    its ring holds batches: they are served again by the survivor, and
+    every request is answered as the stage in this process answers."""
+    pipe = linear_pipeline("one", [PROC_ARCH], {PROC_ARCH: ["h100-1"]})
+    stage = f"s0_{PROC_ARCH}"
+    cfg = PipelineConfig({stage: StageConfig("h100-1", 8, 2)})
+    ex = PipelineExecutor(pipe, cfg, {PROC_ARCH: _spec(["cuda:0"])},
+                          faults=FaultSchedule([crash(stage, 0.02)]),
+                          backend="process")
+    rows = list(_rows(in_process, 5, 12))
+    exp = in_process.run_batch(rows)
+    n = 1600
+    try:
+        assert _wait_for(lambda: ex.live_process_count(stage) == 2)
+        lat = ex.serve_trace(np.zeros(n), lambda i: rows[i % 5],
+                             timeout_s=PROC_READY_S)
+        outs = ex.outputs()
+        killed = ex.killed_worker_pids(stage)
+        formed = int(ex.batch_sizes()[stage].sum())
+    finally:
+        assert ex.shutdown(join_timeout_s=30.0)
+    assert np.isfinite(lat).all()
+    assert all(np.array_equal(o, exp[i % 5]) for i, o in enumerate(outs))
+    assert len(killed) == 1 and not os.path.exists(f"/proc/{killed[0]}")
+    assert formed > n          # the killed worker's batches were formed again
+
+
+def test_workers_go_to_the_least_loaded_card(in_process):
+    """The k-th worker of a stage goes to the card holding the fewest
+    live workers of that stage, lowest index first; a replacement fills
+    the card a crash emptied. Every worker answers as cuda:0 does."""
+    _need_cards(2)
+    pipe = linear_pipeline("one", [PROC_ARCH], {PROC_ARCH: ["h100-1"]})
+    stage = f"s0_{PROC_ARCH}"
+    cfg = PipelineConfig({stage: StageConfig("h100-1", 1, 3)})
+    ex = PipelineExecutor(pipe, cfg,
+                          {PROC_ARCH: _spec(["cuda:0", "cuda:1"])},
+                          backend="process")
+    rows = list(_rows(in_process, 12, 13))
+    try:
+        assert _wait_for(lambda: ex.live_process_count(stage) == 3)
+        assert sorted(ex.worker_devices(stage)) == \
+            ["cuda:0", "cuda:0", "cuda:1"]
+        assert ex.crash_replicas(stage, 1) == 1
+        assert _wait_for(lambda: ex.live_process_count(stage) == 2)
+        left = ex.worker_devices(stage)
+        ex.add_replicas(stage, 1)
+        assert _wait_for(lambda: ex.live_process_count(stage) == 3)
+        emptied = "cuda:1" if left.count("cuda:1") == 0 else "cuda:0"
+        assert sorted(ex.worker_devices(stage)) == sorted(left + [emptied])
+        lat = ex.serve_trace(np.linspace(0.0, 0.2, 12), lambda i: rows[i],
+                             timeout_s=PROC_READY_S)
+        outs = ex.outputs()
+    finally:
+        assert ex.shutdown(join_timeout_s=30.0)
+    assert np.isfinite(lat).all()
+    # the stage here holds graphs up to 8: compare in two batches
+    exp = in_process.run_batch(rows[:8]) + in_process.run_batch(rows[8:])
+    for o, e in zip(outs, exp):
+        assert np.array_equal(o, e)

@@ -51,9 +51,13 @@ def test_port_imports_with_jax_unavailable():
             "repro_torch.core.planner, repro_torch.core.estimator, "
             "repro_torch.sim, repro_torch.control, repro_torch.core.tuner, "
             "repro_torch.sim.control, repro_torch.serving.loop, "
-            "repro_torch.serving.frontends\n"
+            "repro_torch.serving.frontends, repro_torch.faults, "
+            "repro_torch.faults.schedule, repro_torch.faults.simstage, "
+            "repro_torch.serving.dataplane, repro_torch.serving.procpool, "
+            "repro_torch.serving.ingress, repro_torch.serving.cluster\n"
             "from repro_torch.core import Planner, Estimator\n"
-            "from repro_torch.serving import LiveControlLoop\n")
+            "from repro_torch.serving import LiveControlLoop, "
+            "LiveClusterSim, AsyncIngress, ProcessStage\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)

@@ -50,6 +50,8 @@ from repro_torch.core.pipeline import (
     linear_pipeline,
 )
 from repro_torch.core.planner import AnnealedPlanner, BeamPlanner, Planner
+from repro_torch.faults import FaultSchedule as PortFaultSchedule
+from repro_torch.faults import crash as port_crash
 from repro_torch.core.profiler import ModelProfile, ProfileStore
 from repro_torch.sim import SimEngine, queueing
 from repro_torch.sim.queueing import simulate_stage
@@ -227,16 +229,23 @@ def test_simulate_stage_special_paths_match_the_reference(case):
 
 
 def test_the_port_runs_numpy_only_and_no_faults(image_pipeline):
+    """The port fills on the host only (a device backend raises), and a
+    fault schedule runs the fault-aware loop, equal to the reference's;
+    an empty schedule is the no-fault path."""
     ready, deadline = _stage_inputs(n_s=1.0)
     with pytest.raises(ValueError, match="backend"):
         simulate_stage("fifo", ready, _lut(4), 4, 1, backend="jax")
-    spec = FaultSchedule([crash("s", 0.5)]).stage("s")
-    with pytest.raises(NotImplementedError, match="fault"):
-        simulate_stage("fifo", ready, _lut(4), 4, 1, fault_spec=spec)
+    spec = PortFaultSchedule([port_crash("s", 0.5)]).stage("s")
+    ours = simulate_stage("fifo", ready, _lut(4), 4, 1, fault_spec=spec)
+    assert_same_stage(ours, ref_simulate_stage(
+        "fifo", ready, _lut(4), 4, 1,
+        fault_spec=FaultSchedule([crash("s", 0.5)]).stage("s")))
+    # one replica crashed at 0.5 s and none replaced it: the rest starve
+    assert (ours[0][ready > 0.5] == 1e18).any()
     # an empty spec is the no-fault path
     assert_same_stage(
         simulate_stage("fifo", ready, _lut(4), 4, 1,
-                       fault_spec=FaultSchedule([]).stage("s")),
+                       fault_spec=PortFaultSchedule([]).stage("s")),
         ref_simulate_stage("fifo", ready, _lut(4), 4, 1))
     ref_pipe, ref_store = image_pipeline
     pipe, store = port_pipeline(ref_pipe), port_store(ref_store)
@@ -247,9 +256,13 @@ def test_the_port_runs_numpy_only_and_no_faults(image_pipeline):
         SimEngine(pipe, store).session(ready, backend="torch")
     config = PipelineConfig({s: StageConfig("cpu-1", 4, 2)
                              for s in pipe.stages})
-    with pytest.raises(NotImplementedError, match="fault"):
-        est.engine.simulate(config, ready, fault_schedules=FaultSchedule(
-            [crash(next(iter(pipe.stages)), 0.5)]))
+    first = next(iter(pipe.stages))
+    assert_same_result(
+        est.engine.simulate(config, ready, fault_schedules=PortFaultSchedule(
+            [port_crash(first, 0.5)])),
+        RefEstimator(ref_pipe, ref_store).engine.simulate(
+            to_ref(config), ready,
+            fault_schedules=FaultSchedule([crash(first, 0.5)])))
     with pytest.raises(TypeError):
         Planner(pipe, store, backend="jax")
 

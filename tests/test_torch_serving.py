@@ -7,6 +7,8 @@ generator) against the JAX package's originals.
 The wall-clock cases are the reference's (``tests/test_live_executor.py``)
 with the same sleep stages, parameters and timing bars."""
 
+import functools
+import os
 import sys
 import threading
 import time
@@ -40,6 +42,7 @@ from repro_torch.core.profiler import (  # noqa: E402
     profile_model_measured,
 )
 from repro_torch.control import ControlEvent, ScheduleController  # noqa: E402
+from repro_torch.faults import FaultSchedule, RecoveryPolicy, crash  # noqa: E402
 from repro_torch.core.policy import LiveQueue  # noqa: E402
 from repro_torch.core.tuner import ClosedLoopTuner, TunerPlanInfo  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -50,6 +53,7 @@ from repro_torch.serving import (  # noqa: E402
     make_stage,
 )
 from repro_torch.serving.executor import _Request  # noqa: E402
+from repro_torch.serving.procpool import _scale_payloads  # noqa: E402
 from repro_torch.serving.stage import SlotPool  # noqa: E402
 from repro_torch.sim.result import EpochTelemetry  # noqa: E402
 from repro_torch.workload import gamma_trace  # noqa: E402
@@ -227,18 +231,61 @@ def test_conditional_edge_skips_the_child():
 
 @pytest.mark.parametrize("bad", ["faults", "retry", "process"])
 def test_executor_rejects_what_this_slice_does_not_serve(bad):
-    """Fault injection, retries and the process backend are not ported:
-    asking for one raises and names the roadmap item that brings it."""
+    """Fault injection, retries and the process backend, which the port
+    refused before it had them, are served now; an unknown backend still
+    raises. (The process backend's serving cases spawn workers and live
+    in ``tests/test_torch_procpool.py``.)"""
     pipe = linear_pipeline("one", ["m"], {"m": ["cpu-1"]})
-    kwargs = {"faults": {"faults": object()},
-              "retry": {"retry": object()},
-              "process": {"backend": "process"}}[bad]
-    with pytest.raises(NotImplementedError, match="A3"):
-        PipelineExecutor(pipe, _config(pipe, batch_size=1),
-                         {"m": lambda p: p}, **kwargs)
     with pytest.raises(ValueError, match="backend"):
         PipelineExecutor(pipe, _config(pipe, batch_size=1),
                          {"m": lambda p: p}, backend="gpu")
+    calls = []
+
+    def flaky(payloads):
+        calls.append(len(payloads))
+        if len(calls) == 1:
+            raise ValueError("first batch fails")
+        time.sleep(0.01)
+        return [x + 1 for x in payloads]
+
+    if bad == "process":
+        # one spawned worker: the fn must pickle, so a module-level one
+        ex = PipelineExecutor(pipe, _config(pipe, batch_size=2),
+                              {"m": functools.partial(_scale_payloads,
+                                                      scale=3)},
+                              backend="process")
+        try:
+            lat = ex.serve_trace(np.linspace(0.0, 0.05, 6), lambda i: i,
+                                 timeout_s=20.0)
+            assert np.isfinite(lat).all()
+            assert ex.outputs() == [3 * i for i in range(6)]
+            assert ex.worker_pids("s0_m")[0] != os.getpid()
+            assert ex.dataplane_stats()["s0_m"].pickle_batches > 0
+        finally:
+            assert ex.shutdown()
+        assert ex.live_process_count("s0_m") == 0
+        return
+    kwargs = {"faults": {"faults": FaultSchedule([crash("s0_m", 0.03)])},
+              "retry": {"retry": RecoveryPolicy(max_attempts=3,
+                                                backoff_s=0.01)}}[bad]
+    ex = PipelineExecutor(pipe, _config(pipe, batch_size=2, replicas=2),
+                          {"m": flaky if bad == "retry"
+                           else lambda p: (time.sleep(0.02), p)[1]},
+                          **kwargs)
+    try:
+        lat = ex.serve_trace(np.linspace(0.0, 0.1, 8), lambda i: i,
+                             timeout_s=10.0)
+        outs = ex.outputs()
+    finally:
+        assert ex.shutdown()
+    assert np.isfinite(lat).all()
+    if bad == "faults":
+        assert outs == list(range(8))
+        assert [d for _, d in ex.fault_deltas()["s0_m"]] == [-1]
+        assert ex.replica_target("s0_m") == 1
+    else:
+        assert outs == [i + 1 for i in range(8)]
+        assert sum(calls) > 8            # the failed batch was served again
 
 
 def test_fifo_queue_holds_a_partial_batch_until_its_timeout():
