@@ -84,7 +84,25 @@ Phases, in order; any failure exits non-zero:
    its published widths (7 Mamba layers and 1 attention layer, d_model
    8192, every FFN dense of width 24576): prefill 8 x 512 tokens, 32
    greedy steps against the forward over 544 tokens, the stage latency
-   at 32 tokens for batch sizes 1-8, a traced step and the peak memory.
+   at 32 tokens for batch sizes 1-8, a traced step and the peak memory;
+8. the remaining decoder-only families at published widths, f32, seeded
+   random weights, the hybrid freed first; each model prints its
+   parameters, GB, build time and peak memory. (a) granite-moe-1b-a400m
+   and phi3-mini-3.8b whole, as served stages: graphs at buckets 1-128
+   held against the eager forward, the profile 1-128 on ``h100-1``, a
+   plan for each stage alone at phase 4b's 30 qps and 250 ms SLO served
+   through the executor beside the Estimator, then prefill 8 x 512 and
+   greedy steps against the forward; (b) deepseek-v3-671b cut to its
+   first dense layer and one MoE layer (256 experts, top-8 + shared,
+   MTP depth 1; widths unchanged): the forward with its aux (routers +
+   MTP), then prefill 8 x 512 through the flash kernel at D 192 / Dv
+   128 and greedy steps of the absorbed decode; (c) granite-34b cut to
+   8 layers and qwen2-72b to 4: prefill and greedy decode (decode
+   attention at G 48 with D 128, and G 8 with QKV bias). A MoE model's
+   decode check runs with every expert's capacity at its group's token
+   count (drop-free, as a decode step is), since a prefill at capacity
+   1.25 drops the assignments that come last in the batch's order, and
+   a dropped token's logits are by design not a decode step's.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -93,6 +111,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import operator
@@ -142,6 +161,7 @@ from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.config import dense_segments  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     SEQ,
     LiveControlLoop,
@@ -182,6 +202,12 @@ DECODE_BATCH, PROMPT, SMAX, STEPS = 8, 512, 1024, 64
 HYBRID = "jamba-1.5-large-398b"
 HYBRID_STEPS = 32
 HYBRID_BATCHES = (1, 2, 4, 8)
+# phase 8: the served families, DeepSeek's two-layer cut, the depth cuts
+FAMILY_STAGES = ("granite-moe-1b-a400m", "phi3-mini-3.8b")
+DEEPSEEK = "deepseek-v3-671b"
+DEPTH_CUTS = (("granite-34b", 8), ("qwen2-72b", 4))
+FAMILY_STEPS = 16
+DROP_FREE_GROUPS = 2 * DECODE_BATCH     # MoE groups of a decode check
 COUNTERS = {"rmsnorm": rms_mod.counter, "flash_attention": fa_mod.counter,
             "decode_attention": da_mod.counter,
             "mamba_scan": ms_mod.counter}
@@ -190,30 +216,33 @@ PORT_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "flash_fwd_kernel",
                 "decode_", "mamba_scan_kernel", "mamba_step_kernel")
 
 
-def launches_per_forward(cfg, seq: int) -> dict:
+def launches_per_forward(cfg, seq: int, mtp: bool = False) -> dict:
     """Launches of one forward or prefill over ``seq`` tokens: a norm
-    before every block's core and before its MLP, plus the final norm
-    (33 for llama3.2-1b, 13 for xlstm-125m, 17 for the one-period
+    before every block's core and before its MLP or MoE, plus the final
+    norm (33 for llama3.2-1b, 13 for xlstm-125m, 17 for the one-period
     hybrid); one flash attention per attention block; one scan per
     Mamba block and chunk of ``min(ssm_chunk, seq)`` tokens (one chunk
-    when ``seq`` is not a multiple)."""
+    when ``seq`` is not a multiple). With ``mtp``, the forward's MTP
+    module adds its block's two norms, its own norm and a flash call
+    (MLA's latent norms are plain, as the reference's are)."""
     blocks = [b for seg in cfg.segments for b in seg.blocks
               for _ in range(seg.repeat)]
     chunk = min(cfg.ssm_chunk, seq)
     chunks = seq // chunk if seq % chunk == 0 else 1
-    return {"rmsnorm": len(blocks) + sum(b.ffn == "dense" for b in blocks)
-            + 1,
-            "flash_attention": sum(b.kind == "attn" for b in blocks),
+    return {"rmsnorm": len(blocks) + sum(b.ffn != "none" for b in blocks)
+            + 1 + 3 * mtp,
+            "flash_attention": sum(b.kind == "attn" for b in blocks) + mtp,
             "decode_attention": 0,
             "mamba_scan": chunks * sum(b.kind == "mamba" for b in blocks)}
 
 
 def launches_per_step(cfg) -> dict:
     """Launches of one decode step: decode attention where the forward
-    runs flash, one scan per Mamba block."""
+    runs flash (MLA's absorbed decode is plain torch, as the
+    reference's), one scan per Mamba block."""
     per = launches_per_forward(cfg, 1)
-    per["decode_attention"], per["flash_attention"] = \
-        per["flash_attention"], 0
+    per["decode_attention"] = 0 if cfg.use_mla else per["flash_attention"]
+    per["flash_attention"] = 0
     return per
 
 
@@ -314,6 +343,11 @@ FLASH_CASES = (
     # the hybrid's attention layer: 64 q heads over 8, D = Dv = 128
     ("hybrid B=2", 2, 512, 512, 64, 8, 128, 128, True, 0),
     ("hybrid 544", 1, 544, 544, 64, 8, 128, 128, True, 0),
+    # DeepSeek-V3's MLA, its K/V expanded a head: G 1 at 128 heads, D 192
+    # (128 + 64 RoPE dims), Dv 128
+    ("MLA scoring", 8, 32, 32, 128, 128, 192, 128, True, 0),
+    ("MLA prefill", 2, 512, 512, 128, 128, 192, 128, True, 0),
+    ("MLA ragged", 2, 77, 200, 128, 128, 192, 128, True, 0),
 )
 
 
@@ -516,17 +550,25 @@ def time_kernels(gen: torch.Generator) -> list:
                  cuda_events(lambda: rms_mod.rmsnorm(x, g), calls=20),
                  records[-1]["ms"], calls=20)
 
-    # prefill attention: llama3.2-1b's (32 q heads over 8, D 64) and the
-    # hybrid's (64 over 8, D 128), B 8 x 512 tokens, f32 and bf16
-    for label, h, kv, hd in (("llama prefill", 32, 8, 64),
-                             ("hybrid prefill", 64, 8, 128)):
-        b, s = DECODE_BATCH, PROMPT
+    # prefill attention: llama3.2-1b's (32 q heads over 8, D 64), the
+    # hybrid's (64 over 8, D 128), B 8 x 512 tokens, and DeepSeek-V3's
+    # MLA (128 over 128, D 192, Dv 128) at its prefill (B 8 x 512) and
+    # scoring (B 8 x 32) shapes, f32 and bf16. SDPA takes Dv != D (its
+    # math or memory-efficient backend), so MLA has a library time too.
+    for label, b, s, h, kv, hd, dv in (
+            ("llama prefill", DECODE_BATCH, PROMPT, 32, 8, 64, 64),
+            ("hybrid prefill", DECODE_BATCH, PROMPT, 64, 8, 128, 128),
+            ("MLA prefill", DECODE_BATCH, PROMPT, 128, 128, 192, 128),
+            ("MLA scoring", SERVE_BATCH, SEQ, 128, 128, 192, 128)):
         for dt in (torch.float32, torch.bfloat16):
             q = rand(gen, (b, s, h, hd), dt)
             k = rand(gen, (b, s, kv, hd), dt)
-            v = rand(gen, (b, s, kv, hd), dt)
+            v = rand(gen, (b, s, kv, dv), dt)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            nbytes, _, ops_ms = flash_work(b, s, s, h, kv, hd, hd, dt)
+            assert_close(fa_mod.flash_attention(q, k, v),
+                         ref.flash_attention_ref(q, k, v), dt,
+                         f"flash at the {label}")
+            nbytes, _, ops_ms = flash_work(b, s, s, h, kv, hd, dv, dt)
             bytes_ms = nbytes / H100_HBM_BW * 1e3
             ms = time_in_turns((
                 lambda: fa_mod.flash_attention(q, k, v),
@@ -535,10 +577,14 @@ def time_kernels(gen: torch.Generator) -> list:
                     qt, kt, vt, is_causal=True, enable_gqa=True)),
                 (20, 5, 20))
             log(f"  flash at the {label} B={b} S={s} {h}/{kv} heads D={hd} "
-                f"{str(dt)[6:]}: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} "
-                f"ms, F.scaled_dot_product_attention {ms[2]:.4f} ms, bound "
-                f"{max(bytes_ms, ops_ms):.6f} ms ("
+                f"Dv={dv} {str(dt)[6:]}: kernel {ms[0]:.4f} ms, plain "
+                f"{ms[1]:.4f} ms, F.scaled_dot_product_attention "
+                f"{ms[2]:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms ("
                 f"{'bytes' if bytes_ms >= ops_ms else 'operations'})")
+            if label.startswith("MLA") and dt == torch.float32:
+                report_trace(f"flash at the {label}",
+                             cuda_events(lambda: fa_mod.flash_attention(
+                                 q, k, v), calls=10), ms[0], calls=10)
             del q, k, v, qt, kt, vt
 
     b, s, h, kv, hd = SERVE_BATCH, SEQ, 32, 8, 64
@@ -960,8 +1006,8 @@ def kernel_name(key: str) -> str:
 # ---------------------------------------------------------------- phase 3
 
 def smoke_cfg(arch: str):
-    """The smoke config; the hybrid's in its expert-free one-period form
-    (its MoE is not ported)."""
+    """The smoke config; the hybrid's in the expert-free one-period form
+    that phase 7 runs at full width."""
     return without_experts(get_smoke(arch)) if arch == HYBRID \
         else get_smoke(arch)
 
@@ -971,7 +1017,10 @@ def check_forward_against_cpu() -> None:
     plain path on the CPU, same parameters, smoke configs (the hybrid
     over two scan chunks of 64)."""
     for arch, s in (("llama3.2-1b", 32), ("llama3.2-1b-sw", 96),
-                    ("xlstm-125m", 32), (HYBRID, 128)):
+                    ("xlstm-125m", 32), (HYBRID, 128),
+                    ("phi3-mini-3.8b", 32), ("qwen2-72b", 32),
+                    ("granite-34b", 32), ("granite-moe-1b-a400m", 96),
+                    (DEEPSEEK, 32)):
         cfg = smoke_cfg(arch)
         cpu_model = build_model(cfg, "cpu")
         params = cpu_model.init(torch.Generator().manual_seed(0))
@@ -995,10 +1044,16 @@ def check_decode_against_cpu() -> None:
     """The port's prefill + greedy decode through the kernels on the card
     agrees with its plain path on the CPU, same parameters and tokens,
     smoke configs: llama3.2-1b, and llama3.2-1b-sw with a prompt longer
-    than its 64-slot window and steps that wrap the ring, and the hybrid
-    with a prompt of two scan chunks and 8 steps past it."""
+    than its 64-slot window and steps that wrap the ring, the hybrid
+    with a prompt of two scan chunks and 8 steps past it, and the dense,
+    MoE and MLA families of phase 8 (MLA's absorbed decode is plain on
+    both sides; its prefill runs the flash kernel)."""
     for arch, prompt, steps in (("llama3.2-1b", 9, 3),
-                                ("llama3.2-1b-sw", 96, 40), (HYBRID, 128, 8)):
+                                ("llama3.2-1b-sw", 96, 40), (HYBRID, 128, 8),
+                                ("phi3-mini-3.8b", 9, 3), ("qwen2-72b", 9, 3),
+                                ("granite-34b", 9, 3),
+                                ("granite-moe-1b-a400m", 9, 3),
+                                (DEEPSEEK, 9, 3)):
         cfg = smoke_cfg(arch)
         cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg,
                                                                     "cuda")
@@ -1242,13 +1297,14 @@ def serve(stages, store) -> dict:
     return launches
 
 
-def plan_and_serve(stages, store) -> tuple:
+def plan_and_serve(stages, store, arches=STAGES) -> tuple:
     """Steps 2-4 of examples/serve_real_models.py on the card: plan the
-    cascade from the measured profile, check that every planned batch
-    lies within the profile, serve the planned configuration, and print
-    the Estimator's prediction beside the measured latency. Returns (the
-    launches, the plan's configuration)."""
-    pipe = cascade_pipeline()
+    chain of ``arches`` (the cascade, or one stage alone) from the
+    measured profile, check that every planned batch lies within the
+    profile, serve the planned configuration, and print the Estimator's
+    prediction beside the measured latency. Returns (the launches, the
+    plan's configuration)."""
+    pipe = cascade_pipeline(arches)
     sample = gamma_trace(PLAN_QPS, 1.0, PLAN_SAMPLE_S, seed=0)
     t0 = time.perf_counter()
     plan = Planner(pipe, store).plan(sample, SLO_S)
@@ -2082,7 +2138,8 @@ def decode_and_check(model, params, steps: int) -> tuple:
             raise RuntimeError(f"decode launches {step_counts} != {want}")
 
         seq = torch.cat([prompt] + toks[:steps], dim=1)
-        full, _ = model.forward(params, {"tokens": seq})
+        full, _ = model.forward(params, {"tokens": seq,
+                                         "enable_mtp": False})
         err, refs = 0.0, []
         for i, out in enumerate(outs):      # position PROMPT - 1 + i
             ref_logits = full[:, PROMPT - 1 + i]
@@ -2181,6 +2238,193 @@ def hybrid_full_width() -> tuple:
     return pre, steps
 
 
+# ---------------------------------------------------------------- phase 8
+
+def drop_free(cfg):
+    """``cfg`` with room for every routed assignment, for a decode check:
+    the forward's tokens in DROP_FREE_GROUPS groups, each expert's
+    capacity its group's token count (capacity_factor E / k); a decode
+    step's group of DECODE_BATCH tokens is drop-free at any factor (the
+    floor at 64 tokens). Widths, experts and top-k are the config's."""
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok,
+        moe_groups=DROP_FREE_GROUPS)
+
+
+def model_line(cfg, params, built_s: float) -> int:
+    """Log a full-width model's shape, parameters and GB; returns the
+    parameter count."""
+    n = sum(t.numel() for t in _leaves(params))
+    gb = sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9
+    heads = (f"MLA {cfg.num_heads} heads, D {cfg.qk_head_dim} Dv "
+             f"{cfg.v_head_dim}" if cfg.use_mla else
+             f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}")
+    moe = (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok} of "
+           f"{cfg.moe_d_ff}" + (f" + {cfg.num_shared_experts} shared"
+                                if cfg.num_shared_experts else "")
+           if cfg.num_experts else "")
+    log(f"  {cfg.name}: {cfg.num_layers}L d_model={cfg.d_model} {heads} "
+        f"d_ff={cfg.d_ff}{moe} vocab={cfg.vocab_size}"
+        f"{' mtp=' + str(cfg.mtp_depth) if cfg.mtp_depth else ''}: "
+        f"params={n} ({gb:.2f} GB {str(cfg.pdtype)[6:]}) built in "
+        f"{built_s:.1f} s")
+    return n
+
+
+def peak_line(label: str) -> None:
+    log(f"  {label}: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"(torch.cuda.max_memory_allocated)")
+
+
+def decode_check(model, params) -> dict:
+    """decode_and_check on ``model``'s config made drop-free (the same
+    parameters); returns the launches of one warm prefill plus the
+    steps'."""
+    checked = model if not model.cfg.num_experts else \
+        build_model(drop_free(model.cfg), "cuda")
+    if checked is not model:
+        log(f"  decode check with capacity_factor "
+            f"{checked.cfg.capacity_factor:g} in {DROP_FREE_GROUPS} groups "
+            f"(drop-free; the model's own is "
+            f"{model.cfg.capacity_factor:g})")
+    pre, steps, _ = decode_and_check(checked, params, FAMILY_STEPS)
+    return {k: pre[k] + steps[k] for k in pre}
+
+
+def add_counts(total: dict, more: dict) -> None:
+    for k, n in more.items():
+        total[k] += n
+
+
+def family_stages() -> dict:
+    """Phase 8 (a): granite-moe and phi3-mini whole, as served stages:
+    graphs, replays against eager, the profile, a plan for each alone
+    served beside the Estimator, and the decode check. Returns the
+    launches of the serves, the prefills and the steps."""
+    total = dict.fromkeys(COUNTERS, 0)
+    for arch in FAMILY_STAGES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = make_stage(arch, "cuda", full=True, seed=0)
+        torch.cuda.synchronize()
+        model_line(st.cfg, st.params, time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        st.warmup(max(PROFILE_BATCHES))
+        log(f"  {len(st.graphs)} CUDA graphs {sorted(st.graphs)} captured "
+            f"in {time.perf_counter() - t1:.1f} s, one replay launching "
+            f"{ {c_name(c): k for c, k in st.graphs[SERVE_BATCH].launches} }")
+        check_replays(arch, st)
+        store = ProfileStore()
+        store.add(profile_model_measured(arch, st.profile_fn, "h100-1",
+                                         batch_sizes=PROFILE_BATCHES))
+        log("  profile on h100-1: " + ", ".join(
+            f"b={b} {store.get(arch).batch_latency('h100-1', b) * 1e3:.3f} "
+            f"ms" for b in PROFILE_BATCHES))
+        stages = {arch: st}
+        served, _ = plan_and_serve(stages, store, (arch,))
+        add_counts(total, served)
+        add_counts(total, decode_check(st.model, st.params))
+        peak_line(arch)
+        del st, stages, store
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def deepseek_two_layers() -> dict:
+    """Phase 8 (b): deepseek-v3-671b cut to its first dense layer and one
+    MoE layer, widths, experts and MTP unchanged. The forward with its
+    aux (routers + MTP) at batch 8 x PROMPT, the positions whose logits
+    capacity 1.25 changed against the drop-free forward, then the decode
+    check (prefill through the flash kernel at D 192 / Dv 128, the
+    absorbed decode). Returns its launches."""
+    full = get_arch(DEEPSEEK)
+    dense, moe = full.segments
+    cfg = dataclasses.replace(
+        full, name=f"{full.name}-2L",
+        segments=(dataclasses.replace(dense, repeat=1),
+                  dataclasses.replace(moe, repeat=1)))
+    log(f"  reduced: {full.num_layers} layers -> 2 (one dense, one MoE); "
+        f"widths, 256 experts, top-8, shared expert and MTP as published")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    model_line(cfg, params, time.perf_counter() - t0)
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (DECODE_BATCH, PROMPT))).to("cuda")
+    total = dict.fromkeys(COUNTERS, 0)
+    with torch.inference_mode():
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, aux = model.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t1
+        got = counts()
+        want = launches_per_forward(cfg, PROMPT, mtp=True)
+        if got != want:
+            raise RuntimeError(f"forward launches {got} != {want}")
+        add_counts(total, got)
+        _, router_aux = model.forward(params, {"tokens": tokens,
+                                               "enable_mtp": False})
+        if logits.shape != (DECODE_BATCH, PROMPT, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise RuntimeError(f"{cfg.name}: bad logits "
+                               f"{tuple(logits.shape)}")
+        aux, router_aux = float(aux), float(router_aux)
+        if not (np.isfinite(aux) and aux > router_aux > 0):
+            raise RuntimeError(f"{cfg.name}: aux {aux} (routers "
+                               f"{router_aux}) is not finite and positive "
+                               f"with an MTP loss on top")
+        free, _ = build_model(drop_free(cfg), "cuda").forward(
+            params, {"tokens": tokens, "enable_mtp": False})
+        moved = int(((logits - free).abs().amax(-1) > 1e-3).sum())
+        log(f"  forward B={DECODE_BATCH} x {PROMPT} with MTP: "
+            f"{fwd_s * 1e3:.1f} ms, launches {got}; logits finite; aux "
+            f"{aux:.6f} = routers {router_aux:.6f} + MTP "
+            f"{aux - router_aux:.6f}; capacity "
+            f"{cfg.capacity_factor:g} changed {moved} of "
+            f"{DECODE_BATCH * PROMPT} positions' logits (> 1e-3) against "
+            f"the drop-free forward")
+        del logits, free
+    add_counts(total, decode_check(model, params))
+    peak_line(cfg.name)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def depth_cuts() -> dict:
+    """Phase 8 (c): granite-34b and qwen2-72b cut in depth, widths
+    unchanged: the decode check. Returns their launches."""
+    total = dict.fromkeys(COUNTERS, 0)
+    for arch, layers in DEPTH_CUTS:
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, name=f"{full.name}-{layers}L",
+                                  segments=dense_segments(layers))
+        log(f"  reduced: {arch} {full.num_layers} layers -> {layers}; "
+            f"widths as published")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        model_line(cfg, params, time.perf_counter() - t0)
+        add_counts(total, decode_check(model, params))
+        peak_line(cfg.name)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; this script runs the "
@@ -2270,15 +2514,27 @@ def main() -> int:
     log("[7] full-width expert-free one-period Jamba-1.5-Large: prefill, "
         "greedy decode, stage latency")
     hybrid_pre, hybrid_steps = hybrid_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[8] the remaining decoder-only families at published widths "
+        f"(the hybrid freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated)")
+    log("[8a] granite-moe-1b-a400m and phi3-mini-3.8b as served stages")
+    family = family_stages()
+    log("[8b] deepseek-v3-671b, its first dense layer and one MoE layer")
+    add_counts(family, deepseek_two_layers())
+    log("[8c] granite-34b and qwen2-72b cut in depth")
+    add_counts(family, depth_cuts())
     # each kernel's launches come from the path that runs it: the serves
     # of the cascade's stages (4-4d; 4f-4g in the worker processes), the
-    # llama decode, the hybrid
+    # llama decode, the hybrid, and phase 8's serves, prefills and steps
     for name in launches:
         launches[name] += planned[name] + alone[name] + tuned[name] + \
             proc_launches[name]
     launches["decode_attention"] = decode_launches["decode_attention"]
     launches["mamba_scan"] = hybrid_pre["mamba_scan"] + \
         hybrid_steps["mamba_scan"]
+    add_counts(launches, family)    # phase 8: serves, prefills, steps
     for r in records:
         r["launches"] = launches[r["name"]]
     if not all(r["launches"] > 0 for r in records):

@@ -2,10 +2,12 @@
 
 Each module exports ``ARCH`` (the exact published widths) and ``SMOKE``
 (a reduced same-family variant for CPU tests), copied from the JAX
-reference's registry. The port carries the two families of the served
-cascade and the Mamba/attention hybrid; the other families arrive with
-their slices. Jamba's MoE layers are not ported yet, so its configs
-build only in the expert-free form of :func:`without_experts`.
+reference's registry. The port carries every decoder-only config of the
+reference: the served cascade's xLSTM and Llama, the dense phi3-mini,
+qwen2-72b and granite-34b, the MoE granite-moe and DeepSeek-V3 (MLA,
+MTP) and the Mamba/attention hybrid Jamba, with its experts or in the
+expert-free one-period form of :func:`without_experts`. The
+encoder-decoder and image configs arrive with their slice.
 """
 
 from __future__ import annotations
@@ -17,10 +19,15 @@ from typing import List
 from repro_torch.models.config import ArchConfig
 
 _MODULES = {
+    "granite-34b": "granite_34b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "qwen2-72b": "qwen2_72b",
     "xlstm-125m": "xlstm_125m",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "llama3.2-1b": "llama3_2_1b",
     "llama3.2-1b-sw": "llama3_2_1b",
-    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ARCH_IDS: List[str] = [k for k in _MODULES if k != "llama3.2-1b-sw"]
@@ -45,7 +52,7 @@ def get_arch(name: str) -> ArchConfig:
 def without_experts(cfg: ArchConfig) -> ArchConfig:
     """One period of ``cfg``'s first segment with every MoE FFN made the
     dense FFN of width ``d_ff`` (for Jamba, one expert's hidden width):
-    the form in which the port runs a hybrid whose MoE is not ported.
+    the form in which the hybrid's full width fits one card.
     Only ``dataclasses.replace`` is used, so it applies to the
     reference's config classes too."""
     seg = cfg.segments[0]

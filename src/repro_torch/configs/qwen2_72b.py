@@ -1,0 +1,21 @@
+"""qwen2-72b [dense] — GQA with QKV bias [arXiv:2407.10671].
+
+80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064.
+"""
+
+from repro_torch.models.config import ArchConfig, dense_segments, scale_down
+
+ARCH = ArchConfig(
+    name="qwen2-72b",
+    family="dense",
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    segments=dense_segments(80),
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)
+
+SMOKE = scale_down(ARCH)

@@ -11,7 +11,9 @@
 //
 // Layouts (all contiguous, 16-byte aligned): q (B, Sq, H, D),
 // k (B, Sk, KV, D), v (B, Sk, KV, Dv), out (B, Sq, H, Dv). D and Dv are
-// multiples of 8 up to 128.
+// multiples of 8, D up to 192 and Dv up to 128 (DeepSeek-V3's MLA
+// prefill sends D 192 = 128 + 64 RoPE dims with Dv 128, at G 1 over 128
+// heads, as the TPU kernel takes it).
 //
 // What bounds it. At the hybrid's prefill (B 8, 512 tokens, 64 q heads
 // over 8, D 128) the causal work is 34.4 GFLOP against 302 MB, so
@@ -34,7 +36,8 @@
 //   position * G + g), so each K/V tile is read once per group, and the
 //   causal/window range of a tile is that of its 64 / G positions. Any
 //   G works; at the served Sq = 32, G = 4, a (batch, kv head) has two
-//   full tiles, and B 8 x 8 kv heads give 128 CTAs.
+//   full tiles, and B 8 x 8 kv heads give 128 CTAs. MLA expands its K/V
+//   a head, so there G = 1 and a tile is 64 positions of one head.
 // - K/V through a 2-stage cp.async ring (16-byte copies, zero-filled
 //   past Sk): the next tile's copy is in flight while this tile's MMAs
 //   run. Q is read once, by the same 16-byte copies. Tiles that the
@@ -44,11 +47,17 @@
 // - Shared memory rows are padded by 16 bytes, which makes every
 //   fragment read below conflict-free (ldmatrix rows fall in distinct
 //   16-byte bank groups; the f32 V reads of lanes (g, t) hit banks
-//   8t + g). Head dims are padded with zeros to DH = 32, 64 or 128,
-//   written once, so D != Dv needs no other path.
-//   Budget at DH = 128, 128 threads: f32 (64 + 2 x 2 x 32 rows) x 132 x
-//   4 B = 99 KiB with 32-row kv tiles; bf16 (64 + 2 x 2 x 64) x 136 x 2 B
-//   = 85 KiB with 64-row tiles; two CTAs (8 warps) fit an SM either way.
+//   8t + g). Head dims are padded with zeros, written once: Q and K to
+//   DQK, V and the output to DV. DQK = DV = 32, 64 or 128 covers every
+//   D, Dv <= 128 (the larger of the two sets both); D in (128, 192]
+//   takes DQK = 192 with DV = 128, so V's tiles and the O accumulator
+//   do not grow with the RoPE dims.
+//   Budget at DQK = DV = 128, 128 threads: f32 (64 + 2 x 2 x 32 rows) x
+//   132 x 4 B = 99 KiB with 32-row kv tiles; bf16 (64 + 2 x 2 x 64) x 136
+//   x 2 B = 85 KiB with 64-row tiles; two CTAs (8 warps) an SM either
+//   way. At DQK 192 / DV 128: f32 (64 + 2 x 32) x 196 x 4 + 2 x 32 x 132
+//   x 4 B = 131 KiB, one CTA an SM (__launch_bounds__ says so); bf16
+//   (64 + 2 x 64) x 200 x 2 + 2 x 64 x 136 x 2 B = 109 KiB, two.
 // - In the PV product of the tf32 path the kv index inside a k-step of 8
 //   is permuted (MMA k index t holds kv column 2t, t + 4 holds 2t + 1),
 //   the same way for P and V, so P feeds the MMA from the score
@@ -70,14 +79,19 @@ constexpr int kStages = 2;
 constexpr int kMaxDevices = 64;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Tile geometry of one (type, padded head dim) instance.
-template <typename T, int DH>
+// Tile geometry of one (type, padded Q/K head dim, padded V head dim)
+// instance; DV <= DQK.
+template <typename T, int DQK, int DV>
 struct Tile {
   static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per copy
-  static constexpr int kLd = DH + kVec;       // padded row stride
-  static constexpr int kBN = (sizeof(T) == 4 && DH > 64) ? 32 : 64;
+  static constexpr int kLdK = DQK + kVec;     // padded row stride, Q and K
+  static constexpr int kLdV = DV + kVec;      // padded row stride, V
+  static constexpr int kBN = (sizeof(T) == 4 && DQK > 64) ? 32 : 64;
   static constexpr size_t kSmem =
-      sizeof(T) * static_cast<size_t>(kBM + 2 * kStages * kBN) * kLd;
+      sizeof(T) * (static_cast<size_t>(kBM + kStages * kBN) * kLdK +
+                   static_cast<size_t>(kStages * kBN) * kLdV);
+  // CTAs an SM holds: two while both fit the SM's 227 KiB
+  static constexpr int kMinBlocks = 2 * kSmem <= 227 * 1024 ? 2 : 1;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -168,13 +182,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // (g, t), the tf32 A and B layout. Each pass runs over the k-step's
 // independent n-tiles before the next pass adds to them, small terms
 // first.
-template <int DH, int BN, int LD>
+template <int DQK, int BN, int LD>
 __device__ __forceinline__ void scores_f32(float (&s)[BN / 8][4],
                                            const float* sq, const float* sk,
                                            int lane) {
   const int i = lane >> 3, r = lane & 7;
 #pragma unroll
-  for (int ks = 0; ks < DH / 8; ++ks) {
+  for (int ks = 0; ks < DQK / 8; ++ks) {
     uint32_t qa[4], ab[4], as[4];  // rows 0-7 | 8-15, columns t | t + 4
     ldsm_x4(qa, sq + ((i & 1) * 8 + r) * LD + ks * 8 + (i >> 1) * 4);
 #pragma unroll
@@ -203,10 +217,10 @@ __device__ __forceinline__ void scores_f32(float (&s)[BN / 8][4],
   }
 }
 
-// acc (16 x DH) += P V, f32, 3xTF32; P in the score accumulators. The
+// acc (16 x DV) += P V, f32, 3xTF32; P in the score accumulators. The
 // output n-tiles go in groups of 4, three passes per group.
-template <int DH, int BN, int LD>
-__device__ __forceinline__ void pv_f32(float (&acc)[DH / 8][4],
+template <int DV, int BN, int LD>
+__device__ __forceinline__ void pv_f32(float (&acc)[DV / 8][4],
                                        const float (&p)[BN / 8][4],
                                        const float* sv, int g, int t) {
 #pragma unroll
@@ -219,7 +233,7 @@ __device__ __forceinline__ void pv_f32(float (&acc)[DH / 8][4],
     split_tf32(p[kk][3], ab[3], as[3]);
     const float* vr = sv + (kk * 8 + 2 * t) * LD + g;
 #pragma unroll
-    for (int n0 = 0; n0 < DH / 8; n0 += 4) {
+    for (int n0 = 0; n0 < DV / 8; n0 += 4) {
       uint32_t bb[4][2], bs[4][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -240,14 +254,14 @@ __device__ __forceinline__ void pv_f32(float (&acc)[DH / 8][4],
 }
 
 // s = Q K^T, bf16; Q fragments already in registers.
-template <int DH, int BN, int LD>
+template <int DQK, int BN, int LD>
 __device__ __forceinline__ void scores_bf16(float (&s)[BN / 8][4],
-                                            const uint32_t (&qf)[DH / 16][4],
+                                            const uint32_t (&qf)[DQK / 16][4],
                                             const __nv_bfloat16* sk,
                                             int lane) {
   const int i = lane >> 3, r = lane & 7;
 #pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) {
+  for (int ks = 0; ks < DQK / 16; ++ks) {
 #pragma unroll
     for (int np = 0; np < BN / 16; ++np) {
       uint32_t b[4];  // kv rows 16np + 0..7 | 8..15, d low | high half
@@ -260,8 +274,8 @@ __device__ __forceinline__ void scores_bf16(float (&s)[BN / 8][4],
 }
 
 // acc += P V, bf16; P rounded to bf16 from the score accumulators.
-template <int DH, int BN, int LD>
-__device__ __forceinline__ void pv_bf16(float (&acc)[DH / 8][4],
+template <int DV, int BN, int LD>
+__device__ __forceinline__ void pv_bf16(float (&acc)[DV / 8][4],
                                         const float (&p)[BN / 8][4],
                                         const __nv_bfloat16* sv, int lane) {
   const int i = lane >> 3, r = lane & 7;
@@ -273,7 +287,7 @@ __device__ __forceinline__ void pv_bf16(float (&acc)[DH / 8][4],
         pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
         pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
-    for (int np = 0; np < DH / 16; ++np) {
+    for (int np = 0; np < DV / 16; ++np) {
       uint32_t b[4];  // kv rows low | high half, dv columns 16np + 0..7 | 8..15
       ldsm_x4_trans(b, sv + (kk * 16 + (i & 1) * 8 + r) * LD + np * 16 +
                            (i >> 1) * 8);
@@ -302,20 +316,22 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 // One CTA per (q tile of 64 packed rows, kv head, batch).
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(kThreads, (Tile<T, DQK, DV>::kMinBlocks))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
                  int h, int kvh, int d, int dv, int causal, int window,
                  float scale_log2) {
-  using Geo = Tile<T, DH>;
-  constexpr int BN = Geo::kBN, LD = Geo::kLd, VEC = Geo::kVec;
-  constexpr int CPR = DH / VEC;  // 16-byte chunks per padded row
+  using Geo = Tile<T, DQK, DV>;
+  constexpr int BN = Geo::kBN, LD = Geo::kLdK, LDV = Geo::kLdV;
+  constexpr int VEC = Geo::kVec;
+  constexpr int CPR = DQK / VEC;  // 16-byte chunks per padded Q/K row
   constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(DV <= DQK, "V's rows are copied in Q/K's chunk loop");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);  // kBM x LD
   T* sK = sQ + kBM * LD;                   // kStages x BN x LD
-  T* sV = sK + kStages * BN * LD;          // kStages x BN x LD
+  T* sV = sK + kStages * BN * LD;          // kStages x BN x LDV
 
   const int grp = h / kvh;    // q heads per kv head
   const int rows = sq * grp;  // packed rows of one (batch, kv head)
@@ -337,8 +353,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_hi = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN : t_lo;
 
   // head-dim padding stays zero: the copies never write it
-  zero_cols(sQ, kBM + kStages * BN, LD, d, DH);
-  zero_cols(sV, kStages * BN, LD, dv, DH);
+  zero_cols(sQ, kBM + kStages * BN, LD, d, DQK);
+  zero_cols(sV, kStages * BN, LDV, dv, DV);
 
   // Q: packed row m0 + rr is position (m0 + rr) / grp, head
   // kh * grp + (m0 + rr) % grp
@@ -357,7 +373,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   auto load_kv = [&](int tile, int stage) {
     T* dk = sK + stage * BN * LD;
-    T* dvv = sV + stage * BN * LD;
+    T* dvv = sV + stage * BN * LDV;
     for (int idx = tid; idx < BN * CPR; idx += kThreads) {
       const int rr = idx / CPR, c = (idx % CPR) * VEC;
       const int j = tile * BN + rr;
@@ -365,7 +381,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const size_t row =
           (static_cast<size_t>(bb) * sk + (ok ? j : 0)) * kvh + kh;
       if (c < d) cp_async16(dk + rr * LD + c, k + row * d + c, ok);
-      if (c < dv) cp_async16(dvv + rr * LD + c, v + row * dv + c, ok);
+      if (c < dv) cp_async16(dvv + rr * LDV + c, v + row * dv + c, ok);
     }
   };
   if (t_lo < t_hi) load_kv(t_lo, 0);
@@ -374,20 +390,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const T* sQw = sQ + warp * 16 * LD;
-  uint32_t qf[kF32 ? 1 : DH / 16][4];
+  uint32_t qf[kF32 ? 1 : DQK / 16][4];
   if constexpr (!kF32) {
     const int i = lane >> 3, r = lane & 7;
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks)
+    for (int ks = 0; ks < DQK / 16; ++ks)
       ldsm_x4(qf[ks], sQw + ((i & 1) * 8 + r) * LD + ks * 16 + (i >> 1) * 8);
   }
 
   const int r0 = m0 + warp * 16 + g;  // this lane's rows r0, r0 + 8
   const int qp[2] = {r0 / grp + offset, (r0 + 8) / grp + offset};
   float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
-  float acc[DH / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < DH / 8; ++nt)
+  for (int nt = 0; nt < DV / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 
@@ -398,7 +414,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait<1>();  // this tile has landed
     __syncthreads();
     const T* sKs = sK + stage * BN * LD;
-    const T* sVs = sV + stage * BN * LD;
+    const T* sVs = sV + stage * BN * LDV;
 
     float s[BN / 8][4];
 #pragma unroll
@@ -406,9 +422,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
     if constexpr (kF32)
-      scores_f32<DH, BN, LD>(s, sQw, sKs, lane);
+      scores_f32<DQK, BN, LD>(s, sQw, sKs, lane);
     else
-      scores_bf16<DH, BN, LD>(s, qf, sKs, lane);
+      scores_bf16<DQK, BN, LD>(s, qf, sKs, lane);
 
     const int kv0 = tile * BN;
     const bool mask =
@@ -443,7 +459,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m_i[hh] = m_new;
       l_i[hh] *= alpha;
 #pragma unroll
-      for (int nt = 0; nt < DH / 8; ++nt) {
+      for (int nt = 0; nt < DV / 8; ++nt) {
         acc[nt][2 * hh] *= alpha;
         acc[nt][2 * hh + 1] *= alpha;
       }
@@ -457,9 +473,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 
     if constexpr (kF32)
-      pv_f32<DH, BN, LD>(acc, s, sVs, g, t);
+      pv_f32<DV, BN, LDV>(acc, s, sVs, g, t);
     else
-      pv_bf16<DH, BN, LD>(acc, s, sVs, lane);
+      pv_bf16<DV, BN, LDV>(acc, s, sVs, lane);
     __syncthreads();  // every warp is done with this stage
   }
 
@@ -475,7 +491,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int head = kh * grp + r - pos * grp;
     T* orow = o + ((static_cast<size_t>(bb) * sq + pos) * h + head) * dv;
 #pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt) {
+    for (int nt = 0; nt < DV / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
       if (c < dv)
         store2(orow + c, acc[nt][2 * hh] * inv, acc[nt][2 * hh + 1] * inv);
@@ -483,12 +499,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 int launch_dh(const void* q, const void* k, const void* v, void* o, int b,
               int sq, int sk, int h, int kvh, int d, int dv, int causal,
               int window, float scale, cudaStream_t stream) {
-  constexpr size_t smem = Tile<T, DH>::kSmem;
-  auto kernel = flash_fwd_kernel<T, DH>;
+  constexpr size_t smem = Tile<T, DQK, DV>::kSmem;
+  auto kernel = flash_fwd_kernel<T, DQK, DV>;
   // the shared-memory opt-in, once per instance and device
   static std::once_flag once[kMaxDevices];
   static cudaError_t attr_err[kMaxDevices];
@@ -517,18 +533,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int h, int kvh, int d, int dv, int causal,
            int window, float scale, cudaStream_t stream) {
   if (b <= 0 || sq <= 0 || h <= 0) return 0;
-  if (kvh <= 0 || h % kvh != 0 || d <= 0 || d > 128 || dv <= 0 ||
+  if (kvh <= 0 || h % kvh != 0 || d <= 0 || d > 192 || dv <= 0 ||
       dv > 128 || d % 8 != 0 || dv % 8 != 0 || sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (d > 128)
+    return launch_dh<T, 192, 128>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
+                                  causal, window, scale, stream);
   const int dmax = d > dv ? d : dv;
   if (dmax <= 32)
-    return launch_dh<T, 32>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
-                            window, scale, stream);
+    return launch_dh<T, 32, 32>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
+                                causal, window, scale, stream);
   if (dmax <= 64)
-    return launch_dh<T, 64>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
-                            window, scale, stream);
-  return launch_dh<T, 128>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
-                           window, scale, stream);
+    return launch_dh<T, 64, 64>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
+                                causal, window, scale, stream);
+  return launch_dh<T, 128, 128>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
+                                causal, window, scale, stream);
 }
 
 }  // namespace

@@ -6,7 +6,8 @@ flash_attention``. A tensor on the CPU takes the plain version
 (:func:`ref.flash_attention_ref`); a CUDA tensor launches the kernel or
 raises. Unlike the TPU kernel there is no block-divisibility rule: the
 kernel masks ragged edges itself. Head dims are multiples of 8 (the
-kernel copies 16-byte vectors and feeds tensor-core tiles of 8).
+kernel copies 16-byte vectors and feeds tensor-core tiles of 8), q/k's
+up to 192 and v's up to 128, as MLA's prefill needs (D 192, Dv 128).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_QK_HEAD_DIM = 192
+MAX_V_HEAD_DIM = 128
 
 counter = _build.LaunchCounter()
 
@@ -50,10 +52,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
     if h % kvh:
         raise ValueError(f"q heads {h} not divisible by kv heads {kvh}")
-    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM or d % 8 or dv % 8:
+    if d > MAX_QK_HEAD_DIM or dv > MAX_V_HEAD_DIM or d % 8 or dv % 8:
         raise ValueError(f"flash_attention kernel takes head dims that are "
-                         f"multiples of 8 up to {MAX_HEAD_DIM}, got D={d} "
-                         f"Dv={dv}")
+                         f"multiples of 8, D up to {MAX_QK_HEAD_DIM} and Dv "
+                         f"up to {MAX_V_HEAD_DIM}, got D={d} Dv={dv}")
     dtype = KERNEL_DTYPES.get(q.dtype)
     if dtype is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes float32 or "

@@ -13,9 +13,9 @@ Cache kinds per block:
   slstm            : h,c,n,m        (repeat, B, D)
   cross-attn (enc-dec): k,v over encoder states, built at prefill.
 
-The port decodes dense-attention and Mamba/hybrid stacks; the other
-kinds are built here so that the trees match the reference's for every
-config.
+The port decodes dense-attention (GQA and MLA) and Mamba/hybrid
+stacks; the other kinds are built here so that the trees match the
+reference's for every config.
 """
 
 from __future__ import annotations

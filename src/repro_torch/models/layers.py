@@ -1,17 +1,19 @@
-"""Building blocks of the served models, as ``init_<layer>`` /
+"""Building blocks of the decoder-only models, as ``init_<layer>`` /
 ``<layer>(params, cfg, x, ...)`` pairs over plain parameter dicts.
 
-The parts of the reference's ``repro/models/layers.py`` that the served
-cascade, the dense decode path and the hybrid run: RMSNorm, RoPE, GQA
-self-attention (with ``qkv_bias``, the structural sliding window and the
-KV cache of prefill and decode), the SwiGLU / GELU MLP, the Mamba block
-(chunked selective scan with carried state), and the xLSTM mLSTM
-(chunkwise) and sLSTM (sequential) cells. Parameter
+The parts of the reference's ``repro/models/layers.py`` that its
+decoder-only families run: RMSNorm, RoPE, GQA self-attention (with
+``qkv_bias``, the structural sliding window and the KV cache of prefill
+and decode), DeepSeek's MLA (the expanded form for scoring and prefill,
+the absorbed form over the latent cache for decode), the SwiGLU / GELU
+MLP, the top-k MoE with static capacity and its switch-style aux loss,
+the Mamba block (chunked selective scan with carried state), and the
+xLSTM mLSTM (chunkwise) and sLSTM (sequential) cells. Parameter
 names, shapes and layouts are the reference's, so a JAX parameter tree
 converts one to one (:mod:`repro_torch.convert`). Norms, attention and
-the selective scan go through :mod:`repro_torch.kernels.ops`; the xLSTM
-cells are plain torch (the reference has no Pallas kernel for them
-either).
+the selective scan go through :mod:`repro_torch.kernels.ops`; the MoE's
+expert products, MLA's absorbed decode and the xLSTM cells are plain
+torch (the reference has no Pallas kernel for them either).
 """
 
 from __future__ import annotations
@@ -33,8 +35,9 @@ def _dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                 scale: Optional[float] = None) -> torch.Tensor:
     fan_in = shape[0] if len(shape) >= 1 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    return (torch.randn(shape, generator=gen, device=device)
-            * scale).to(dtype)
+    # scaled in place: an expert stack of DeepSeek-V3 is 15 GB in f32
+    return torch.randn(shape, generator=gen, device=device).mul_(
+        scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -164,17 +167,135 @@ def attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): compressed-latent KV attention
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig,
+             device: torch.device) -> Params:
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope_d, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, \
+        cfg.v_head_dim
+    pd = cfg.pdtype
+    return {
+        "wq_a": _dense_init(gen, (d, qr), pd, device),
+        "q_norm": torch.ones(qr, dtype=pd, device=device),
+        "wq_b": _dense_init(gen, (qr, h, nope + rope_d), pd, device),
+        "wkv_a": _dense_init(gen, (d, kr + rope_d), pd, device),
+        "kv_norm": torch.ones(kr, dtype=pd, device=device),
+        "wkv_b_k": _dense_init(gen, (kr, h, nope), pd, device),
+        "wkv_b_v": _dense_init(gen, (kr, h, vd), pd, device),
+        "wo": _dense_init(gen, (h, vd, d), pd, device,
+                          scale=1.0 / math.sqrt(h * vd)),
+    }
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """The latent norms of MLA, plain as in the reference: f32 statistics,
+    cast back before the scale."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def _mla_qc(params: Params, cfg: ArchConfig, x: torch.Tensor,
+            positions: torch.Tensor):
+    """MLA's shared projections: per-head q (no-RoPE part, RoPE'd part)
+    and the latent kv (c_kv, and the one RoPE'd key all heads share)."""
+    cd = cfg.cdtype
+    nope, kr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    q_lat = torch.einsum("bsd,dr->bsr", x, params["wq_a"].to(cd))
+    q_lat = _rms(q_lat, params["q_norm"].to(cd), cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, params["wq_b"].to(cd))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = torch.einsum("bsd,dr->bsr", x, params["wkv_a"].to(cd))
+    c_kv, k_rope = kv[..., :kr], kv[..., kr:]
+    c_kv = _rms(c_kv, params["kv_norm"].to(cd), cfg.norm_eps)
+    k_rope = apply_rope(k_rope[..., None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope[..., 0, :]
+
+
+def mla_attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                  positions: torch.Tensor, kind: str = "causal",
+                  cache: Optional[Params] = None,
+                  cache_pos: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Multi-head latent attention over x (B,S,d). Returns (output,
+    cache or None).
+
+    Scoring and prefill take the expanded form: the latent becomes
+    per-head K (the no-RoPE part, then the RoPE'd key all heads share)
+    of ``qk_nope + qk_rope`` dims and V of ``v_head_dim``, and attention
+    runs through :func:`ops.attention` (on CUDA the flash kernel, at
+    D 192 and Dv 128 for DeepSeek-V3). With ``cache`` (dict c_kv
+    (B,Smax,kv_lora), k_rope (B,Smax,qk_rope)) and ``cache_pos`` None,
+    the prompt's latents are written at slot 0.
+
+    With ``cache_pos`` an int, a decode step in the absorbed form: the
+    new latents go to slot ``cache_pos`` clamped to ``Smax - S`` (the
+    reference's ``dynamic_update_slice`` clamps so), ``W_UK`` is folded
+    into q, and scores, softmax and ``W_UV`` run over the latent cache's
+    slots ``<= cache_pos``, never expanding per-head K/V. Plain torch,
+    as the reference's is plain jnp. The cache is written in place, as
+    :func:`attention`'s is, and returned."""
+    cd = cfg.cdtype
+    scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(params, cfg, x, positions)
+
+    if cache is not None and cache_pos is not None:
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        smax, s = cc.shape[1], x.shape[1]
+        slot = max(0, min(cache_pos, smax - s))
+        cc[:, slot:slot + s] = c_kv.to(cc.dtype)
+        cr[:, slot:slot + s] = k_rope.to(cr.dtype)
+        ccf, crf = cc.to(cd), cr.to(cd)
+        # absorb W_UK into q: (B,S,H,nope) x (kr,H,nope) -> (B,S,H,kr)
+        q_abs = torch.einsum("bshn,rhn->bshr", q_nope,
+                             params["wkv_b_k"].to(cd))
+        scores = (torch.einsum("bshr,btr->bhst", q_abs, ccf)
+                  + torch.einsum("bshr,btr->bhst", q_rope, crf)) * scale
+        valid = torch.arange(smax, device=x.device) <= cache_pos
+        scores = scores.masked_fill(~valid, float("-inf"))
+        w = torch.softmax(scores.float(), dim=-1).to(cd)
+        out_lat = torch.einsum("bhst,btr->bshr", w, ccf)
+        out = torch.einsum("bshr,rhv->bshv", out_lat,
+                           params["wkv_b_v"].to(cd))
+        return torch.einsum("bshv,hvd->bsd", out,
+                            params["wo"].to(cd)), cache
+
+    k_nope = torch.einsum("btr,rhn->bthn", c_kv, params["wkv_b_k"].to(cd))
+    v = torch.einsum("btr,rhv->bthv", c_kv, params["wkv_b_v"].to(cd))
+    k_rope_b = k_rope[:, :, None, :].expand(*k_nope.shape[:3],
+                                            k_rope.shape[-1])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    out = ops.attention(q, k, v, None, cd, kind=kind)
+    if cache is not None:
+        s, smax = c_kv.shape[1], cache["c_kv"].shape[1]
+        if s > smax:
+            raise ValueError(f"MLA cache too small: smax={smax} < prompt "
+                             f"length {s}")
+        cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, :s] = k_rope.to(cache["k_rope"].dtype)
+    return torch.einsum("bshv,hvd->bsd", out, params["wo"].to(cd)), cache
+
+
+# ---------------------------------------------------------------------------
 # Dense MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: ArchConfig,
-             device: torch.device) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def init_mlp(gen: torch.Generator, cfg: ArchConfig, device: torch.device,
+             d_ff: Optional[int] = None,
+             gated: Optional[bool] = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    gated = (cfg.act == "swiglu") if gated is None else gated
     p = {
         "wu": _dense_init(gen, (d, f), cfg.pdtype, device),
         "wd": _dense_init(gen, (f, d), cfg.pdtype, device),
     }
-    if cfg.act == "swiglu":
+    if gated:
         p["wg"] = _dense_init(gen, (d, f), cfg.pdtype, device)
     return p
 
@@ -188,6 +309,116 @@ def mlp(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     else:               # non-gated gelu (jax.nn.gelu's tanh form)
         h = F.gelu(u, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, params["wd"].to(cd))
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routed experts with static capacity
+# ---------------------------------------------------------------------------
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig,
+             device: torch.device) -> Params:
+    d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    p = {
+        "router": _dense_init(gen, (d, e), torch.float32, device),  # f32
+        "wg": _dense_init(gen, (e, d, f), cfg.pdtype, device),
+        "wu": _dense_init(gen, (e, d, f), cfg.pdtype, device),
+        "wd": _dense_init(gen, (e, f, d), cfg.pdtype, device),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, device, gated=True,
+                               d_ff=cfg.moe_d_ff * cfg.num_shared_experts)
+    return p
+
+
+def moe_capacity(cfg: ArchConfig, t: int) -> int:
+    """Slots an expert holds for a group of ``t`` tokens:
+    ``ceil(t k / E * capacity_factor)``, and at least ``t`` when
+    ``t <= 64`` (an expert takes a token at most once, so that floor
+    makes small groups, decode steps among them, drop-free). A host int
+    from shapes alone: routing reads no device value, so a forward
+    stays one CUDA graph."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    capacity = max(1, int(math.ceil(t * k / e * cfg.capacity_factor)))
+    return max(capacity, t) if t <= 64 else capacity
+
+
+def _moe_tokens(params: Params, cfg: ArchConfig, xt: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route one token group (t, d) through the experts; returns (out
+    (t, d), aux). The reference's sort-based dispatch: f32 router,
+    softmax top-k renormalised, each assignment's slot in its expert from
+    a stable argsort of the expert ids, the assignments past an expert's
+    capacity dropped, the kept ones gathered into an ``(E, C, D)``
+    buffer, the experts' SwiGLU as batched products, and the outputs
+    combined with the routing weights, plus the shared expert."""
+    t, d = xt.shape
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    cd, dev = cfg.cdtype, xt.device
+
+    logits = xt.float() @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_i = torch.topk(probs, k, dim=-1)                  # (t,k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_i.reshape(-1)                                   # (t*k,)
+    # the switch-style load-balance loss; counts by index_add, which
+    # (unlike bincount) reads no device value
+    counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, flat_e, torch.ones(t * k, dtype=torch.float32, device=dev))
+    aux = e * torch.sum(probs.mean(dim=0) * (counts / (t * k))) \
+        * cfg.router_aux_weight
+
+    capacity = moe_capacity(cfg, t)
+    # slot of each assignment within its expert (stable sort)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
+    pos = torch.empty_like(flat_e)
+    pos[order] = torch.arange(t * k, device=dev) - starts[sorted_e]
+    keep = pos < capacity
+
+    # the kept assignments into (E, C, D); a dropped one adds zeros to
+    # the last slot, as the reference's scatter does, so every slot's
+    # sum is exact in any order
+    tok_idx = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
+    src = torch.where(keep[:, None], xt[tok_idx].to(cd), 0.0)
+    slot = torch.where(keep, flat_e * capacity + pos, e * capacity - 1)
+    buf = torch.zeros((e * capacity, d), dtype=cd, device=dev).index_add_(
+        0, slot, src).view(e, capacity, d)
+
+    g = torch.einsum("ecd,edf->ecf", buf, params["wg"].to(cd))
+    u = torch.einsum("ecd,edf->ecf", buf, params["wu"].to(cd))
+    y = torch.einsum("ecf,efd->ecd", F.silu(g) * u, params["wd"].to(cd))
+
+    # gather back; the k outputs of a token sit side by side
+    out_tk = torch.where(keep[:, None], y.reshape(e * capacity, d)[slot],
+                         0.0)
+    w = top_w.reshape(-1).to(cd)
+    out = (out_tk * w[:, None]).view(t, k, d).sum(dim=1)
+    if "shared" in params:
+        out = out + mlp(params["shared"], cfg, xt[None]).reshape(t, d)
+    return out, aux.float()
+
+
+def moe(params: Params, cfg: ArchConfig, x: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with static capacity; returns (out, aux).
+
+    With ``cfg.moe_groups > 1`` and the tokens dividing into that many
+    groups, each group routes on its own (group-limited capacity) and
+    the aux is the mean over groups. The reference vmaps or maps the
+    groups by the size of the expert hidden; both compute this, so the
+    groups go in a loop, which keeps one group's buffers live."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    g = cfg.moe_groups
+    if g > 1 and t % g == 0:
+        outs, auxes = zip(*(_moe_tokens(params, cfg, xg)
+                            for xg in xt.view(g, t // g, d)))
+        return torch.cat(outs).view(b, s, d), torch.stack(auxes).mean()
+    out, aux = _moe_tokens(params, cfg, xt)
+    return out.view(b, s, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Model assembly for the served families: init, the scoring forward and
-the decode path, driven by ``ArchConfig``.
+"""Model assembly for the decoder-only families: init, the scoring
+forward and the decode path, driven by ``ArchConfig``.
 
 The counterpart of the reference's ``repro/models/model.py`` for the
-dense-attention, hybrid (Mamba + attention, dense FFNs) and xLSTM
-families. Parameters keep the reference's tree:
+dense-attention, MoE, MLA (with DeepSeek's multi-token prediction),
+hybrid (Mamba + attention) and xLSTM families. Parameters keep the
+reference's tree:
 ``segments`` is a tuple over segments of a tuple over the pattern's
 blocks, each a dict whose tensors carry a leading ``repeat`` axis; the
 forward walks that axis with a Python loop where the reference scans.
@@ -14,11 +15,15 @@ Entry points:
   build_model(cfg, device)                    -> Model
   Model.init(generator)                       -> params
   Model.forward(params, batch)                -> (logits (B,S,V) f32, aux)
+                                                 aux: the MoE routers' loss
+                                                 plus the MTP loss
   Model.prefill(params, batch, smax)          -> (last logits (B,1,V), cache)
   Model.decode_step(params, token, pos, cache) -> (logits (B,1,V), cache)
 
-Dense-attention and Mamba/hybrid stacks decode; an xLSTM stack's
-recurrent-state decode arrives with its own slice.
+Dense-attention, MLA, MoE and Mamba/hybrid stacks decode; an xLSTM
+stack's recurrent-state decode arrives with its own slice, the
+encoder-decoder and image models with theirs, ``Model.loss`` with
+training.
 """
 
 from __future__ import annotations
@@ -34,23 +39,27 @@ from repro_torch.models.config import ArchConfig, Block, Segment
 from repro_torch.models.kvcache import init_cache
 
 Params = Dict[str, Any]
+MTP_BLOCK = Block("attn", "dense")   # DeepSeek's MTP module is one layer
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The port serves dense attention, Mamba/hybrid and xLSTM stacks with
-    dense FFNs; MoE, MLA, encoder-decoder and image models arrive with
-    their slices."""
-    if cfg.use_mla or cfg.is_encoder_decoder or cfg.num_image_tokens \
-            or cfg.mtp_depth:
+    """The port builds every decoder-only family; encoder-decoder and
+    image models arrive with their slice."""
+    if cfg.is_encoder_decoder or cfg.num_image_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: MLA, encoder-decoder, image and MTP models "
-            f"arrive with their family slices")
-    for seg in cfg.segments:
-        for blk in seg.blocks:
-            if blk.ffn == "moe":
-                raise NotImplementedError(
-                    f"{cfg.name}: {blk.kind}/{blk.ffn} blocks arrive with "
-                    f"the MoE slice")
+            f"{cfg.name}: encoder-decoder and image models arrive with "
+            f"their family slice")
+
+
+def _cross_entropy(logits: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """Per-token cross entropy in f32, the reference's ``lse - logit``
+    with the max subtracted."""
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
+    return lse - tgt
 
 
 def _index(tree, i: int):
@@ -68,7 +77,8 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, block: Block,
                 device: torch.device) -> Params:
     p: Params = {"norm1": L.init_rmsnorm(cfg, device)}
     if block.kind == "attn":
-        p["core"] = L.init_attention(gen, cfg, device)
+        p["core"] = L.init_mla(gen, cfg, device) if cfg.use_mla \
+            else L.init_attention(gen, cfg, device)
     elif block.kind == "mamba":
         p["core"] = L.init_mamba(gen, cfg, device)
     elif block.kind == "mlstm":
@@ -78,19 +88,25 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, block: Block,
     if block.ffn == "dense":
         p["norm2"] = L.init_rmsnorm(cfg, device)
         p["ffn"] = L.init_mlp(gen, cfg, device)
+    elif block.ffn == "moe":
+        p["norm2"] = L.init_rmsnorm(cfg, device)
+        p["ffn"] = L.init_moe(gen, cfg, device)
     return p
 
 
 def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
                  positions: torch.Tensor, mask_kind: Optional[str],
                  cache: Optional[Params] = None,
-                 cache_pos: Optional[int] = None) -> torch.Tensor:
-    """One block; an attention or Mamba block with ``cache`` writes it in
-    place."""
+                 cache_pos: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One block; returns (x, the MoE router's aux loss or None). An
+    attention or Mamba block with ``cache`` writes it in place."""
+    aux = None
     h = L.rmsnorm(p["norm1"], cfg, x)
     if block.kind == "attn":
-        out, _ = L.attention(p["core"], cfg, h, positions, kind=mask_kind,
-                             cache=cache, cache_pos=cache_pos)
+        attend = L.mla_attention if cfg.use_mla else L.attention
+        out, _ = attend(p["core"], cfg, h, positions, kind=mask_kind,
+                        cache=cache, cache_pos=cache_pos)
     elif block.kind == "mamba":
         out = L.mamba_block(p["core"], cfg, h, cache)
     elif block.kind == "mlstm":
@@ -101,7 +117,11 @@ def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
     if block.ffn == "dense":
         h = L.rmsnorm(p["norm2"], cfg, x)
         x = x + L.mlp(p["ffn"], cfg, h)
-    return x
+    elif block.ffn == "moe":
+        h = L.rmsnorm(p["norm2"], cfg, x)
+        out, aux = L.moe(p["ffn"], cfg, h)
+        x = x + out
+    return x, aux
 
 
 def _init_segment(gen: torch.Generator, cfg: ArchConfig, seg: Segment,
@@ -115,24 +135,37 @@ def _init_segment(gen: torch.Generator, cfg: ArchConfig, seg: Segment,
 
 
 def _stack(layers):
+    """Stack the layers' trees leaf by leaf, dropping each layer's leaf
+    as it is stacked, so that at most one leaf is held twice (DeepSeek's
+    expert stacks are 15 GB each). One layer is a view, not a copy."""
     if isinstance(layers[0], dict):
-        return {k: _stack([lay[k] for lay in layers]) for k in layers[0]}
-    return torch.stack(layers)
+        return {k: _stack([lay.pop(k) for lay in layers])
+                for k in list(layers[0])}
+    if len(layers) == 1:
+        return layers.pop().unsqueeze(0)
+    out = torch.stack(layers)
+    layers.clear()
+    return out
 
 
 def _run_segment(params_stack, cfg: ArchConfig, seg: Segment,
                  x: torch.Tensor, positions: torch.Tensor,
                  mask_kind: Optional[str], cache_stack=None,
-                 cache_pos: Optional[int] = None) -> torch.Tensor:
+                 cache_pos: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Python loop over the repeat axis (the reference scans it). Layer r
-    of block bi gets the views ``cache_stack[bi][...][r]``."""
+    of block bi gets the views ``cache_stack[bi][...][r]``. Returns (x,
+    the sum of the MoE blocks' aux losses, or None without MoE)."""
+    aux = None
     for r in range(seg.repeat):
         for bi, block in enumerate(seg.blocks):
             cache = None if cache_stack is None \
                 else _index(cache_stack[bi], r)
-            x = _apply_block(_index(params_stack[bi], r), cfg, block, x,
-                             positions, mask_kind, cache, cache_pos)
-    return x
+            x, a = _apply_block(_index(params_stack[bi], r), cfg, block, x,
+                                positions, mask_kind, cache, cache_pos)
+            if a is not None:
+                aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _check_decodes(cfg: ArchConfig) -> None:
@@ -175,30 +208,63 @@ class Model:
             p["unembed"] = (torch.randn((cfg.d_model, cfg.vocab_size),
                                         generator=generator, device=dev)
                             * 0.02).to(cfg.pdtype)
+        if cfg.mtp_depth:
+            p["mtp"] = {
+                "proj": (torch.randn((2 * cfg.d_model, cfg.d_model),
+                                     generator=generator, device=dev)
+                         * 0.02).to(cfg.pdtype),
+                "block": _init_block(generator, cfg, MTP_BLOCK, dev),
+                "norm": L.init_rmsnorm(cfg, dev),
+            }
         return p
 
     def _embed_inputs(self, params: Params,
                       batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return params["embed"].to(self.cfg.cdtype)[batch["tokens"]]
 
-    def _head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, params: Params, x: torch.Tensor,
+              norm: Optional[Params] = None) -> torch.Tensor:
         cfg = self.cfg
-        x = L.rmsnorm(params["final_norm"], cfg, x)
+        x = L.rmsnorm(params["final_norm"] if norm is None else norm, cfg,
+                      x)
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return torch.einsum("bsd,dv->bsv", x, w.to(cfg.cdtype)).float()
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Scoring forward over ``batch["tokens"]`` (B,S) int. Returns
-        (logits (B,S,V) f32, aux); aux is 0 for the served families (no
-        MoE router loss)."""
+        (logits (B,S,V) f32, aux): aux sums the MoE routers' losses and,
+        for a config with MTP, the MTP loss unless ``batch["enable_mtp"]
+        is False``; it is 0 for the other families."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for seg, ps in zip(cfg.segments, params["segments"]):
-            x = _run_segment(ps, cfg, seg, x, positions, "causal")
+            x, a = _run_segment(ps, cfg, seg, x, positions, "causal")
+            if a is not None:
+                aux = aux + a
         logits = self._head(params, x)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.mtp_depth and batch.get("enable_mtp", True) is not False:
+            aux = aux + self._mtp_loss(params, x, batch["tokens"])
+        return logits, aux
+
+    def _mtp_loss(self, params: Params, h: torch.Tensor,
+                  tokens: torch.Tensor) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction (depth 1): from h_i and
+        emb(t_{i+1}) predict t_{i+2}; 0.1 x the mean cross entropy."""
+        cfg = self.cfg
+        if tokens.shape[1] < 3:
+            return torch.zeros((), dtype=torch.float32, device=h.device)
+        mtp = params["mtp"]
+        emb_next = params["embed"].to(cfg.cdtype)[tokens[:, 1:]]
+        hcat = torch.cat([h[:, :-1], emb_next], dim=-1)
+        x = torch.einsum("bsd,de->bse", hcat, mtp["proj"].to(cfg.cdtype))
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, _ = _apply_block(mtp["block"], cfg, MTP_BLOCK, x, positions,
+                            "causal")
+        logits = self._head(params, x, norm=mtp["norm"])
+        return 0.1 * _cross_entropy(logits[:, :-1], tokens[:, 2:]).mean()
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 smax: int) -> Tuple[torch.Tensor, Any]:
@@ -211,8 +277,8 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         cache, cross = init_cache(cfg, x.shape[0], smax, device=x.device)
         for seg, ps, cs in zip(cfg.segments, params["segments"], cache):
-            x = _run_segment(ps, cfg, seg, x, positions, "causal",
-                             cache_stack=cs)
+            x, _ = _run_segment(ps, cfg, seg, x, positions, "causal",
+                                cache_stack=cs)
         # the kernels take contiguous rows: the last position's is a copy
         return self._head(params, x[:, -1:].contiguous()), (cache, cross)
 
@@ -228,8 +294,8 @@ class Model:
         x = self._embed_inputs(params, {"tokens": token})
         positions = torch.full((1, 1), pos, device=x.device)
         for seg, ps, cs in zip(cfg.segments, params["segments"], cache):
-            x = _run_segment(ps, cfg, seg, x, positions, "decode",
-                             cache_stack=cs, cache_pos=pos)
+            x, _ = _run_segment(ps, cfg, seg, x, positions, "decode",
+                                cache_stack=cs, cache_pos=pos)
         return self._head(params, x), (cache, cross)
 
 

@@ -101,6 +101,12 @@ def test_rmsnorm_kernel_matches_plain(gen, rows, d, dtype):
     (2, 33, 33, 4, 2, 32, 64, False, 0),       # D != Dv, full
     (8, 512, 512, 32, 8, 64, 64, True, 0),     # llama3.2-1b prefill
     (8, 512, 512, 64, 8, 128, 128, True, 0),   # the hybrid's prefill
+    # DeepSeek-V3's MLA: D 192 (128 + 64 RoPE dims), Dv 128, G 1 at H 128
+    (8, 32, 32, 128, 128, 192, 128, True, 0),  # scoring
+    (2, 512, 512, 128, 128, 192, 128, True, 0),  # prefill
+    (2, 77, 200, 128, 128, 192, 128, True, 0),   # ragged, Sq < Sk
+    (1, 64, 64, 8, 8, 192, 128, False, 0),     # full
+    (2, 40, 40, 16, 4, 136, 64, True, 0),      # D in (128, 192], G 4
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(gen, b, sq, sk, h, kv, d, dv, causal,
@@ -149,9 +155,12 @@ def test_kernels_reject_what_they_do_not_take(gen):
         rms_mod.rmsnorm(x, x[0])
     with pytest.raises(TypeError):
         rms_mod.rmsnorm(x.double(), x[0].double())
-    q = _rand(gen, (1, 8, 2, 192), torch.float32)
+    q = _rand(gen, (1, 8, 2, 200), torch.float32)
     with pytest.raises(ValueError, match="head dims"):
         fa_mod.flash_attention(q, q, q)
+    q = _rand(gen, (1, 8, 2, 136), torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        fa_mod.flash_attention(q, q, q)     # Dv 136
     q = _rand(gen, (1, 8, 2, 16), torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         fa_mod.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
@@ -529,6 +538,39 @@ def test_two_threads_replay_one_stage_at_once(smoke_stages, arch):
     assert not any(t.is_alive() for t in threads)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def moe_stage():
+    """granite-moe at smoke size, every bucket captured: routing, its
+    capacity and the dispatch run inside the graphs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    st = make_stage("granite-moe-1b-a400m", "cuda", full=False, seed=0)
+    st.warmup()
+    return st
+
+
+@pytest.mark.parametrize("b", BUCKETS)
+def test_moe_stage_replay_equals_the_eager_forward(moe_stage, b):
+    st = moe_stage
+    assert sorted(st.graphs) == list(BUCKETS)
+    rows = _rows(st, b, 50 + b)
+    before = _counts()
+    out = np.stack(st.run_batch(list(rows)))
+    replayed = [a - c for a, c in zip(_counts(), before)]
+    with torch.inference_mode():
+        before = _counts()
+        exp, aux = st.model.forward(st.params, {"tokens": torch.from_numpy(
+            rows).cuda()})
+        eager = [a - c for a, c in zip(_counts(), before)]
+    assert replayed == eager and eager[0] > 0 and float(aux) > 0
+    torch.testing.assert_close(st.graphs[b].logits, exp, atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(out[:, :-1], rows[:, 1:])
+    np.testing.assert_array_equal(out[:, -1],
+                                  exp[:, -1].argmax(-1).cpu().numpy())
 
 
 def test_a_failed_capture_raises(gen, monkeypatch):

@@ -147,7 +147,9 @@ def _flash_tf32(q, k, v, causal, window, passes):
 
 @pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", FLASH_CASES
                          + [pytest.param(1, 128, 128, 8, 2, 128, 128, True,
-                                         0, id="hybrid-d128")])
+                                         0, id="hybrid-d128"),
+                            pytest.param(1, 64, 64, 4, 4, 192, 128, True, 0,
+                                         id="mla-d192-dv128")])
 def test_flash_3xtf32_split_meets_the_f32_bar(b, sq, sk, h, kv, d, dv,
                                              causal, window):
     """Why the f32 kernel takes three TF32 passes per product: the split

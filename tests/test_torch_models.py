@@ -113,15 +113,31 @@ def test_params_from_numpy_keeps_bfloat16_bits():
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_mla=True),
     dict(num_image_tokens=4),
-    dict(segments=(Segment((Block("attn", "moe"),), 1),)),
     dict(encoder_segments=(Segment((Block("attn", "dense"),), 1),)),
-], ids=["mla", "vlm", "moe", "encoder-decoder"])
+], ids=["vlm", "encoder-decoder"])
 def test_families_of_later_slices_raise(change):
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **change)
     with pytest.raises(NotImplementedError):
         build_model(cfg, "cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(use_mla=True),
+    dict(segments=(Segment((Block("attn", "moe"),), 1),), num_experts=4,
+         num_experts_per_tok=2, moe_d_ff=128),
+], ids=["mla", "moe"])
+def test_families_ported_since_build_and_run(change):
+    """MLA and MoE layers, once refused, now build and score on the CPU
+    (their parity with the reference: tests/test_torch_families.py)."""
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **change)
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    logits, aux = model.forward(params, {"tokens": torch.zeros(
+        (2, 8), dtype=torch.long)})
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+    assert (float(aux) > 0) == bool(cfg.num_experts)
 
 
 @pytest.mark.parametrize("device", [None, "cuda"])
