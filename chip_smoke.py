@@ -102,7 +102,23 @@ Phases, in order; any failure exits non-zero:
    decode check runs with every expert's capacity at its group's token
    count (drop-free, as a decode step is), since a prefill at capacity
    1.25 drops the assignments that come last in the batch's order, and
-   a dropped token's logits are by design not a decode step's.
+   a dropped token's logits are by design not a decode step's;
+9. the planner's device sweep (the reference's ``bench_planner_scale
+   --backend jax``) through the FIFO fill kernel ``sim_fill``: (a) the
+   kernel held bit for bit against its plain version on the card and
+   the numpy fill, static pools at eff 1 / 8 / 128 and 1 / 3 / 16 / 512
+   replicas with and without a timeout on 4096-query queues in three
+   load regimes, ties, +inf arrivals and one query, and dynamic pools
+   with scale-up and scale-down events; then, with every counter zeroed
+   before and read after, (b) the 1200-candidate sink sweep on an hour
+   of bursty image-processing traffic with numpy and with torch (cold,
+   warm), equal with ``==``, its wall times and the torch run's split
+   (inputs, fill, completions to the host, host tail), and (c) Planner
+   and BeamPlanner plans on the four motifs, numpy against torch with
+   the grid's thresholds as they are and with every grid sent to the
+   card; then the kernel's device time and its plain version's at the
+   sweep's shape, and (d) one fill, numpy against the kernel forced on,
+   at 4096, 32768 and 262144 queries.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -134,6 +150,7 @@ from repro_torch.core.hardware import (  # noqa: E402
     H100_HBM_BW,
     H100_PEAK_FLOPS_BF16,
     H100_PEAK_FLOPS_F32,
+    H100_PEAK_FLOPS_F64,
     H100_PEAK_FLOPS_TF32,
     get_hardware,
 )
@@ -143,7 +160,7 @@ from repro_torch.core.pipeline import (  # noqa: E402
     StageConfig,
     linear_pipeline,
 )
-from repro_torch.core.planner import Planner  # noqa: E402
+from repro_torch.core.planner import BeamPlanner, Planner  # noqa: E402
 from repro_torch.core.profiler import (  # noqa: E402
     ProfileStore,
     profile_model_measured,
@@ -155,11 +172,13 @@ from repro_torch.core.tuner import (  # noqa: E402
 )
 from repro_torch.faults import FaultSchedule, RecoveryPolicy, crash  # noqa: E402
 from repro_torch.configs import get_arch, get_smoke, without_experts  # noqa: E402
+from repro_torch.configs.pipelines import MOTIFS, get_motif  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
+from repro_torch.kernels import sim_fill  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.config import dense_segments  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -171,7 +190,13 @@ from repro_torch.serving import (  # noqa: E402
     make_stage,
     worker_counts,
 )
-from repro_torch.sim import ControlLoopSession, NoOpController  # noqa: E402
+from repro_torch.sim import (  # noqa: E402
+    ControlLoopSession,
+    NoOpController,
+    SimEngine,
+    simulate_stage,
+)
+from repro_torch.sim import torch_backend  # noqa: E402
 from repro_torch.workload import gamma_trace  # noqa: E402
 
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
@@ -208,6 +233,20 @@ DEEPSEEK = "deepseek-v3-671b"
 DEPTH_CUTS = (("granite-34b", 8), ("qwen2-72b", 4))
 FAMILY_STEPS = 16
 DROP_FREE_GROUPS = 2 * DECODE_BATCH     # MoE groups of a decode check
+# phase 9: the reference's device-planner benchmark
+# (benchmarks/bench_planner_scale.py --backend jax): the sweep's motif,
+# trace and grid, the plans' trace and SLOs, the crossover's lengths,
+# and the queries of the reference's sweep trace (its artifact)
+SWEEP_MOTIF = "image-processing"
+SWEEP_TRACE = dict(lam=30.0, cv=4.0, duration_s=3600.0, seed=11)
+SWEEP_QUERIES_REF = 107487
+SWEEP_HW = ("tpu-v5e-16", "tpu-v5e-8", "tpu-v5e-4")
+SWEEP_BATCHES = (1, 2, 4, 8, 16)
+SWEEP_REPLICAS = tuple(range(1, 17))
+SWEEP_TIMEOUTS = (0.0, 0.005, 0.01, 0.025, 0.05)
+PLAN_TRACE = dict(lam=200.0, cv=4.0, duration_s=60.0, seed=10)
+CROSSOVER_K = (4096, 32768, 262144)
+FILL_K = 4096                   # phase 9a's queues
 COUNTERS = {"rmsnorm": rms_mod.counter, "flash_attention": fa_mod.counter,
             "decode_attention": da_mod.counter,
             "mamba_scan": ms_mod.counter}
@@ -2425,6 +2464,353 @@ def depth_cuts() -> dict:
     return total
 
 
+# ---------------------------------------------------------------- phase 9
+def fill_queue(regime: str, k: int, seed: int = 7) -> np.ndarray:
+    """The three load regimes of the reference's fill benchmark
+    (``bench_planner_scale._bench_fill_kernel``: underloaded with tie
+    runs, calm/burst mixed, one saturating burst), at ``k`` queries."""
+    rng = np.random.default_rng(seed)
+    if regime == "underloaded":
+        gaps = rng.exponential(1 / 140.0, k)
+        gaps[rng.random(k) < 0.2] = 0.0
+        return np.cumsum(gaps)
+    if regime == "mixed":
+        return np.cumsum(np.where(rng.random(k) < 0.5,
+                                  rng.exponential(1 / 600.0, k),
+                                  rng.exponential(1 / 60.0, k)))
+    return np.zeros(k)
+
+
+def fill_lut(max_batch: int) -> np.ndarray:
+    """The benchmark's LUT, 4 ms + 0.5 ms a query, to ``max_batch``."""
+    return np.array([0.0] + [0.004 + 0.0005 * b
+                             for b in range(1, max_batch + 1)])
+
+
+# eff 1 / 8 / 128 x replicas 1 / 3 / 16 / 512, without and with a timeout
+FILL_LANES = [(e, r, t) for e in (1, 8, 128) for r in (1, 3, 16, 512)
+              for t in (0.0, 0.005)]
+
+
+def hold_static(label: str, ready: np.ndarray, lanes) -> None:
+    """One launch of the grid kernel over ``lanes`` of (eff, replicas,
+    timeout) on one queue, held bit for bit against the plain version on
+    the card and, lane by lane, against the numpy fill."""
+    effs = [e for e, _, _ in lanes]
+    arrays = torch_backend.lane_inputs(
+        [fill_lut(e) for e in effs], effs, [r for _, r, _ in lanes],
+        [t for _, _, t in lanes])
+    pad = np.concatenate([ready, np.full(max(effs), np.inf)])
+    pad, luts, eff, tmo, pools = (torch.from_numpy(a).cuda()
+                                  for a in (pad, *arrays))
+    k = ready.size
+    done, batches, nb = sim_fill.fill_static(pad, k, luts, eff, tmo,
+                                             pools.clone(), True)
+    p_done, p_batches, p_nb = sim_fill.fill_static_ref(
+        pad, k, luts, eff, tmo, pools.clone(), True)
+    torch.cuda.synchronize()
+    # a row of batch sizes holds its lane's n_batches; the rest is unset
+    if not (torch.equal(done, p_done) and torch.equal(nb, p_nb) and all(
+            torch.equal(batches[i, :n], p_batches[i, :n])
+            for i, n in enumerate(nb.tolist()))):
+        raise RuntimeError(f"sim_fill differs from its plain version: "
+                           f"{label}")
+    done_h, batches_h, nb_h = (t.cpu().numpy() for t in (done, batches, nb))
+    for i, (e, r, t) in enumerate(lanes):
+        want_done, want_batches, _ = simulate_stage(
+            "fifo", ready, fill_lut(e), e, r, None, t)
+        if not (np.array_equal(done_h[i], want_done) and np.array_equal(
+                batches_h[i, :nb_h[i]], want_batches)):
+            raise RuntimeError(f"sim_fill differs from the numpy fill: "
+                               f"{label}, eff {e}, {r} replicas, timeout {t}")
+    log(f"  {label}: {len(lanes)} lanes, k={k}, one launch: bit-equal to "
+        f"the plain version and the numpy fill (batches a lane "
+        f"{int(nb_h.min())}-{int(nb_h.max())})")
+
+
+def check_fills() -> None:
+    """Phase 9a: the kernel against its plain version and the numpy fill,
+    static and dynamic, at the edges of what the planner gives it."""
+    for regime in ("underloaded", "mixed", "saturated"):
+        hold_static(f"static, {regime}", fill_queue(regime, FILL_K),
+                    FILL_LANES)
+    edge = [(1, 1, 0.0), (8, 3, 0.01), (128, 2, 0.0), (8, 512, 0.005)]
+    hold_static("static, ties", np.sort(np.concatenate(
+        [np.cumsum(np.full(300, 0.002)), np.full(100, 0.3)])), edge)
+    hold_static("static, +inf arrivals", np.concatenate(
+        [np.cumsum(np.full(200, 0.003)), np.full(20, np.inf)]), edge)
+    hold_static("static, k = 1", np.array([0.25]), edge)
+    ready = fill_queue("mixed", FILL_K, seed=3)
+    old = torch_backend._FILL_THRESHOLD
+    torch_backend._FILL_THRESHOLD = 0
+    try:
+        for reps, events, e, t in (
+                (1, [(2.0, 2), (6.0, -1), (9.0, 1)], 8, 0.0),
+                (0, [(1.0, 3)], 128, 0.005),
+                (2, [(3.0, -2)], 8, 0.0),
+                (4, [(0.5, -3), (0.5, 2), (12.0, -2)], 128, 0.0)):
+            got = simulate_stage("fifo", ready, fill_lut(e), e, reps, events,
+                                 t, backend="torch", device="cuda")
+            want = simulate_stage("fifo", ready, fill_lut(e), e, reps,
+                                  events, t)
+            args = torch_backend.dynamic_inputs(
+                ready, fill_lut(e), e, reps, events, t, torch.device("cuda"))
+            copy = [x.clone() if torch.is_tensor(x) else x for x in args]
+            k_done, _, k_n = sim_fill.fill_dynamic(*args)
+            p_done, _, p_n = sim_fill.fill_dynamic_ref(*copy)
+            if not (all(np.array_equal(a, b) for a, b in zip(got, want))
+                    and torch.equal(k_done, p_done)
+                    and torch.equal(k_n, p_n)):
+                raise RuntimeError(f"the dynamic fill differs: {reps} "
+                                   f"replicas, events {events}")
+            log(f"  dynamic, {reps} replicas, events {events}, eff {e}, "
+                f"timeout {t}: bit-equal to the plain version and the numpy "
+                f"fill ({int(k_n[0])} batches)")
+    finally:
+        torch_backend._FILL_THRESHOLD = old
+
+
+def sweep_grid() -> tuple:
+    """The reference's ``_bench_device_grid``: 3 hw x 5 batches x 16
+    replicas x 5 timeouts on the sink of image-processing, over an hour
+    of bursty traffic."""
+    bound = get_motif(SWEEP_MOTIF)
+    pipe = bound.pipeline
+    arr = gamma_trace(SWEEP_TRACE["lam"], SWEEP_TRACE["cv"],
+                      SWEEP_TRACE["duration_s"], seed=SWEEP_TRACE["seed"])
+    stage = pipe.toposort()[-1]
+    base = PipelineConfig({
+        s: StageConfig(pipe.stages[s].hardware_options[0], 4, 4)
+        for s in pipe.stages})
+    grid = []
+    for hw in SWEEP_HW:
+        for batch in SWEEP_BATCHES:
+            for replicas in SWEEP_REPLICAS:
+                for tmo in SWEEP_TIMEOUTS:
+                    cand = base.copy()
+                    cand.stage_configs[stage] = StageConfig(
+                        hw, batch, replicas, timeout_s=tmo)
+                    grid.append(cand)
+    return bound, arr, stage, grid
+
+
+def split_line(label: str, split: dict) -> None:
+    log(f"  {label}: {split['launches']} launch(es) of {split['lanes']} "
+        f"lanes x {split['queries']} queries; inputs to the card "
+        f"{split['upload_s'] * 1e3:.1f} ms, fill {split['fill_s'] * 1e3:.1f}"
+        f" ms, completions to the host {split['copy_s'] * 1e3:.1f} ms, host "
+        f"tail {split['tail_s'] * 1e3:.1f} ms")
+
+
+def device_sweep() -> tuple:
+    """Phase 9b: the 1200-candidate sweep with ``"numpy"`` and with
+    ``"torch"`` (cold, then warm), equal with ``==``. Returns the warm
+    run's kernel inputs (the pools a copy taken before the launch)."""
+    bound, arr, stage, grid = sweep_grid()
+    log(f"  {SWEEP_MOTIF}, sink {stage!r}: {arr.size} queries (the "
+        f"reference's trace: {SWEEP_QUERIES_REF}), {len(grid)} candidates")
+    engine = SimEngine(bound.pipeline, bound.profiles)
+    t0 = time.perf_counter()
+    host = engine.session(arr).percentile_many(grid, 99.0)
+    t_np = time.perf_counter() - t0
+    sess = engine.session(arr, backend="torch")
+    t0 = time.perf_counter()
+    dev = sess.percentile_many(grid, 99.0)
+    t_cold = time.perf_counter() - t0
+    cold = sess.grid_split
+    captured = []
+    orig = sim_fill.fill_static
+
+    def capture(ready, k, luts, eff, tmo, pools, *rest):
+        captured.append((ready, k, luts, eff, tmo, pools.clone()))
+        return orig(ready, k, luts, eff, tmo, pools, *rest)
+
+    sim_fill.fill_static = capture
+    sess = engine.session(arr, backend="torch")
+    try:
+        t0 = time.perf_counter()
+        dev2 = sess.percentile_many(grid, 99.0)
+        t_warm = time.perf_counter() - t0
+    finally:
+        sim_fill.fill_static = orig
+    warm = sess.grid_split
+    if not (host == dev and host == dev2):
+        raise RuntimeError("the device sweep differs from numpy's")
+    log(f"  p99 of {len(grid)} candidates equal (==) between numpy and "
+        f"torch, cold and warm; numpy {t_np:.2f} s, torch cold "
+        f"{t_cold:.2f} s, warm {t_warm:.2f} s ({t_np / t_warm:.1f}x); the "
+        f"reference's 1-core CPU artifact: numpy 67.3 s, jax warm 13.2 s")
+    split_line("cold", cold)
+    split_line("warm", warm)
+    if len(captured) != 1:
+        raise RuntimeError(f"the warm sweep made {len(captured)} launches")
+    return captured[0]
+
+
+def plan_identity() -> None:
+    """Phase 9c: the reference's ``_bench_plan_identity``: Planner and
+    BeamPlanner(beam_width=4) on every motif, numpy against torch, the
+    same configuration at the same cost; torch twice, with the grid's
+    thresholds as they are and with every grid of two or more
+    candidates sent to the card, so that the plans go through the
+    kernel."""
+    sample = gamma_trace(PLAN_TRACE["lam"], PLAN_TRACE["cv"],
+                         PLAN_TRACE["duration_s"], seed=PLAN_TRACE["seed"])
+    log(f"  sample trace: {sample.size} queries")
+    thresholds = (torch_backend._GRID_MIN_CANDIDATES,
+                  torch_backend._GRID_MIN_QUERIES)
+    runs = (("numpy", "numpy", thresholds), ("torch", "torch", thresholds),
+            ("every grid on the card", "torch", (2, 0)))
+    for motif in MOTIFS:
+        bound = get_motif(motif)
+        slo = 0.25 if motif != "video-monitoring" else 0.3
+        for label in ("greedy", "beam"):
+            res = []
+            for _, be, (min_c, min_q) in runs:
+                kw = {"beam_width": 4} if label == "beam" else {}
+                cls = BeamPlanner if label == "beam" else Planner
+                torch_backend._GRID_MIN_CANDIDATES = min_c
+                torch_backend._GRID_MIN_QUERIES = min_q
+                before = sim_fill.counter.count
+                try:
+                    t0 = time.perf_counter()
+                    plan = cls(bound.pipeline, bound.profiles, backend=be,
+                               **kw).plan(sample, slo)
+                    dt = time.perf_counter() - t0
+                finally:
+                    (torch_backend._GRID_MIN_CANDIDATES,
+                     torch_backend._GRID_MIN_QUERIES) = thresholds
+                res.append((plan, dt, sim_fill.counter.count - before))
+            a = res[0][0]
+            for b, _, _ in res[1:]:
+                if not (a.feasible == b.feasible and (
+                        not a.feasible
+                        or (a.config.cache_key() == b.config.cache_key()
+                            and a.cost_per_hr == b.cost_per_hr))):
+                    raise RuntimeError(f"plans differ: {motif} {label}")
+            log(f"  {motif:16s} {label:6s} slo {slo}: identical, "
+                f"${a.cost_per_hr:.2f}/hr; " + ", ".join(
+                    f"{name} {dt:.3f} s ({n} launches)"
+                    for (name, _, _), (_, dt, n) in zip(runs, res)))
+
+
+def sweep_record(inputs, launches: int) -> dict:
+    """The kernel's record at the sweep's shape: its device time (CUDA
+    events, one launch at a time), its plain version's (one call), the
+    two held bit for bit, and the bound."""
+    ready, k, luts, eff, tmo, pools = inputs
+    lanes = luts.shape[0]
+    done = sim_fill.fill_static(ready, k, luts, eff, tmo, pools.clone())[0]
+    t_ms = []
+    for _ in range(3):
+        scratch = pools.clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sim_fill.fill_static(ready, k, luts, eff, tmo, scratch)
+        end.record()
+        torch.cuda.synchronize()
+        t_ms.append(start.elapsed_time(end))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    scratch = pools.clone()
+    start.record()
+    plain = sim_fill.fill_static_ref(ready, k, luts, eff, tmo, scratch)[0]
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    if not torch.equal(done, plain):
+        raise RuntimeError("sim_fill differs from its plain version at the "
+                           "sweep's shape")
+    # bytes: the queue, LUTs, batches, timeouts and pools read once, the
+    # completions written once; operations: per lane a comparison per
+    # query and, per batch, its start, hold test, end and rank search
+    # over the lane's replicas (float64)
+    nbytes = 8 * (ready.numel() + luts.numel() + 2 * lanes + pools.numel()
+                  + done.numel())
+    batches = 1 + (done[:, 1:] != done[:, :-1]).sum(1)
+    reps = torch.isfinite(pools).sum(1)
+    nops = float(lanes * k + (batches * (3 + reps)).sum())
+    bytes_ms = nbytes / H100_HBM_BW * 1e3
+    ops_ms = nops / H100_PEAK_FLOPS_F64 * 1e3
+    ms = min(t_ms)
+    threads = torch.cuda.get_device_properties(0).multi_processor_count * \
+        torch.cuda.get_device_properties(0).max_threads_per_multi_processor
+    log(f"  sim_fill at the sweep's shape ({lanes} lanes x {k} queries): "
+        f"kernel {ms:.3f} ms ({ms * 1e3:.1f} us of device time; launches "
+        f"{', '.join(f'{t:.3f}' for t in t_ms)} ms), plain version "
+        f"{plain_ms:.1f} ms, bit-equal; bound {max(bytes_ms, ops_ms):.6f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {nbytes / 1e9:.3f}"
+        f" GB, {nops:.3e} float64 operations); {lanes} threads of the "
+        f"card's {threads} ({lanes / threads:.2%})")
+    return {
+        "name": "sim_fill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sim_fill.cu",
+        "replaces": "src/repro/sim/jax_backend.py:103",
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def fill_crossover() -> None:
+    """Phase 9d: the reference's ``_bench_fill_crossover``: one fill,
+    numpy against the kernel forced on, at growing lengths (best of 3
+    host-clock calls each, the kernel's result checked against
+    numpy's)."""
+    lut = np.array([0.0] + [0.004 + 0.0005 * b for b in range(1, 9)])
+    rng = np.random.default_rng(13)
+    old = torch_backend._FILL_THRESHOLD
+    crossover = None
+    for k in CROSSOVER_K:
+        ready = np.cumsum(rng.exponential(1 / 140.0, k))
+        t_np = t_dev = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            want = simulate_stage("fifo", ready, lut, 8, 4)
+            t_np = min(t_np, time.perf_counter() - t0)
+        torch_backend._FILL_THRESHOLD = 0
+        try:
+            got = simulate_stage("fifo", ready, lut, 8, 4, backend="torch")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                simulate_stage("fifo", ready, lut, 8, 4, backend="torch")
+                t_dev = min(t_dev, time.perf_counter() - t0)
+        finally:
+            torch_backend._FILL_THRESHOLD = old
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"the single fill differs at k={k}")
+        if crossover is None and t_dev < t_np:
+            crossover = k
+        log(f"  k={k:7d}: numpy {t_np * 1e3:.2f} ms, kernel (launch, copies, "
+            f"host) {t_dev * 1e3:.2f} ms ({t_dev / t_np:.2f}x numpy)")
+    log(f"  crossover: {crossover if crossover else 'none'} (the default "
+        f"single-fill threshold stays off: {old})")
+
+
+def planner_sweep() -> dict:
+    """Phase 9: the planner's device sweep. Returns the sim_fill record."""
+    log("[9a] the fill kernel against its plain version and the numpy "
+        "fill")
+    check_fills()
+    reset_counts()
+    sim_fill.counter.reset()
+    log("[9b] the reference's 1200-candidate sweep, numpy and torch")
+    inputs = device_sweep()
+    log("[9c] plan identity, every motif, Planner and BeamPlanner")
+    plan_identity()
+    launches = sim_fill.counter.count
+    if launches == 0 or any(counts().values()):
+        raise RuntimeError(f"the sweep launched sim_fill {launches} times "
+                           f"and the model kernels {counts()}")
+    record = sweep_record(inputs, launches)
+    log("[9d] one fill, numpy against the kernel")
+    fill_crossover()
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; this script runs the "
@@ -2537,6 +2923,8 @@ def main() -> int:
     add_counts(launches, family)    # phase 8: serves, prefills, steps
     for r in records:
         r["launches"] = launches[r["name"]]
+    log(f"[9] the planner's device sweep ({nvidia_smi()})")
+    records.append(planner_sweep())
     if not all(r["launches"] > 0 for r in records):
         raise RuntimeError(f"a kernel was not launched: {launches}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -6,8 +6,11 @@ reference's registry. The port carries every decoder-only config of the
 reference: the served cascade's xLSTM and Llama, the dense phi3-mini,
 qwen2-72b and granite-34b, the MoE granite-moe and DeepSeek-V3 (MLA,
 MTP) and the Mamba/attention hybrid Jamba, with its experts or in the
-expert-free one-period form of :func:`without_experts`. The
-encoder-decoder and image configs arrive with their slice.
+expert-free one-period form of :func:`without_experts`, and the
+configs of the image model ``pixtral-12b`` and the encoder-decoder
+``whisper-small``, which the pipeline motifs
+(:mod:`repro_torch.configs.pipelines`) price analytically; the port
+does not build those two models yet (``build_model`` refuses them).
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ from typing import List
 from repro_torch.models.config import ArchConfig
 
 _MODULES = {
+    "whisper-small": "whisper_small",
     "granite-34b": "granite_34b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "pixtral-12b": "pixtral_12b",
     "qwen2-72b": "qwen2_72b",
     "xlstm-125m": "xlstm_125m",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",

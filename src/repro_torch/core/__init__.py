@@ -1,5 +1,5 @@
-"""Control plane of the port: hardware menu, pipeline spec, measured
-profiler, traffic envelopes, the Estimator, the Planner and the Tuner
+"""Control plane of the port: hardware menu, pipeline spec, profiler
+(measured, and the reference's analytic backend), traffic envelopes, the Estimator, the Planner and the Tuner
 (copies of the reference's ``repro.core``)."""
 
 from repro_torch.core.envelope import (  # noqa: F401
@@ -23,7 +23,9 @@ from repro_torch.core.pipeline import (  # noqa: F401
 )
 from repro_torch.core.profiler import (  # noqa: F401
     ModelProfile,
+    ModelSpec,
     ProfileStore,
+    profile_model_analytic,
     profile_model_measured,
 )
 

@@ -14,8 +14,8 @@ Dynamic replica schedules (what the tuner's scaling decisions become)
 are supported via per-stage ``(time, +1/-1)`` replica events.
 
 A copy of the reference's ``repro.core.estimator`` on the port's
-numpy engine; ``tests/test_torch_plan.py`` holds its latencies
-bit-identical to the reference's.
+engine; ``tests/test_torch_plan.py`` holds its latencies bit-identical
+to the reference's.
 """
 
 from __future__ import annotations
@@ -57,15 +57,19 @@ class Estimator:
                 slo_s: Optional[Union[float, np.ndarray]] = None,
                 class_ids: Optional[np.ndarray] = None,
                 class_names: Optional[Sequence[str]] = None,
-                backend: str = "numpy") -> TraceSession:
+                backend: str = "numpy",
+                device=None) -> TraceSession:
         """Bind to one trace for incremental re-simulation across configs.
 
-        ``backend`` names the engine's fill implementation; the port has
-        ``"numpy"`` only (another name raises ``ValueError``)."""
+        ``backend="torch"`` routes eligible candidate grids through the
+        CUDA fill kernel on ``device`` (:mod:`repro_torch.sim
+        .torch_backend`; None means CUDA and raises without a GPU, "cpu"
+        runs the kernel's plain torch version); bit-identical to the
+        default numpy path. Another name raises ``ValueError``."""
         return self.engine.session(arrivals, slo_s=slo_s,
                                    class_ids=class_ids,
                                    class_names=class_names,
-                                   backend=backend)
+                                   backend=backend, device=device)
 
     def simulate(
         self,

@@ -4,7 +4,9 @@ NVIDIA H100.
 A copy of the reference's ``HardwareType``, menu, ``get_hardware`` and
 ``cheaper_hardware`` (the Planner's DowngradeHW options). The TPU
 figures are the reference's own and describe TPU hardware, not the
-port's card.
+port's card. ``ANALYTIC_MENU`` names the reference's entries, the ones
+the analytic profile backend prices; the card is priced by measurement
+only.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Dict, Tuple
 PEAK_FLOPS_BF16 = 197e12      # FLOP/s per chip
 HBM_BW = 819e9                # bytes/s per chip
 ICI_BW = 50e9                 # bytes/s per link
+VMEM_BYTES = 128 * 1024**2    # ~128 MiB VMEM per TPU v5e chip
+HBM_BYTES = 16 * 1024**3      # 16 GiB of HBM per TPU v5e chip
 
 # --- NVIDIA H100 SXM (80 GB HBM3), NVIDIA's data sheet ---------------------
 # Dense rates without sparsity, at the full 700 W power limit. The PCIe
@@ -24,6 +28,7 @@ ICI_BW = 50e9                 # bytes/s per link
 H100_PEAK_FLOPS_BF16 = 989e12
 H100_PEAK_FLOPS_F32 = 67e12   # outside the tensor cores
 H100_PEAK_FLOPS_TF32 = 495e12  # tensor cores, TF32 inputs, f32 accumulate
+H100_PEAK_FLOPS_F64 = 34e12   # outside the tensor cores
 H100_HBM_BW = 3.35e12
 
 # CPU host core (measured-profile fallback / non-acceleratable stages)
@@ -65,8 +70,8 @@ HARDWARE_MENU: Tuple[HardwareType, ...] = (
     # (8 x H100 SXM 80 GB) at $98.32/hr in us-east-1, so $12.29 a card
     # hour. Marginal-cost accounting as for the TPU entries (§6); the
     # Planner compares configurations by it. overhead_s is read only by
-    # the reference's analytic profile backend, which the port does not
-    # have (it profiles the card by measurement), so it stays 0.
+    # the analytic profile backend, which refuses to price this card (it
+    # is profiled by measurement), so it stays 0.
     HardwareType("h100-1", 1, H100_PEAK_FLOPS_BF16, H100_HBM_BW, 0.0,
                  cost_per_hr=98.32 / 8, overhead_s=0.0),
     HardwareType("tpu-v5e-4", 4, 4 * PEAK_FLOPS_BF16, 4 * HBM_BW, ICI_BW,
@@ -78,6 +83,11 @@ HARDWARE_MENU: Tuple[HardwareType, ...] = (
 )
 
 HARDWARE_BY_NAME: Dict[str, HardwareType] = {h.name: h for h in HARDWARE_MENU}
+
+# the reference's menu, in its order: what the analytic profile backend
+# prices and what the reference's pipeline motifs may list
+ANALYTIC_MENU: Tuple[str, ...] = tuple(
+    h.name for h in HARDWARE_MENU if h.name != "h100-1")
 
 
 def get_hardware(name: str) -> HardwareType:

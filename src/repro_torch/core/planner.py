@@ -29,9 +29,12 @@ binary searches (run in lockstep), and the :class:`BeamPlanner`
 frontier — are scored through the session's batched ``percentile_many``
 surface. Outputs are bit-identical to full re-simulation.
 
-A copy of the reference's ``repro.core.planner`` without its ``backend``
-option: candidates are scored by the port's numpy engine, and
-``tests/test_torch_plan.py`` holds every plan, cost and estimated
+A copy of the reference's ``repro.core.planner``. ``backend="torch"``
+scores the downgrade and beam probe grids with the port's CUDA fill
+kernel on ``device`` (:mod:`repro_torch.sim.torch_backend`), where the
+reference's ``backend="jax"`` uses its XLA scan: the same decisions from
+bit-identical feasibility values. ``tests/test_torch_plan.py`` and
+``tests/test_torch_sim_backend.py`` hold every plan, cost and estimated
 percentile equal to the reference's.
 """
 
@@ -47,6 +50,7 @@ from repro_torch.core.estimator import Estimator
 from repro_torch.core.hardware import cheaper_hardware, get_hardware
 from repro_torch.core.pipeline import Pipeline, PipelineConfig, StageConfig
 from repro_torch.core.profiler import ProfileStore
+from repro_torch.device import resolve_device
 
 MAX_REPLICAS_PER_STAGE = 512
 MAX_BATCH = 128
@@ -115,7 +119,11 @@ class Planner:
     def __init__(self, pipeline: Pipeline, profiles: ProfileStore,
                  estimator: Optional[Estimator] = None,
                  percentile: float = 99.0, policy: str = "fifo",
-                 failure_headroom: int = 0):
+                 backend: str = "numpy", failure_headroom: int = 0,
+                 device=None):
+        if backend not in ("numpy", "torch"):
+            raise ValueError(f"unknown backend {backend!r}; "
+                             f"have ('numpy', 'torch')")
         self.pipeline = pipeline
         self.profiles = profiles
         self.estimator = estimator or Estimator(pipeline, profiles)
@@ -129,6 +137,13 @@ class Planner:
         # "edf" lets a multi-class plan serve tight-deadline traffic from
         # fewer replicas (deadline scheduling instead of overprovisioning)
         self.policy = policy
+        # simulation backend for the session's candidate scoring: "torch"
+        # routes the downgrade/beam probe grids through the CUDA fill
+        # kernel on `device` (resolved here, so a planner that cannot
+        # reach its card raises before it plans) — same plan decisions,
+        # bit-identical feasibility values
+        self.backend = backend
+        self.device = resolve_device(device) if backend == "torch" else None
         self._session = None
         self._session_token = None
         # scale factors are a pure function of the (immutable) pipeline:
@@ -154,13 +169,17 @@ class Planner:
         """One incremental session per plan() call: all candidate
         evaluations share the per-stage memoization."""
         if hasattr(self.estimator, "session"):
+            # pass the backend only when non-default: other session()
+            # implementers (adapters, test doubles) need not know the kwarg
+            kw = {} if self.backend == "numpy" else {
+                "backend": self.backend, "device": self.device}
             if self._classed is not None:
                 t = self._classed
                 self._session = self.estimator.session(
                     arrivals, slo_s=t.slo_per_query,
-                    class_ids=t.class_ids, class_names=t.class_names)
+                    class_ids=t.class_ids, class_names=t.class_names, **kw)
             else:
-                self._session = self.estimator.session(arrivals)
+                self._session = self.estimator.session(arrivals, **kw)
         else:  # estimator-like object without an engine (seed oracle)
             if self._classed is not None:
                 raise ValueError(
@@ -391,7 +410,8 @@ class Planner:
         caps, then lockstep replica halving — see
         :meth:`_downgrade_search_many`). Each probe still simulates once
         on a miss; the win is that the whole grid shares the session's
-        stage-entry, assembly-prefix, and percentile caches. Selection
+        stage-entry, assembly-prefix, and percentile caches — and, on the
+        torch backend, scores as one launch of the fill kernel. Selection
         order and predicate values match the sequential formulation
         exactly (same returned candidate)."""
         job = self._downgrade_grid(config, stage, arrivals, slo)
@@ -506,9 +526,16 @@ class BeamPlanner(Planner):
     def __init__(self, pipeline: Pipeline, profiles: ProfileStore,
                  estimator: Optional[Estimator] = None,
                  percentile: float = 99.0, policy: str = "fifo",
-                 beam_width: int = 4, max_rounds: int = 64):
+                 beam_width: Optional[int] = None, max_rounds: int = 64,
+                 backend: str = "numpy", device=None):
         super().__init__(pipeline, profiles, estimator=estimator,
-                         percentile=percentile, policy=policy)
+                         percentile=percentile, policy=policy,
+                         backend=backend, device=device)
+        if beam_width is None:
+            # device-scored grids make candidates cheap: default to a
+            # wider frontier on the torch backend (the reference's 8 on
+            # its "jax" backend)
+            beam_width = 8 if backend == "torch" else 4
         if beam_width < 1:
             raise ValueError(f"beam_width must be >= 1, got {beam_width}")
         self.beam_width = beam_width

@@ -1,12 +1,18 @@
-"""Per-model performance profiles (§4.1), measured backend.
+"""Per-model performance profiles (§4.1).
 
 A profile captures ``batch latency = f(hardware type, max batch size)`` for
 one model. A copy of the reference's ``ModelProfile``, ``ProfileStore``
-and ``profile_model_measured``: the port profiles its stages by timing
-them on the card, and the Estimator and Planner read these tables
-(``latency_lut``, ``batch_latency``, ``throughput``, ``supports``). The
-reference's analytic (roofline) backend, which prices TPU slices from
-a model's FLOPs and bytes, is not ported.
+and its two backends:
+
+* **measured** — ``profile_model_measured`` times a real callable; the
+  port profiles its served stages this way on the card.
+* **analytic** — ``analytic_batch_latency`` / ``profile_model_analytic``,
+  the reference's roofline model over a :class:`ModelSpec` (FLOPs,
+  weight and activation bytes per query), evaluated on the reference's
+  TPU/CPU menu (``hardware.ANALYTIC_MENU``). It prices the pipeline
+  motifs of :mod:`repro_torch.configs.pipelines` exactly as the
+  reference does. Asked to price ``h100-1`` it raises: the card is
+  priced only by measurement.
 
 Profiles are plain tables; the Estimator interpolates them to arbitrary
 batch sizes <= the configured maximum.
@@ -17,11 +23,40 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.core.hardware import ANALYTIC_MENU, HardwareType, get_hardware
+
+# Sustained MXU efficiency assumed by the analytic backend (fraction of
+# peak for dense matmul-dominated inference at moderate batch; the
+# reference's TPU assumption).
+MXU_EFFICIENCY = 0.55
+CPU_EFFICIENCY = 0.30
+
 DEFAULT_BATCH_SIZES: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Static workload description of one model, per single query.
+
+    A "query" is one inference request at this stage's native input size
+    (e.g. one image / one `seq_len`-token text fragment).
+    """
+
+    name: str
+    flops_per_query: float          # forward-pass FLOPs for batch=1
+    weight_bytes: float             # parameter bytes read per batch
+    act_bytes_per_query: float      # activation traffic per query
+    # Bytes crossing ICI per query on a multi-chip slice (tensor-parallel
+    # all-reduces); scaled by (chips-1)/chips at evaluation time.
+    collective_bytes_per_query: float = 0.0
+    # False for stages with no internal parallelism (paper Fig. 3
+    # "preprocess"): they see no batching benefit and cannot use an
+    # accelerator's parallel units.
+    parallelizable: bool = True
 
 
 @dataclasses.dataclass
@@ -86,6 +121,73 @@ class ModelProfile:
 
     def best_batch(self, hardware: str) -> int:
         return max(self.batch_sizes, key=lambda b: self.throughput(hardware, b))
+
+
+# --------------------------------------------------------------------------
+# Analytic backend
+# --------------------------------------------------------------------------
+
+
+def analytic_batch_latency(spec: ModelSpec, hw: HardwareType,
+                           batch: int) -> float:
+    """Roofline latency for one batch on one of the reference's hardware
+    types (the reference's formula, operation for operation).
+
+    latency = overhead + max(compute, memory) + collective
+
+    * compute  = batch * flops / (peak * efficiency)
+    * memory   = (weights + batch * activations) / bandwidth — weight reads
+      amortize across the batch, which is exactly why batching raises
+      throughput on accelerators (paper Fig. 3).
+    * collective = tensor-parallel ICI traffic on multi-chip slices.
+
+    Non-parallelizable stages run serially: latency scales linearly with
+    batch and accelerators confer no benefit. ``h100-1`` raises
+    ``ValueError``: the card is priced only by measurement.
+    """
+    if hw.name not in ANALYTIC_MENU:
+        raise ValueError(
+            f"the analytic backend prices {ANALYTIC_MENU}, not {hw.name!r}: "
+            f"profile it by measurement (profile_model_measured)")
+    if not spec.parallelizable:
+        # Runs on a single host core whatever the slice; an accelerator
+        # confers no benefit and batching only serializes (Fig. 3,
+        # "preprocess").
+        serial = spec.flops_per_query / (
+            get_hardware("cpu-1").peak_flops * CPU_EFFICIENCY
+        )
+        return hw.overhead_s + batch * serial
+
+    eff = MXU_EFFICIENCY if hw.is_accelerator() else CPU_EFFICIENCY
+    compute = batch * spec.flops_per_query / (hw.peak_flops * eff)
+    memory = (spec.weight_bytes + batch * spec.act_bytes_per_query) / hw.mem_bw
+    lat = hw.overhead_s + max(compute, memory)
+    if hw.chips > 1 and hw.ici_bw > 0:
+        frac = (hw.chips - 1) / hw.chips
+        lat += batch * spec.collective_bytes_per_query * frac / hw.ici_bw
+    return lat
+
+
+def profile_model_analytic(
+    spec: ModelSpec,
+    hardware_options: Optional[Iterable[str]] = None,
+    batch_sizes: Tuple[int, ...] = DEFAULT_BATCH_SIZES,
+) -> ModelProfile:
+    """The analytic profile of ``spec`` on ``hardware_options`` (default:
+    the reference's whole menu, ``ANALYTIC_MENU``)."""
+    names = list(hardware_options) if hardware_options is not None else \
+        list(ANALYTIC_MENU)
+    table: Dict[Tuple[str, int], float] = {}
+    for name in names:
+        hw = get_hardware(name)
+        for b in batch_sizes:
+            table[(name, b)] = analytic_batch_latency(spec, hw, b)
+    return ModelProfile(spec.name, table, batch_sizes)
+
+
+# --------------------------------------------------------------------------
+# Measured backend
+# --------------------------------------------------------------------------
 
 
 def profile_model_measured(

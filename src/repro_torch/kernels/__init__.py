@@ -1,8 +1,11 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
 ``rmsnorm`` (fused norm), ``flash_attention`` (prefill/score
-attention), ``decode_attention`` (one token against a KV cache) and
-``mamba_scan`` (the Mamba block's selective scan) are CUDA C++ for
-``sm_90a`` under ``csrc/``, built by ``_build`` at first use; ``ref`` holds the plain PyTorch versions and ``ops`` is the
-dispatch layer the models call.
+attention), ``decode_attention`` (one token against a KV cache),
+``mamba_scan`` (the Mamba block's selective scan) and ``sim_fill`` (the
+planner's FIFO fill over a candidate grid) are CUDA C++ for
+``sm_90a`` under ``csrc/``, built by ``_build`` at first use; ``ref``
+holds the plain PyTorch versions of the model kernels (``sim_fill``
+keeps its own beside its wrapper) and ``ops`` is the dispatch layer the
+models call.
 """

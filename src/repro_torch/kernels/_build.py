@@ -36,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 # C signature of every exported entry point: (argtypes, restype)
 SIGNATURES = {
     # (x, scale, out, rows, d, eps, stream) -> cudaError_t
@@ -60,6 +62,14 @@ SIGNATURES = {
     # (dtype, batch, len, d, n, int *grid, int *ctas_per_sm) -> cudaError_t
     "mamba_scan_plan": ((_I, _I, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_I)), _I),
+    # (ready, k, luts, lut_stride, eff, timeout, pools, pool_cap, lanes,
+    #  done, batches, n_batches, stream) -> cudaError_t
+    "sim_fill_static": ((_P, _L, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                         _P), _I),
+    # (ready, k, lut, eff, timeout_s, pool, n_free, ev_t, ev_d, m, rem_t,
+    #  trips, done, batches, n_batches, stream) -> cudaError_t
+    "sim_fill_dynamic": ((_P, _L, _P, _L, _D, _P, _L, _P, _P, _L, _P, _L,
+                          _P, _P, _P, _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -13,9 +13,14 @@ façade and the Planner/BeamPlanner/AnnealedPlanner search loops.
   per-epoch EpochTelemetry / StageTelemetry control records
 * :mod:`repro_torch.sim.control`  — closed-loop Tuner co-simulation: epoch
   stepping (ControlLoopSession), ControlEvent, replica cost timelines
-
-The device planner sweep comes with a torch backend; until then the
-engine runs the numpy fill only.
+* :mod:`repro_torch.sim.torch_backend` — the planner's device sweep: the
+  FIFO fill on the hand-written CUDA kernel (``kernels/csrc/sim_fill.cu``,
+  a thread per candidate) and the (hw, batch, replica, timeout) grid
+  scored in one launch, bit-identical to the numpy kernels. Opt in per
+  session via ``SimEngine.session(..., backend="torch", device=...)``
+  (default ``"numpy"``); eligible ``percentile_many`` grids then fill on
+  the card (``device=None``; on a host without a GPU that raises) or
+  through the kernel's plain torch version (``device="cpu"``).
 """
 
 from repro_torch.sim.control import (  # noqa: F401

@@ -2,12 +2,16 @@
 
 Every consumer — the Estimator façade (:mod:`repro_torch.core.estimator`)
 and the Planner/BeamPlanner/AnnealedPlanner search — drives this engine.
-A copy of the reference's ``repro.sim.engine`` that scores candidates on
-the host only: the reference's device grid (``percentile_many`` through
-``repro.sim.jax_backend``) is left out, a ``backend`` other than
-``"numpy"`` raises ``ValueError``. Fault schedules
-(:class:`repro_torch.faults.FaultSchedule`) run as the reference's do.
-``tests/test_torch_plan.py`` holds it bit-identical to the reference.
+A copy of the reference's ``repro.sim.engine``. Its device grid runs on
+the port's CUDA fill kernel: a session opened with ``backend="torch"``
+scores eligible candidate grids in ``percentile_many`` through
+:func:`repro_torch.sim.torch_backend.grid_stage_percentiles` on the
+session's ``device``, where the reference's ``backend="jax"`` goes
+through ``repro.sim.jax_backend`` (``"jax"`` raises here). Fault
+schedules (:class:`repro_torch.faults.FaultSchedule`) run as the
+reference's do. ``tests/test_torch_plan.py`` and
+``tests/test_torch_sim_backend.py`` hold it bit-identical to the
+reference.
 
 Engine design (recorded in EXPERIMENTS.md §Perf): the paper implements a
 global event heap over the whole pipeline. Because (a) routing is
@@ -37,7 +41,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from repro_torch.core.pipeline import SOURCE, Pipeline, PipelineConfig
+from repro_torch.core.policy import effective_max_batch as _effective_max_batch
 from repro_torch.core.profiler import ProfileStore
+from repro_torch.device import resolve_device
 from repro_torch.sim.queueing import simulate_stage
 from repro_torch.sim.result import SimResult
 
@@ -165,7 +171,8 @@ class SimEngine:
                 max_cache_entries: int = 512,
                 max_cache_bytes: Optional[int] = None,
                 max_accum_bytes: Optional[int] = None,
-                backend: str = "numpy") -> "TraceSession":
+                backend: str = "numpy",
+                device=None) -> "TraceSession":
         """Bind the engine to one trace for incremental re-simulation.
 
         ``slo_s`` may be a scalar (uniform SLO, the paper's setting) or a
@@ -176,15 +183,21 @@ class SimEngine:
         (the pre-batching assembly behavior; benchmarks use it as the
         honest "loop path" baseline).
 
-        ``backend`` names the fill implementation; the port has
-        ``"numpy"`` only.
+        ``backend="torch"`` selects the CUDA fill kernel
+        (:mod:`repro_torch.sim.torch_backend`) on ``device`` (None: CUDA,
+        which raises on a host without a GPU; ``"cpu"`` runs the
+        kernel's plain torch version): single-stage simulations stay on
+        numpy below the kernel's crossover, and
+        :meth:`TraceSession.percentile_many` additionally routes
+        eligible single-stage candidate grids through one device launch.
+        Bit-identical either way.
         """
         return TraceSession(self, arrivals, slo_s=slo_s,
                             class_ids=class_ids, class_names=class_names,
                             max_cache_entries=max_cache_entries,
                             max_cache_bytes=max_cache_bytes,
                             max_accum_bytes=max_accum_bytes,
-                            backend=backend)
+                            backend=backend, device=device)
 
     def simulate(
         self,
@@ -285,11 +298,18 @@ class TraceSession:
                  max_cache_entries: int = 512,
                  max_cache_bytes: Optional[int] = None,
                  max_accum_bytes: Optional[int] = None,
-                 backend: str = "numpy"):
-        if backend != "numpy":
+                 backend: str = "numpy",
+                 device=None):
+        if backend not in ("numpy", "torch"):
             raise ValueError(f"unknown backend {backend!r}; "
-                             f"have ('numpy',)")
+                             f"have ('numpy', 'torch')")
         self.backend = backend
+        # the torch backend's device, resolved now so that a session that
+        # cannot reach it raises before it simulates anything
+        self.device = resolve_device(device) if backend == "torch" else None
+        # the last device grid's host-clock split (torch_backend
+        # .grid_stage_percentiles): inputs, fill, copy back, host tail
+        self.grid_split: Dict[str, float] = {}
         self.engine = engine
         self.arrivals = np.asarray(arrivals, dtype=np.float64)
         self.n = int(self.arrivals.shape[0])
@@ -447,6 +467,7 @@ class TraceSession:
             backend=self.backend,
             fault_spec=(fault_schedules.stage(stage)
                         if fault_schedules else None),
+            device=self.device,
         )
         comp = np.full(n, -np.inf)
         comp[order] = done_sorted
@@ -642,8 +663,123 @@ class TraceSession:
         as ``simulate_many`` (stage entries computed once per distinct
         cone, assembly shared across common prefixes, results memoized
         in the percentile cache).
+
+        With ``backend="torch"`` a candidate set that varies exactly one
+        *sink* FIFO stage — the shape of every planner probe grid and
+        lockstep replica search — is additionally scored in ONE launch
+        of the CUDA fill kernel (:func:`repro_torch.sim.torch_backend
+        .grid_stage_percentiles`): the fixed stages simulate once on
+        host, the varied stage's (lut, batch, replicas, timeout) grid
+        fills on the device, a thread a candidate, and reduces to
+        percentiles on the host. Bit-identical to the host loop;
+        ineligible sets fall through to it.
         """
+        configs = list(configs)
+        if self.backend == "torch" and not replica_schedules:
+            out = self._grid_percentile_many(configs, p)
+            if out is not None:
+                return out
         return [self.percentile(c, p, replica_schedules) for c in configs]
+
+    def _grid_percentile_many(self, configs: List[PipelineConfig],
+                              p: float) -> Optional[List[float]]:
+        """Device-grid scoring of an eligible candidate set, or None.
+
+        Eligible: enough uncached distinct candidates and a long enough
+        trace to beat the launch and copies; the candidates differ in
+        exactly one stage; that stage is a sink (no descendants), so
+        every other stage's entry is candidate-invariant and the
+        accumulated completion maximum over the rest of the pipeline is
+        a single shared array; the varied stage runs plain FIFO with a
+        static pool and non-negative profiled latencies (the sorted-pool
+        kernel's contract).
+        """
+        from repro_torch.sim import torch_backend
+
+        uncached: Dict[Tuple, PipelineConfig] = {}
+        for c in configs:
+            ck = self.config_key(c)
+            if (self.backend, ck, p) not in self._pctl_cache:
+                uncached.setdefault(ck, c)
+        if len(uncached) < torch_backend._GRID_MIN_CANDIDATES:
+            return None
+        cands = list(uncached.values())
+        pivot = cands[0]
+        engine = self.engine
+        varied = [s for s in engine._topo
+                  if any(c[s].key() != pivot[s].key() for c in cands[1:])]
+        if len(varied) != 1:
+            return None
+        s = varied[0]
+        if engine._descendants[s] != (s,):
+            return None
+        luts: List[np.ndarray] = []
+        effs: List[int] = []
+        reps: List[int] = []
+        touts: List[float] = []
+        for c in cands:
+            cfg = c[s]
+            if (getattr(cfg, "policy", "fifo") != "fifo"
+                    or cfg.replicas < 1):
+                return None
+            lut = engine.latency_lut(s, cfg.hardware, cfg.batch_size)
+            eff = _effective_max_batch(lut, cfg.batch_size)
+            if float(np.min(lut[1:eff + 1])) < 0.0:
+                return None
+            luts.append(lut)
+            effs.append(eff)
+            reps.append(int(cfg.replicas))
+            touts.append(float(getattr(cfg, "timeout_s", 0.0)))
+        # host pass over the candidate-invariant stages: populate/reuse
+        # their cache entries and accumulate the completion maximum.
+        # Skipping the sink is exact — `last_done` is an element-wise
+        # max, so folding the sink's completions in afterwards commutes.
+        n = self.n
+        visited: Dict[str, np.ndarray] = {SOURCE: np.ones(n, dtype=bool)}
+        completion: Dict[str, np.ndarray] = {SOURCE: self.arrivals}
+        base_last = self.arrivals
+        for stage in engine._topo:
+            if stage == s:
+                continue
+            skey = self._stage_key(stage, pivot, None)
+            ent = self._stage_cache.get(skey)
+            if ent is None:
+                ent = self._simulate_stage_entry(stage, pivot, None,
+                                                 visited, completion)
+                self._stage_cache[skey] = ent
+                self._cache_bytes += ent.nbytes
+                self.stats["stage_sims"] += 1
+                while self._stage_cache and (
+                        len(self._stage_cache) > self.max_cache_entries
+                        or self._cache_bytes > self.max_cache_bytes):
+                    _, old = self._stage_cache.popitem(last=False)
+                    self._cache_bytes -= old.nbytes
+            else:
+                self._stage_cache.move_to_end(skey)
+                self.stats["stage_hits"] += 1
+            visited[stage] = ent.visited
+            completion[stage] = ent.completion
+            if ent.visited.any():
+                base_last = np.where(
+                    ent.visited, np.maximum(base_last, ent.completion),
+                    base_last)
+        vis, ready = self._stage_ready(s, visited, completion)
+        k = int(vis.sum())
+        if k < torch_backend._GRID_MIN_QUERIES:
+            return None
+        idx = np.nonzero(vis)[0]
+        order = idx[np.argsort(ready[idx], kind="stable")]
+        vals = torch_backend.grid_stage_percentiles(
+            ready[order], order, base_last, self.arrivals,
+            engine.rpc_delay_s, luts, effs, reps, touts, p, self.device,
+            split=self.grid_split)
+        self.stats["full_sims"] += len(cands)
+        self.stats["stage_sims"] += len(cands)
+        for ck, v in zip(uncached, vals):
+            self._pctl_cache[(self.backend, ck, p)] = float(v)
+        while len(self._pctl_cache) > self._max_pctl_entries:
+            self._pctl_cache.popitem(last=False)
+        return [self.percentile(c, p) for c in configs]
 
     def percentile(self, config: PipelineConfig, p: float,
                    replica_schedules: Optional[Schedules] = None,

@@ -81,9 +81,13 @@ reference simulator (:func:`repro_torch.core.policy.simulate_stage_ref`) is
 bit-identical to every policy here and carries the piecewise
 policy-switching path (:func:`switched`).
 
-The port's copy runs the numpy fill only: a ``backend`` other than
-``"numpy"`` raises ``ValueError`` (a device fill is later work). A fault
-spec with events routes through the fault-aware event loop
+``backend="torch"`` runs the FIFO fill through the hand-written CUDA
+kernel (:mod:`repro_torch.sim.torch_backend`, on ``device``: CUDA
+unless the caller asks for the CPU, where the kernel's plain torch
+version runs); single fills below that module's threshold stay on
+numpy, as the reference's ``"jax"`` does. Any other backend raises
+``ValueError``, ``"jax"`` included. A fault spec with events routes
+through the fault-aware event loop
 (:func:`repro_torch.faults.simstage.simulate_stage_faults`).
 """
 
@@ -102,6 +106,7 @@ from repro_torch.core.policy import (
     simulate_stage_ref,
     slo_drop_select,
 )
+from repro_torch.device import resolve_device
 
 _FAR_FUTURE = 1e18
 _INF = float("inf")
@@ -143,12 +148,16 @@ def fifo(
     deadline: Optional[np.ndarray] = None,
     shed_events: Optional[Sequence[Tuple[float, float]]] = None,
     backend: str = "numpy",
+    device=None,
 ) -> StageOutcome:
     """Arrival-order batching (the paper's policy). `deadline` and
     `shed_events` are ignored.
 
     Bit-identical to the seed estimator's ``_simulate_stage``; the fill
-    runs through the blocked vectorized kernel (module docstring).
+    runs through the blocked vectorized kernel (module docstring), or —
+    with ``backend="torch"`` — through the CUDA fill kernel on
+    ``device`` (:mod:`repro_torch.sim.torch_backend`), which leaves fills
+    below its crossover threshold to numpy.
     """
     k = ready.shape[0]
     dropped = np.zeros(k, dtype=bool)
@@ -156,6 +165,14 @@ def fifo(
         return np.empty(0, dtype=np.float64), np.zeros(0, dtype=np.int64), \
             dropped
     eff_batch = _effective_max_batch(latency_lut, max_batch)
+    if backend == "torch":
+        from repro_torch.sim import torch_backend
+        out = torch_backend.fifo_fill(ready, latency_lut, eff_batch,
+                                      replicas, replica_events, timeout_s,
+                                      device)
+        if out is not None:
+            done, batches = out
+            return done, batches, dropped
     if not replica_events:
         if replicas <= 0:
             return (np.full(k, _FAR_FUTURE), np.zeros(0, dtype=np.int64),
@@ -558,9 +575,11 @@ def edf(
     deadline: Optional[np.ndarray] = None,
     shed_events: Optional[Sequence[Tuple[float, float]]] = None,
     backend: str = "numpy",
+    device=None,
 ) -> StageOutcome:
-    """Earliest-deadline-first batching. ``shed_events`` and ``backend``
-    are ignored (the scalar deadline-heap loop has no device analogue).
+    """Earliest-deadline-first batching. ``shed_events``, ``backend`` and
+    ``device`` are ignored (the scalar deadline-heap loop has no device
+    analogue).
 
     At each dispatch, the batch is the (up to) ``max_batch`` queries with
     the earliest deadlines among those ready. Without deadlines this
@@ -639,6 +658,7 @@ def slo_drop(
     deadline: Optional[np.ndarray] = None,
     shed_events: Optional[Sequence[Tuple[float, float]]] = None,
     backend: str = "numpy",
+    device=None,
 ) -> StageOutcome:
     """FIFO with SLO-aware shedding at dequeue (admission control).
 
@@ -666,7 +686,8 @@ def slo_drop(
     """
     if deadline is None:
         return fifo(ready, latency_lut, max_batch, replicas,
-                    replica_events, timeout_s=0.0, backend=backend)
+                    replica_events, timeout_s=0.0, backend=backend,
+                    device=device)
     k = ready.shape[0]
     done = np.empty(k, dtype=np.float64)
     dropped = np.zeros(k, dtype=bool)
@@ -747,6 +768,7 @@ def simulate_stage(
     policy_events: Optional[Sequence[Tuple[float, str]]] = None,
     backend: str = "numpy",
     fault_spec=None,
+    device=None,
 ) -> StageOutcome:
     """Dispatch to a named policy. `ready` must be sorted ascending.
 
@@ -754,8 +776,14 @@ def simulate_stage(
     points) routes through :func:`switched` instead — the policy-core
     scalar path that re-evaluates the policy at every batch dispatch.
 
-    ``backend`` names the fill kernel implementation; the port has the
-    numpy one only.
+    ``backend`` selects the fill kernel implementation for policies that
+    have one (``fifo``): ``"numpy"`` (default) or ``"torch"``, the CUDA
+    kernel of :mod:`repro_torch.sim.torch_backend` on ``device`` (None:
+    CUDA, which raises on a host without a GPU; ``"cpu"`` runs the
+    kernel's plain torch version). Both are bit-identical. A single fill
+    stays on numpy unless that module's ``_FILL_THRESHOLD`` is lowered;
+    the engine routes candidate grids through ``grid_stage_percentiles``
+    directly.
 
     A non-empty ``fault_spec`` (:class:`repro_torch.faults.schedule
     .StageFaults`) routes through the scalar fault-aware event loop
@@ -764,8 +792,11 @@ def simulate_stage(
     and folds ``policy_events`` itself; ``None`` or empty specs take the
     existing paths untouched (bit-identical no-fault guarantee).
     """
-    if backend != "numpy":
-        raise ValueError(f"unknown backend {backend!r}; have ('numpy',)")
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"unknown backend {backend!r}; "
+                         f"have ('numpy', 'torch')")
+    if backend == "torch":
+        device = resolve_device(device)
     if fault_spec is not None and fault_spec.events:
         from repro_torch.faults.simstage import simulate_stage_faults
 
@@ -779,7 +810,7 @@ def simulate_stage(
                         policy, policy_events)
     return get_policy(policy)(ready, latency_lut, max_batch, replicas,
                               replica_events, timeout_s, deadline,
-                              shed_events, backend=backend)
+                              shed_events, backend=backend, device=device)
 
 
 def switched(

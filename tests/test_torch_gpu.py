@@ -897,3 +897,134 @@ def test_workers_go_to_the_least_loaded_card(in_process):
     exp = in_process.run_batch(rows[:8]) + in_process.run_batch(rows[8:])
     for o, e in zip(outs, exp):
         assert np.array_equal(o, e)
+
+
+# ------------------------------------------------------- the planner's fill
+
+def _fill_queue(regime: str, k: int, seed: int = 7) -> np.ndarray:
+    """The three load regimes of the reference's fill benchmark
+    (underloaded with tie runs, calm/burst mixed, one saturating
+    burst), at k queries."""
+    rng = np.random.default_rng(seed)
+    if regime == "underloaded":
+        gaps = rng.exponential(1 / 140.0, k)
+        gaps[rng.random(k) < 0.2] = 0.0
+        return np.cumsum(gaps)
+    if regime == "mixed":
+        return np.cumsum(np.where(rng.random(k) < 0.5,
+                                  rng.exponential(1 / 600.0, k),
+                                  rng.exponential(1 / 60.0, k)))
+    return np.zeros(k)
+
+
+def _fill_lut(max_batch: int) -> np.ndarray:
+    return np.array([0.0] + [0.004 + 0.0005 * b
+                             for b in range(1, max_batch + 1)])
+
+
+def _lanes_on(device, ready, lanes):
+    """(ready_pad, luts, eff, timeouts, pools) on ``device`` for lanes
+    of (eff, replicas, timeout)."""
+    from repro_torch.sim.torch_backend import lane_inputs
+
+    effs = [e for e, _, _ in lanes]
+    arrays = lane_inputs([_fill_lut(e) for e in effs], effs,
+                         [r for _, r, _ in lanes], [t for _, _, t in lanes])
+    pad = np.concatenate([ready, np.full(max(effs), np.inf)])
+    return [torch.from_numpy(a).to(device) for a in (pad, *arrays)]
+
+
+FILL_LANES = [(e, r, t) for e in (1, 8, 128) for r in (1, 3, 16, 512)
+              for t in (0.0, 0.005)]
+
+
+@pytest.mark.parametrize("regime", ["underloaded", "mixed", "saturated"])
+def test_sim_fill_grid_kernel_equals_plain_and_numpy(gen, regime):
+    """24 lanes (eff 1 / 8 / 128 x replicas 1 / 3 / 16 / 512, with and
+    without a timeout) over one 4096-query queue in one launch: each
+    lane's completions and batches equal the plain version's on the
+    card and the numpy fill's, bit for bit."""
+    from repro_torch.kernels import sim_fill
+    from repro_torch.sim.queueing import simulate_stage
+
+    ready = _fill_queue(regime, 4096)
+    k = ready.size
+    dev = torch.device("cuda")
+    pad, luts, eff, tmo, pools = _lanes_on(dev, ready, FILL_LANES)
+    before = sim_fill.counter.count
+    done, batches, nb = sim_fill.fill_static(pad, k, luts, eff, tmo,
+                                             pools.clone(), True)
+    torch.cuda.synchronize()
+    assert sim_fill.counter.count == before + 1
+    p_done, p_batches, p_nb = sim_fill.fill_static_ref(
+        pad, k, luts, eff, tmo, pools.clone(), True)
+    assert torch.equal(done, p_done) and torch.equal(nb, p_nb)
+    for i, (e, r, t) in enumerate(FILL_LANES):
+        n = int(nb[i])
+        assert torch.equal(batches[i, :n], p_batches[i, :n])
+        want_done, want_batches, _ = simulate_stage(
+            "fifo", ready, _fill_lut(e), e, r, None, t)
+        assert np.array_equal(done[i].cpu().numpy(), want_done), (e, r, t)
+        assert np.array_equal(batches[i, :n].cpu().numpy(), want_batches)
+
+
+def test_sim_fill_edge_queues_equal_numpy(gen, monkeypatch):
+    """Ties, +inf arrivals and a one-query queue through the single-fill
+    entry (the threshold forced to 0), against the numpy fill."""
+    from repro_torch.kernels import sim_fill
+    from repro_torch.sim import torch_backend as tb
+    from repro_torch.sim.queueing import simulate_stage
+
+    monkeypatch.setattr(tb, "_FILL_THRESHOLD", 0)
+    ties = np.sort(np.concatenate([np.cumsum(np.full(300, 0.002)),
+                                   np.full(100, 0.3)]))
+    infs = np.concatenate([np.cumsum(np.full(200, 0.003)),
+                           np.full(20, np.inf)])
+    before = sim_fill.counter.count
+    cases = 0
+    for ready in (ties, infs, np.array([0.25])):
+        for e, r, t in ((1, 1, 0.0), (8, 3, 0.01), (128, 2, 0.0),
+                        (8, 512, 0.005)):
+            got = simulate_stage("fifo", ready, _fill_lut(e), e, r, None, t,
+                                 backend="torch", device="cuda")
+            want = simulate_stage("fifo", ready, _fill_lut(e), e, r, None, t)
+            for a, b in zip(got, want):
+                assert np.array_equal(a, b), (ready.size, e, r, t)
+            cases += 1
+    assert sim_fill.counter.count == before + cases
+
+
+@pytest.mark.parametrize("replicas,events", [
+    (1, [(2.0, 2), (6.0, -1), (9.0, 1)]),       # scale up, down, up
+    (0, [(1.0, 3)]),                            # empty pool until 1 s
+    (2, [(3.0, -2)]),                           # scaled to zero: starves
+    (4, [(0.5, -3), (0.5, 2), (12.0, -2)]),     # ties of events
+])
+@pytest.mark.parametrize("max_batch,timeout_s", [(8, 0.0), (128, 0.005)])
+def test_sim_fill_dynamic_kernel_equals_plain_and_numpy(gen, monkeypatch,
+                                                        replicas, events,
+                                                        max_batch, timeout_s):
+    from repro_torch.kernels import sim_fill
+    from repro_torch.sim import torch_backend as tb
+    from repro_torch.sim.queueing import simulate_stage
+
+    monkeypatch.setattr(tb, "_FILL_THRESHOLD", 0)
+    ready = _fill_queue("mixed", 4096, seed=3)
+    lut = _fill_lut(max_batch)
+    before = sim_fill.counter.count
+    got = simulate_stage("fifo", ready, lut, max_batch, replicas, events,
+                         timeout_s, backend="torch", device="cuda")
+    assert sim_fill.counter.count == before + 1
+    want = simulate_stage("fifo", ready, lut, max_batch, replicas, events,
+                          timeout_s)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    # the same inputs through the kernel and the plain version on the
+    # card (each run gets its own copy: the pool is scratch)
+    args = tb.dynamic_inputs(ready, lut, max_batch, replicas, events,
+                             timeout_s, torch.device("cuda"))
+    copy = [x.clone() if torch.is_tensor(x) else x for x in args]
+    k_done, k_b, k_n = sim_fill.fill_dynamic(*args)
+    p_done, p_b, p_n = sim_fill.fill_dynamic_ref(*copy)
+    assert torch.equal(k_done, p_done) and torch.equal(k_n, p_n)
+    assert torch.equal(k_b[:int(k_n)], p_b[:int(p_n)])

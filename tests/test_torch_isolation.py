@@ -54,7 +54,9 @@ def test_port_imports_with_jax_unavailable():
             "repro_torch.serving.frontends, repro_torch.faults, "
             "repro_torch.faults.schedule, repro_torch.faults.simstage, "
             "repro_torch.serving.dataplane, repro_torch.serving.procpool, "
-            "repro_torch.serving.ingress, repro_torch.serving.cluster\n"
+            "repro_torch.serving.ingress, repro_torch.serving.cluster, "
+            "repro_torch.sim.torch_backend, repro_torch.kernels.sim_fill, "
+            "repro_torch.configs.pipelines\n"
             "from repro_torch.core import Planner, Estimator\n"
             "from repro_torch.serving import LiveControlLoop, "
             "LiveClusterSim, AsyncIngress, ProcessStage\n")

@@ -20,6 +20,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import envelope as ref_envelope
 from repro.core.estimator import Estimator as RefEstimator
@@ -228,13 +229,18 @@ def test_simulate_stage_special_paths_match_the_reference(case):
         assert ours[2].any()                  # the margin shed queries
 
 
-def test_the_port_runs_numpy_only_and_no_faults(image_pipeline):
-    """The port fills on the host only (a device backend raises), and a
-    fault schedule runs the fault-aware loop, equal to the reference's;
-    an empty schedule is the no-fault path."""
+def test_the_port_takes_numpy_or_torch_and_faults(image_pipeline):
+    """The port fills with numpy or its torch backend ("jax" raises, and
+    "torch" with no device on a host without a GPU raises), and a fault
+    schedule runs the fault-aware loop, equal to the reference's; an
+    empty schedule is the no-fault path."""
     ready, deadline = _stage_inputs(n_s=1.0)
     with pytest.raises(ValueError, match="backend"):
         simulate_stage("fifo", ready, _lut(4), 4, 1, backend="jax")
+    assert_same_stage(
+        simulate_stage("fifo", ready, _lut(4), 4, 1, backend="torch",
+                       device="cpu"),
+        ref_simulate_stage("fifo", ready, _lut(4), 4, 1))
     spec = PortFaultSchedule([port_crash("s", 0.5)]).stage("s")
     ours = simulate_stage("fifo", ready, _lut(4), 4, 1, fault_spec=spec)
     assert_same_stage(ours, ref_simulate_stage(
@@ -252,8 +258,14 @@ def test_the_port_runs_numpy_only_and_no_faults(image_pipeline):
     est = Estimator(pipe, store)
     with pytest.raises(ValueError, match="backend"):
         est.session(ready, backend="jax")
-    with pytest.raises(ValueError, match="backend"):
-        SimEngine(pipe, store).session(ready, backend="torch")
+    sess = SimEngine(pipe, store).session(ready, backend="torch",
+                                          device="cpu")
+    assert (sess.backend, sess.device) == ("torch", torch.device("cpu"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="GPU"):
+            SimEngine(pipe, store).session(ready, backend="torch")
+        with pytest.raises(RuntimeError, match="GPU"):
+            simulate_stage("fifo", ready, _lut(4), 4, 1, backend="torch")
     config = PipelineConfig({s: StageConfig("cpu-1", 4, 2)
                              for s in pipe.stages})
     first = next(iter(pipe.stages))
@@ -263,8 +275,10 @@ def test_the_port_runs_numpy_only_and_no_faults(image_pipeline):
         RefEstimator(ref_pipe, ref_store).engine.simulate(
             to_ref(config), ready,
             fault_schedules=FaultSchedule([crash(first, 0.5)])))
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="backend"):
         Planner(pipe, store, backend="jax")
+    assert Planner(pipe, store, backend="torch", device="cpu").backend == \
+        "torch"
 
 
 # ------------------------------------------------------ engine and sessions
