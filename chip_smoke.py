@@ -104,21 +104,30 @@ Phases, in order; any failure exits non-zero:
    1.25 drops the assignments that come last in the batch's order, and
    a dropped token's logits are by design not a decode step's;
 9. the planner's device sweep (the reference's ``bench_planner_scale
-   --backend jax``) through the FIFO fill kernel ``sim_fill``: (a) the
-   kernel held bit for bit against its plain version on the card and
-   the numpy fill, static pools at eff 1 / 8 / 128 and 1 / 3 / 16 / 512
-   replicas with and without a timeout on 4096-query queues in three
-   load regimes, ties, +inf arrivals and one query, and dynamic pools
-   with scale-up and scale-down events; then, with every counter zeroed
-   before and read after, (b) the 1200-candidate sink sweep on an hour
-   of bursty image-processing traffic with numpy and with torch (cold,
-   warm), equal with ``==``, its wall times and the torch run's split
-   (inputs, fill, completions to the host, host tail), and (c) Planner
-   and BeamPlanner plans on the four motifs, numpy against torch with
-   the grid's thresholds as they are and with every grid sent to the
-   card; then the kernel's device time and its plain version's at the
-   sweep's shape, and (d) one fill, numpy against the kernel forced on,
-   at 4096, 32768 and 262144 queries.
+   --backend jax``) through the fill kernel ``sim_fill`` and the select
+   kernel ``sim_select``: (a) the fill held bit for bit against its
+   plain version on the card and the numpy fill, static pools at eff 1 /
+   8 / 128 and 1 / 3 / 16 / 32 replicas (in registers) and 512 (in
+   shared memory) with and without a timeout on 4096-query queues in
+   three load regimes, ties, +inf arrivals and one query, dynamic pools
+   with scale-up and scale-down events, and its latency rows against the
+   plain assembly; the select against its plain version and
+   np.partition on rows with ties, +inf and FAR_FUTURE tails, one value,
+   a shared segment (k < n) and all values equal, at p 0, 50, 99 and
+   100; then, with every counter zeroed before and read after, (b) the
+   1200-candidate sink sweep on an hour of bursty image-processing
+   traffic with numpy and with torch (cold, warm), equal with ``==``,
+   its wall times and the warm run's split (inputs, fill, select, copy
+   back, host lerp, the rest), timed from outside the sim package: the
+   host clock around the sweep, the uploads, the copy back and the lerp,
+   CUDA events around each kernel; two launches a chunk, (C, 2) doubles
+   copied back and no np.partition; and (c) Planner and BeamPlanner
+   plans on the four motifs, numpy against torch with the grid's
+   thresholds as they are and with every grid sent to the card; then
+   each kernel's device time and its plain version's at the sweep's
+   shape, the select's beside ``torch.kthvalue``, and (d) one fill,
+   numpy against the kernel forced on, at 4096, 32768 and 262144
+   queries.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -178,7 +187,7 @@ from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
-from repro_torch.kernels import sim_fill  # noqa: E402
+from repro_torch.kernels import sim_fill, sim_select  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.config import dense_segments  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -2487,22 +2496,40 @@ def fill_lut(max_batch: int) -> np.ndarray:
                              for b in range(1, max_batch + 1)])
 
 
-# eff 1 / 8 / 128 x replicas 1 / 3 / 16 / 512, without and with a timeout
+# the fill's four layouts: eff 1 / 8 / 128 x replicas 1 / 3 / 16 / 512,
+# without and with a timeout (a pool of 512 puts every lane's pool in
+# shared memory, an eff of 128 has each step load its window of the
+# queue), the same with at most 32 replicas (pools in registers), and
+# both with effs of at most 32 (the queue in register windows)
 FILL_LANES = [(e, r, t) for e in (1, 8, 128) for r in (1, 3, 16, 512)
               for t in (0.0, 0.005)]
+REG_LANES = [(e, r, t) for e in (1, 8, 128) for r in (1, 3, 16, 32)
+             for t in (0.0, 0.005)]
+WIN_LANES = [(e, r, t) for e in (1, 2, 8, 32) for r in (1, 3, 16, 32)
+             for t in (0.0, 0.005)]
+WIN_SHARED_LANES = [(e, r, t) for e in (1, 2, 8, 32) for r in (1, 33, 512)
+                    for t in (0.0, 0.005)]
+SELECT_P = (0.0, 50.0, 99.0, 100.0)
+RPC_S = 0.0015                  # phase 9a's rpc delay
 
 
-def hold_static(label: str, ready: np.ndarray, lanes) -> None:
-    """One launch of the grid kernel over ``lanes`` of (eff, replicas,
-    timeout) on one queue, held bit for bit against the plain version on
-    the card and, lane by lane, against the numpy fill."""
+def lanes_on_card(ready: np.ndarray, lanes) -> list:
+    """(ready_pad, luts, eff, timeouts, pools) on the card for lanes of
+    (eff, replicas, timeout)."""
     effs = [e for e, _, _ in lanes]
     arrays = torch_backend.lane_inputs(
         [fill_lut(e) for e in effs], effs, [r for _, r, _ in lanes],
         [t for _, _, t in lanes])
     pad = np.concatenate([ready, np.full(max(effs), np.inf)])
-    pad, luts, eff, tmo, pools = (torch.from_numpy(a).cuda()
-                                  for a in (pad, *arrays))
+    return [torch.from_numpy(a).cuda() for a in (pad, *arrays)]
+
+
+def hold_static(label: str, ready: np.ndarray, lanes) -> None:
+    """One launch of the grid kernel over ``lanes`` of (eff, replicas,
+    timeout) on one queue, held bit for bit against the plain version on
+    the card and, lane by lane, against the numpy fill; then its latency
+    rows against the plain assembly."""
+    pad, luts, eff, tmo, pools = lanes_on_card(ready, lanes)
     k = ready.size
     done, batches, nb = sim_fill.fill_static(pad, k, luts, eff, tmo,
                                              pools.clone(), True)
@@ -2523,23 +2550,85 @@ def hold_static(label: str, ready: np.ndarray, lanes) -> None:
                 batches_h[i, :nb_h[i]], want_batches)):
             raise RuntimeError(f"sim_fill differs from the numpy fill: "
                                f"{label}, eff {e}, {r} replicas, timeout {t}")
-    log(f"  {label}: {len(lanes)} lanes, k={k}, one launch: bit-equal to "
-        f"the plain version and the numpy fill (batches a lane "
-        f"{int(nb_h.min())}-{int(nb_h.max())})")
+    # finite arrivals, as the engine's are (a queue's +inf is a
+    # completion upstream that never comes), and base_last after them
+    rng = np.random.default_rng(k)
+    arrivals = np.maximum(np.where(np.isfinite(ready), ready, 0.0)
+                          - rng.gamma(2.0, 0.004, k), 0.0)
+    base_last = arrivals + rng.gamma(2.0, 0.01, k)
+    bl, arr = (torch.from_numpy(a).cuda() for a in (base_last, arrivals))
+    lat = sim_fill.fill_latency(pad, k, luts, eff, tmo, pools.clone(), bl,
+                                arr, RPC_S)
+    want = sim_fill.fill_latency_ref(pad, k, luts, eff, tmo, pools.clone(),
+                                     bl, arr, RPC_S)
+    if not torch.equal(lat, want):
+        raise RuntimeError(f"sim_fill's latency rows differ from the plain "
+                           f"assembly: {label}")
+    where = "registers" if pools.shape[1] <= 32 else "shared memory"
+    queue = "register windows" if luts.shape[1] <= 33 else "loads a step"
+    log(f"  {label}: {len(lanes)} lanes, k={k}, pools in {where}, queue "
+        f"in {queue}, one "
+        f"launch: bit-equal to the plain version and the numpy fill "
+        f"(batches a lane {int(nb_h.min())}-{int(nb_h.max())}); latency "
+        f"rows bit-equal to the plain assembly")
+
+
+def select_rows() -> dict:
+    """Phase 9a's rows for the select: name -> (row, shared segment)."""
+    rng = np.random.default_rng(11)
+    lat = rng.gamma(2.0, 0.05, 5000)
+    empty = np.empty(0)
+    return {
+        "ties": (np.repeat(rng.uniform(0.01, 0.2, 40), 125), empty),
+        "+inf tail": (np.concatenate([lat, np.full(60, np.inf)]), empty),
+        "FAR_FUTURE tail": (np.concatenate([lat, np.full(90, 1e18)]), empty),
+        "n = 1": (np.array([0.75]), empty),
+        "k < n": (lat[:3000], lat[3000:] + 0.5),
+        "all equal": (np.full(4000, 0.125), empty),
+    }
+
+
+def check_selects() -> None:
+    """Phase 9a: the select kernel against its plain version on the card
+    and np.partition, with ``==``: three orders of each row, at every p
+    of SELECT_P."""
+    for name, (row, seg) in select_rows().items():
+        rows = np.stack([row, row[::-1].copy(), np.sort(row)])
+        rows_d, seg_d = (torch.from_numpy(a).cuda() for a in (rows, seg))
+        n = row.size + seg.size
+        for p in SELECT_P:
+            prev, nxt, _ = torch_backend._quantile_params(n, p)
+            got = sim_select.select(rows_d, seg_d, prev, nxt)
+            plain = sim_select.select_ref(rows_d, seg_d, prev, nxt)
+            part = np.partition(np.concatenate(
+                [rows, np.broadcast_to(seg, (3, seg.size))], 1),
+                (prev, nxt) if nxt > prev else (prev,), axis=1)
+            if not (torch.equal(got, plain) and np.array_equal(
+                    got.cpu().numpy(), part[:, [prev, nxt]])):
+                raise RuntimeError(f"sim_select differs: {name}, p {p}")
+        log(f"  select, {name}: k={row.size}, segment {seg.size}, p "
+            f"{', '.join(f'{p:g}' for p in SELECT_P)}: equal (==) to the "
+            f"plain version and np.partition")
 
 
 def check_fills() -> None:
-    """Phase 9a: the kernel against its plain version and the numpy fill,
-    static and dynamic, at the edges of what the planner gives it."""
+    """Phase 9a: the fill against its plain version and the numpy fill,
+    static and dynamic, at the edges of what the planner gives it; its
+    latency rows; the select."""
     for regime in ("underloaded", "mixed", "saturated"):
-        hold_static(f"static, {regime}", fill_queue(regime, FILL_K),
-                    FILL_LANES)
+        for lanes in (FILL_LANES, REG_LANES, WIN_LANES, WIN_SHARED_LANES):
+            hold_static(f"static, {regime}", fill_queue(regime, FILL_K),
+                        lanes)
+    # each edge in the four layouts: the pool of 512 in shared memory or
+    # none, an eff of 128 or 32
     edge = [(1, 1, 0.0), (8, 3, 0.01), (128, 2, 0.0), (8, 512, 0.005)]
-    hold_static("static, ties", np.sort(np.concatenate(
-        [np.cumsum(np.full(300, 0.002)), np.full(100, 0.3)])), edge)
-    hold_static("static, +inf arrivals", np.concatenate(
-        [np.cumsum(np.full(200, 0.003)), np.full(20, np.inf)]), edge)
-    hold_static("static, k = 1", np.array([0.25]), edge)
+    edge_win = [(1, 1, 0.0), (8, 3, 0.01), (32, 2, 0.0), (8, 512, 0.005)]
+    for lanes in (edge, edge[:3], edge_win, edge_win[:3]):
+        hold_static("static, ties", np.sort(np.concatenate(
+            [np.cumsum(np.full(300, 0.002)), np.full(100, 0.3)])), lanes)
+        hold_static("static, +inf arrivals", np.concatenate(
+            [np.cumsum(np.full(200, 0.003)), np.full(20, np.inf)]), lanes)
+        hold_static("static, k = 1", np.array([0.25]), lanes)
     ready = fill_queue("mixed", FILL_K, seed=3)
     old = torch_backend._FILL_THRESHOLD
     torch_backend._FILL_THRESHOLD = 0
@@ -2568,6 +2657,7 @@ def check_fills() -> None:
                 f"fill ({int(k_n[0])} batches)")
     finally:
         torch_backend._FILL_THRESHOLD = old
+    check_selects()
 
 
 def sweep_grid() -> tuple:
@@ -2594,18 +2684,88 @@ def sweep_grid() -> tuple:
     return bound, arr, stage, grid
 
 
-def split_line(label: str, split: dict) -> None:
-    log(f"  {label}: {split['launches']} launch(es) of {split['lanes']} "
-        f"lanes x {split['queries']} queries; inputs to the card "
-        f"{split['upload_s'] * 1e3:.1f} ms, fill {split['fill_s'] * 1e3:.1f}"
-        f" ms, completions to the host {split['copy_s'] * 1e3:.1f} ms, host "
-        f"tail {split['tail_s'] * 1e3:.1f} ms")
+class SweepParts:
+    """Times a torch sweep's parts from outside the sim package, which
+    reads no clock: the host clock around the uploads
+    (``torch_backend._to``), the copy back (``_to_host``, after a
+    synchronize, so that it waits for no kernel) and the lerp
+    (``_host_lerp``); CUDA events around each kernel's launch. It counts
+    the bytes copied back and the calls of np.partition, and keeps each
+    kernel's last inputs (the fill's pools a copy taken before the
+    launch)."""
+
+    def __init__(self) -> None:
+        self.host = dict.fromkeys(("inputs", "copy", "lerp"), 0.0)
+        self.events = {"sim_fill": [], "sim_select": []}
+        self.copied_bytes = 0
+        self.partitions = 0
+        self.inputs = {}
+
+    def _timed(self, part, fn):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.host[part] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def _evented(self, name, fn, keep):
+        def wrapped(*args):
+            self.inputs[name] = keep(args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return wrapped
+
+    def __enter__(self):
+        tb = torch_backend
+        self._saved = (tb._to, tb._to_host, tb._host_lerp,
+                       sim_fill.fill_latency, sim_select.select, np.partition)
+        to_host = tb._to_host
+
+        def copy_back(t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = to_host(t)
+            self.host["copy"] += time.perf_counter() - t0
+            self.copied_bytes += out.nbytes
+            return out
+
+        partition = np.partition
+
+        def counted(*args, **kw):
+            self.partitions += 1
+            return partition(*args, **kw)
+
+        tb._to = self._timed("inputs", tb._to)
+        tb._to_host = copy_back
+        tb._host_lerp = self._timed("lerp", tb._host_lerp)
+        sim_fill.fill_latency = self._evented(
+            "sim_fill", sim_fill.fill_latency,
+            lambda a: a[:5] + (a[5].clone(),) + a[6:])
+        sim_select.select = self._evented("sim_select", sim_select.select,
+                                          lambda a: a)
+        np.partition = counted
+        return self
+
+    def __exit__(self, *exc) -> None:
+        tb = torch_backend
+        (tb._to, tb._to_host, tb._host_lerp, sim_fill.fill_latency,
+         sim_select.select, np.partition) = self._saved
+
+    def kernel_ms(self, name: str) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[name])
 
 
-def device_sweep() -> tuple:
+def device_sweep() -> dict:
     """Phase 9b: the 1200-candidate sweep with ``"numpy"`` and with
-    ``"torch"`` (cold, then warm), equal with ``==``. Returns the warm
-    run's kernel inputs (the pools a copy taken before the launch)."""
+    ``"torch"`` (cold, then warm), equal with ``==``; the warm run's
+    split. Returns the warm run's kernel inputs, by kernel name."""
     bound, arr, stage, grid = sweep_grid()
     log(f"  {SWEEP_MOTIF}, sink {stage!r}: {arr.size} queries (the "
         f"reference's trace: {SWEEP_QUERIES_REF}), {len(grid)} candidates")
@@ -2617,34 +2777,45 @@ def device_sweep() -> tuple:
     t0 = time.perf_counter()
     dev = sess.percentile_many(grid, 99.0)
     t_cold = time.perf_counter() - t0
-    cold = sess.grid_split
-    captured = []
-    orig = sim_fill.fill_static
-
-    def capture(ready, k, luts, eff, tmo, pools, *rest):
-        captured.append((ready, k, luts, eff, tmo, pools.clone()))
-        return orig(ready, k, luts, eff, tmo, pools, *rest)
-
-    sim_fill.fill_static = capture
+    cold = dict(sess.grid_split)
     sess = engine.session(arr, backend="torch")
-    try:
+    with SweepParts() as parts:
         t0 = time.perf_counter()
         dev2 = sess.percentile_many(grid, 99.0)
         t_warm = time.perf_counter() - t0
-    finally:
-        sim_fill.fill_static = orig
-    warm = sess.grid_split
+    warm = dict(sess.grid_split)
     if not (host == dev and host == dev2):
         raise RuntimeError("the device sweep differs from numpy's")
     log(f"  p99 of {len(grid)} candidates equal (==) between numpy and "
         f"torch, cold and warm; numpy {t_np:.2f} s, torch cold "
-        f"{t_cold:.2f} s, warm {t_warm:.2f} s ({t_np / t_warm:.1f}x); the "
+        f"{t_cold:.3f} s, warm {t_warm:.3f} s ({t_np / t_warm:.1f}x); the "
         f"reference's 1-core CPU artifact: numpy 67.3 s, jax warm 13.2 s")
-    split_line("cold", cold)
-    split_line("warm", warm)
-    if len(captured) != 1:
-        raise RuntimeError(f"the warm sweep made {len(captured)} launches")
-    return captured[0]
+    chunks = warm["chunks"]
+    fills, selects = (len(parts.events[n]) for n in ("sim_fill",
+                                                      "sim_select"))
+    if not (warm["launches"] == 2 * chunks and fills == chunks
+            and selects == chunks and cold["launches"] == 2 * cold["chunks"]):
+        raise RuntimeError(f"the sweep made {fills} fills and {selects} "
+                           f"selects in {chunks} chunks ({warm})")
+    if parts.copied_bytes != 16 * len(grid) or parts.partitions:
+        raise RuntimeError(f"the warm sweep copied {parts.copied_bytes} "
+                           f"bytes back and ran np.partition "
+                           f"{parts.partitions} times")
+    fill_ms, select_ms = (parts.kernel_ms(n) for n in ("sim_fill",
+                                                        "sim_select"))
+    host_ms = {k: v * 1e3 for k, v in parts.host.items()}
+    rest = t_warm * 1e3 - fill_ms - select_ms - sum(host_ms.values())
+    log(f"  cold: {cold['chunks']} chunk(s), {cold['launches']} launches "
+        f"of {cold['lanes']} lanes x {cold['queries']} queries")
+    log(f"  warm: {chunks} chunk(s), {warm['launches']} launches ({fills} "
+        f"fill, {selects} select); inputs to the card "
+        f"{host_ms['inputs']:.3f} ms, fill {fill_ms:.3f} ms, select "
+        f"{select_ms:.3f} ms, copy back {host_ms['copy']:.3f} ms "
+        f"({parts.copied_bytes} bytes), host lerp {host_ms['lerp']:.3f} "
+        f"ms, the rest of percentile_many {rest:.3f} ms (the fixed "
+        f"stages' simulation and Python); np.partition calls "
+        f"{parts.partitions}")
+    return parts.inputs
 
 
 def plan_identity() -> None:
@@ -2653,7 +2824,7 @@ def plan_identity() -> None:
     same configuration at the same cost; torch twice, with the grid's
     thresholds as they are and with every grid of two or more
     candidates sent to the card, so that the plans go through the
-    kernel."""
+    kernels."""
     sample = gamma_trace(PLAN_TRACE["lam"], PLAN_TRACE["cv"],
                          PLAN_TRACE["duration_s"], seed=PLAN_TRACE["seed"])
     log(f"  sample trace: {sample.size} queries")
@@ -2671,7 +2842,7 @@ def plan_identity() -> None:
                 cls = BeamPlanner if label == "beam" else Planner
                 torch_backend._GRID_MIN_CANDIDATES = min_c
                 torch_backend._GRID_MIN_QUERIES = min_q
-                before = sim_fill.counter.count
+                before = sim_fill.counter.count + sim_select.counter.count
                 try:
                     t0 = time.perf_counter()
                     plan = cls(bound.pipeline, bound.profiles, backend=be,
@@ -2680,7 +2851,8 @@ def plan_identity() -> None:
                 finally:
                     (torch_backend._GRID_MIN_CANDIDATES,
                      torch_backend._GRID_MIN_QUERIES) = thresholds
-                res.append((plan, dt, sim_fill.counter.count - before))
+                res.append((plan, dt, sim_fill.counter.count
+                            + sim_select.counter.count - before))
             a = res[0][0]
             for b, _, _ in res[1:]:
                 if not (a.feasible == b.feasible and (
@@ -2694,55 +2866,68 @@ def plan_identity() -> None:
                     for (name, _, _), (_, dt, n) in zip(runs, res)))
 
 
-def sweep_record(inputs, launches: int) -> dict:
-    """The kernel's record at the sweep's shape: its device time (CUDA
-    events, one launch at a time), its plain version's (one call), the
-    two held bit for bit, and the bound."""
-    ready, k, luts, eff, tmo, pools = inputs
-    lanes = luts.shape[0]
-    done = sim_fill.fill_static(ready, k, luts, eff, tmo, pools.clone())[0]
-    t_ms = []
-    for _ in range(3):
-        scratch = pools.clone()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        sim_fill.fill_static(ready, k, luts, eff, tmo, scratch)
-        end.record()
-        torch.cuda.synchronize()
-        t_ms.append(start.elapsed_time(end))
+def event_ms(fn) -> float:
+    """One call's CUDA-event time."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    scratch = pools.clone()
     start.record()
-    plain = sim_fill.fill_static_ref(ready, k, luts, eff, tmo, scratch)[0]
+    fn()
     end.record()
     torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
-    if not torch.equal(done, plain):
+    return start.elapsed_time(end)
+
+
+def fill_record(inputs, launches: int) -> dict:
+    """The fill's record at the sweep's shape: its device time (CUDA
+    events, one launch at a time, best of 3), its plain version's (one
+    call), the two held bit for bit, and the bound."""
+    ready, k, luts, eff, tmo, pools, bl, arr, rpc = inputs
+    lanes = luts.shape[0]
+    lat = sim_fill.fill_latency(ready, k, luts, eff, tmo, pools.clone(), bl,
+                                arr, rpc)
+    t_ms = [event_ms(lambda: sim_fill.fill_latency(
+        ready, k, luts, eff, tmo, pools.clone(), bl, arr, rpc))
+        for _ in range(3)]
+    plain = []
+    plain_ms = event_ms(lambda: plain.append(sim_fill.fill_latency_ref(
+        ready, k, luts, eff, tmo, pools.clone(), bl, arr, rpc)))
+    if not torch.equal(lat, plain[0]):
         raise RuntimeError("sim_fill differs from its plain version at the "
                            "sweep's shape")
-    # bytes: the queue, LUTs, batches, timeouts and pools read once, the
-    # completions written once; operations: per lane a comparison per
-    # query and, per batch, its start, hold test, end and rank search
-    # over the lane's replicas (float64)
-    nbytes = 8 * (ready.numel() + luts.numel() + 2 * lanes + pools.numel()
-                  + done.numel())
+    # bytes: the queue, LUTs, batches, timeouts, pools, base_last and
+    # arrivals read once, the latencies written once; operations: per
+    # query a comparison and its latency's max, subtract and add, per
+    # batch its start, hold test, end and rank search over the lane's
+    # replicas (float64). The batches come from one completion launch.
+    done = sim_fill.fill_static(ready, k, luts, eff, tmo, pools.clone())[0]
     batches = 1 + (done[:, 1:] != done[:, :-1]).sum(1)
     reps = torch.isfinite(pools).sum(1)
-    nops = float(lanes * k + (batches * (3 + reps)).sum())
+    # what sets the time: the batch-1 lanes (k steps each) alone, and
+    # the other lanes alone
+    ones = eff == 1
+    part_ms = [event_ms(lambda: sim_fill.fill_latency(
+        ready, k, luts[m], eff[m], tmo[m], pools[m].clone(), bl, arr, rpc))
+        for m in (ones, ~ones)]
+    nbytes = 8 * (ready.numel() + luts.numel() + 2 * lanes + pools.numel()
+                  + bl.numel() + arr.numel() + lat.numel())
+    nops = float(4 * lanes * k + (batches * (3 + reps)).sum())
     bytes_ms = nbytes / H100_HBM_BW * 1e3
     ops_ms = nops / H100_PEAK_FLOPS_F64 * 1e3
     ms = min(t_ms)
-    threads = torch.cuda.get_device_properties(0).multi_processor_count * \
-        torch.cuda.get_device_properties(0).max_threads_per_multi_processor
-    log(f"  sim_fill at the sweep's shape ({lanes} lanes x {k} queries): "
-        f"kernel {ms:.3f} ms ({ms * 1e3:.1f} us of device time; launches "
-        f"{', '.join(f'{t:.3f}' for t in t_ms)} ms), plain version "
-        f"{plain_ms:.1f} ms, bit-equal; bound {max(bytes_ms, ops_ms):.6f} ms "
-        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: {nbytes / 1e9:.3f}"
-        f" GB, {nops:.3e} float64 operations); {lanes} threads of the "
-        f"card's {threads} ({lanes / threads:.2%})")
+    props = torch.cuda.get_device_properties(0)
+    threads = props.multi_processor_count * \
+        props.max_threads_per_multi_processor
+    log(f"  sim_fill at the sweep's shape ({lanes} lanes x {k} queries, "
+        f"latency rows): kernel {ms:.3f} ms ({ms * 1e3:.1f} us of device "
+        f"time; launches {', '.join(f'{t:.3f}' for t in t_ms)} ms), plain "
+        f"version {plain_ms:.1f} ms, bit-equal; bound "
+        f"{max(bytes_ms, ops_ms):.6f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}: "
+        f"{nbytes / 1e9:.3f} GB, {nops:.3e} float64 operations); "
+        f"{32 * lanes} threads (a warp a lane) of the card's {threads} "
+        f"({32 * lanes / threads:.2%}); the longest lane "
+        f"{int(batches.max())} steps; the {int(ones.sum())} lanes of "
+        f"batch 1 alone {part_ms[0]:.3f} ms, the other "
+        f"{int((~ones).sum())} alone {part_ms[1]:.3f} ms")
     return {
         "name": "sim_fill", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sim_fill.cu",
@@ -2752,6 +2937,50 @@ def sweep_record(inputs, launches: int) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+    }
+
+
+def select_record(inputs, launches: int) -> dict:
+    """The select's record at the sweep's shape: its device time (CUDA
+    events, one launch at a time, best of 3), its plain version's (one
+    warm call) and ``torch.kthvalue``'s along dim 1, once for each rank
+    (best of 3), all three equal, and the bound: the rows read once."""
+    rows, seg, r0, r1 = inputs
+    lanes = rows.shape[0]
+    got = sim_select.select(rows, seg, r0, r1)
+    t_ms = [event_ms(lambda: sim_select.select(rows, seg, r0, r1))
+            for _ in range(3)]
+    # the plain version's time is its second call's: the first takes the
+    # caching allocator's new blocks
+    plain = [sim_select.select_ref(rows, seg, r0, r1)]
+    plain_ms = event_ms(lambda: plain.append(sim_select.select_ref(
+        rows, seg, r0, r1)))
+    full = rows if seg.numel() == 0 else \
+        torch.cat([rows, seg.expand(lanes, -1)], 1)
+    lib = []
+    lib_ms = min(event_ms(lambda: lib.append(torch.stack(
+        [torch.kthvalue(full, r + 1, dim=1).values for r in (r0, r1)], 1)))
+        for _ in range(3))
+    if not (torch.equal(got, plain[-1]) and torch.equal(got, lib[0])):
+        raise RuntimeError("sim_select differs from its plain version or "
+                           "torch.kthvalue at the sweep's shape")
+    nbytes = 8 * (rows.numel() + seg.numel() + 2 * lanes)
+    bytes_ms = nbytes / H100_HBM_BW * 1e3
+    ms = min(t_ms)
+    log(f"  sim_select at the sweep's shape ({lanes} rows x {rows.shape[1]}"
+        f" + {seg.numel()} shared, ranks {r0}, {r1}): kernel {ms:.3f} ms "
+        f"({ms * 1e3:.1f} us of device time; launches "
+        f"{', '.join(f'{t:.3f}' for t in t_ms)} ms), plain version (sort) "
+        f"{plain_ms:.3f} ms, torch.kthvalue twice {lib_ms:.3f} ms, all "
+        f"equal; bound {bytes_ms:.6f} ms (bytes: {nbytes / 1e9:.3f} GB "
+        f"read once)")
+    return {
+        "name": "sim_select", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sim_select.cu",
+        "replaces": "src/repro/sim/jax_backend.py:566",
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bytes_ms,
+        "bound_by": "bytes", "library_ms": lib_ms,
     }
 
 
@@ -2790,25 +3019,29 @@ def fill_crossover() -> None:
         f"single-fill threshold stays off: {old})")
 
 
-def planner_sweep() -> dict:
-    """Phase 9: the planner's device sweep. Returns the sim_fill record."""
-    log("[9a] the fill kernel against its plain version and the numpy "
-        "fill")
+def planner_sweep() -> list:
+    """Phase 9: the planner's device sweep. Returns the sim_fill and
+    sim_select records."""
+    log("[9a] the fill and select kernels against their plain versions, "
+        "the numpy fill and np.partition")
     check_fills()
     reset_counts()
     sim_fill.counter.reset()
+    sim_select.counter.reset()
     log("[9b] the reference's 1200-candidate sweep, numpy and torch")
     inputs = device_sweep()
     log("[9c] plan identity, every motif, Planner and BeamPlanner")
     plan_identity()
-    launches = sim_fill.counter.count
-    if launches == 0 or any(counts().values()):
-        raise RuntimeError(f"the sweep launched sim_fill {launches} times "
-                           f"and the model kernels {counts()}")
-    record = sweep_record(inputs, launches)
+    fills, selects = sim_fill.counter.count, sim_select.counter.count
+    if fills == 0 or selects != fills or any(counts().values()):
+        raise RuntimeError(f"the sweep launched sim_fill {fills} times, "
+                           f"sim_select {selects} times and the model "
+                           f"kernels {counts()}")
+    records = [fill_record(inputs["sim_fill"], fills),
+               select_record(inputs["sim_select"], selects)]
     log("[9d] one fill, numpy against the kernel")
     fill_crossover()
-    return record
+    return records
 
 
 def main() -> int:
@@ -2924,7 +3157,7 @@ def main() -> int:
     for r in records:
         r["launches"] = launches[r["name"]]
     log(f"[9] the planner's device sweep ({nvidia_smi()})")
-    records.append(planner_sweep())
+    records.extend(planner_sweep())
     if not all(r["launches"] > 0 for r in records):
         raise RuntimeError(f"a kernel was not launched: {launches}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -63,13 +63,16 @@ SIGNATURES = {
     "mamba_scan_plan": ((_I, _I, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_I)), _I),
     # (ready, k, luts, lut_stride, eff, timeout, pools, pool_cap, lanes,
-    #  done, batches, n_batches, stream) -> cudaError_t
+    #  out, batches, n_batches, base_last, arrivals, rpc, stream)
+    #  -> cudaError_t
     "sim_fill_static": ((_P, _L, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
-                         _P), _I),
+                         _P, _P, _D, _P), _I),
     # (ready, k, lut, eff, timeout_s, pool, n_free, ev_t, ev_d, m, rem_t,
     #  trips, done, batches, n_batches, stream) -> cudaError_t
     "sim_fill_dynamic": ((_P, _L, _P, _L, _D, _P, _L, _P, _P, _L, _P, _L,
                           _P, _P, _P, _P), _I),
+    # (rows, k, seg, m, lanes, r0, r1, out, stream) -> cudaError_t
+    "sim_select": ((_P, _L, _P, _L, _I, _L, _L, _P, _P), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

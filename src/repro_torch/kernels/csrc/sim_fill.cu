@@ -10,7 +10,7 @@
 // the numpy fill (repro_torch.sim.queueing._FifoFill); so is this file.
 // The recurrence only compares, takes maxima and minima, and adds, all
 // in float64: there is no product for the compiler to contract into an
-// FMA, and the two adds are written __dadd_rn all the same. Maxima and
+// FMA, and the adds are written __dadd_rn all the same. Maxima and
 // minima are the numpy fill's own ternaries (`r0 if r0 > f else f`),
 // not fmax/fmin.
 //
@@ -18,32 +18,40 @@
 // length of each lane's chain of dependent steps. A lane's batches
 // follow one another: batch j starts when the pool's earliest free
 // replica and the head of the queue allow, which needs batch j-1's
-// completion in the pool. So a lane is one thread, and the grid's
-// parallelism is its candidate count: a 1200-candidate sweep runs 1200
-// threads, well under 1 % of the 270,336 the card's 132 SMs hold. The
-// least time by the bytes rule (the (C, k) float64 completions written
-// once, the queue read once) is a fraction of a millisecond; the kernel
-// takes what its longest lane's steps take. Lanes are laid out by the
-// caller in order of expected step count, so a warp's lanes end near
-// together.
+// completion in the pool. The least time by the bytes rule (the (C, k)
+// float64 outputs written once, the queue read once) is a fraction of a
+// millisecond; the kernel takes what its longest lane's steps take, so
+// the design shortens a step.
 //
-// Design. The scan's sorted replica buffer carries over: the pool of a
-// lane is its own row of a global scratch array (any replica count, no
-// cap), kept sorted, so the minimum is slot 0, and a completion replaces
-// it by shifting the smaller entries one slot left and writing it at its
-// rank, count(free < end) - 1. Every lane reads the one sorted queue
-// through the read-only path; the batch boundary is the count of queued
-// arrivals at or before the start, within the batch limit, which on a
-// sorted queue is the first arrival past it. Each lane writes the
-// completion of every query, in sorted-queue order, to its row of the
-// (C, k) output, so the host needs no expansion of (end, count) pairs;
-// with a batch buffer it also writes the batch sizes (single fills).
+// Design of the static fill: a warp a lane (candidate). Its pool, kept
+// sorted, lives in registers, one slot a thread, when it has at most 32
+// replicas: the minimum is lane 0's slot, a completion's rank is
+// popc(ballot(slot < end)) - 1 and the shift one __shfl_down_sync, and
+// the next minimum is min(second slot, end), known before the shift
+// lands. A larger pool lives in the warp's shared memory (the same
+// rank, counted 32 slots at a time). The LUT is copied to shared
+// memory. The batch boundary, the first arrival past the start within
+// the batch limit, is a ballot and __ffs over the queue: where every
+// batch limit is at most 32 (the planner's grids), the warp holds the
+// queue in registers, two windows of 32 queries, and loads the window
+// after next when the queue moves past one, so that no step waits on
+// memory, and writes the completions, or in the grid path their
+// latencies, a window of 32 at a time in one coalesced store; else each
+// step loads ready[ptr, ptr + 32) (an eff of 128 takes up to four
+// loads) and stores its batch's outputs. 1200 candidates are 38,400
+// threads.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kLanesPerBlock = 32;
+constexpr int kWarpsPerBlock = 4;
+constexpr int kRegSlots = 32;         // pools up to this size in registers
+constexpr int kWinLimit = 32;         // batch limits up to this: windows
+constexpr long long kMaxQueries = (1ll << 31) - 65;   // 32-bit indices
+constexpr unsigned kFull = 0xffffffffu;
+constexpr size_t kMaxSmem = 232448;   // a block's dynamic shared memory
 constexpr double kFarFuture = 1e18;   // repro_torch.sim.queueing._FAR_FUTURE
 
 // One past the last queued arrival in [ptr, limit) at or before t: the
@@ -82,21 +90,6 @@ __device__ __forceinline__ long long form(const double* __restrict__ ready,
   return hi;
 }
 
-// Pop the minimum of a sorted pool and push `end`: the entries below
-// `end` move one slot left and `end` takes the last of their slots. A
-// pool whose minimum is not below `end` holds an equal value there and
-// stays as it is (the scan's rank -1).
-__device__ __forceinline__ void replace_min(double* __restrict__ pool, int cap,
-                                            double end) {
-  if (!(pool[0] < end)) return;
-  int j = 1;
-  while (j < cap && pool[j] < end) {
-    pool[j - 1] = pool[j];
-    ++j;
-  }
-  pool[j - 1] = end;
-}
-
 // Insert t into a sorted pool of n entries (n < cap) after every entry
 // below it.
 __device__ __forceinline__ void insert_sorted(double* __restrict__ pool,
@@ -109,38 +102,242 @@ __device__ __forceinline__ void insert_sorted(double* __restrict__ pool,
   pool[j] = t;
 }
 
-__global__ void __launch_bounds__(kLanesPerBlock)
-sim_fill_static_kernel(const double* __restrict__ ready, long long k,
+// The warp's form of `boundary`: the first index of [ptr, limit) whose
+// arrival is not at or before t, else limit. `win` is this thread's
+// ready[ptr + l], loaded by the caller; the next windows of 32 are
+// loaded here. Exact for any queue: the linear walk stops at the first
+// such index, and __ffs takes the lowest set lane.
+__device__ __forceinline__ int warp_boundary(const double* __restrict__ ready,
+                                             int ptr, int limit, double t,
+                                             double win, int l) {
+  unsigned m = __ballot_sync(kFull, ptr + l < limit && !(win <= t));
+  if (m) return ptr + __ffs(m) - 1;
+  for (int base = ptr + 32; base < limit; base += 32) {
+    const bool in = base + l < limit;
+    const double v = in ? __ldg(ready + base + l) : 0.0;
+    m = __ballot_sync(kFull, in && !(v <= t));
+    if (m) return base + __ffs(m) - 1;
+  }
+  return limit;
+}
+
+// The latency of a query that completes at `end`: np.maximum(base_last,
+// end), numpy's (a >= b || isnan(a)) ? a : b, less the arrival, plus
+// rpc, in numpy's order of operations.
+__device__ __forceinline__ double latency(double base_last, double arrival,
+                                          double end, double rpc) {
+  const double last = (base_last >= end || isnan(base_last)) ? base_last
+                                                              : end;
+  return __dadd_rn(__dsub_rn(last, arrival), rpc);
+}
+
+// kRegs: the pool in registers (pool_cap <= 32), else in shared memory.
+// kWin: every lane's batch limit is at most 32, and the warp keeps the
+// queue (and the latency inputs) in registers, two windows of 32
+// queries from wbase: a step reads none of them from memory, and the
+// window after next is loaded when the queue moves past the first,
+// long before a step needs it. A step only notes each of its queries'
+// completion in the thread that holds it; the warp writes a window's 32
+// outputs in one store once the queue has moved past it. Else each step
+// loads its window and writes its batch.
+// kLatency: write each query's latency, else its completion `end`.
+// Indices are 32-bit (the wrapper holds k below 2^31 - 64): a step is one
+// chain of dependent instructions, and the card issues a warp's in
+// order, so the step is written with as few of them, and as few
+// branches, as it can be.
+template <bool kRegs, bool kWin, bool kLatency>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sim_fill_static_kernel(const double* __restrict__ ready, int k,
                        const double* __restrict__ luts, int lut_stride,
                        const int64_t* __restrict__ eff,
                        const double* __restrict__ timeout,
                        double* __restrict__ pools, int pool_cap, int lanes,
-                       double* __restrict__ done,
+                       double* __restrict__ out,
                        int64_t* __restrict__ batches,
-                       int64_t* __restrict__ n_batches) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const double* lut = luts + static_cast<size_t>(lane) * lut_stride;
-  const long long b_max = eff[lane];
+                       int64_t* __restrict__ n_batches,
+                       const double* __restrict__ base_last,
+                       const double* __restrict__ arrivals, double rpc) {
+  extern __shared__ double smem[];
+  const int w = threadIdx.x >> 5;
+  const int l = threadIdx.x & 31;
+  const int lane = blockIdx.x * (blockDim.x >> 5) + w;
+  if (lane >= lanes) return;          // a whole warp: no block barrier
+  const int per_warp = lut_stride + (kRegs ? 0 : pool_cap);
+  double* lut = smem + static_cast<size_t>(w) * per_warp;
+  double* pool = lut + lut_stride;    // the shared pool (kRegs false)
+  const double* lut_g = luts + static_cast<size_t>(lane) * lut_stride;
+  for (int i = l; i < lut_stride; i += 32) lut[i] = lut_g[i];
+  double* pool_g = pools + static_cast<size_t>(lane) * pool_cap;
+  double slot = INFINITY;             // this thread's slot (kRegs)
+  if constexpr (kRegs) {
+    if (l < pool_cap) slot = pool_g[l];
+  } else {
+    for (int i = l; i < pool_cap; i += 32) pool[i] = pool_g[i];
+  }
+  __syncwarp();
+  // the pool's least and (kRegs) second-least free times
+  double f = kRegs ? __shfl_sync(kFull, slot, 0) : pool[0];
+  double f2 = kRegs ? __shfl_sync(kFull, slot, 1) : 0.0;
+  const int b_max = static_cast<int>(eff[lane]);
   const double timeout_s = timeout[lane];
-  double* pool = pools + static_cast<size_t>(lane) * pool_cap;
-  double* out = done + static_cast<size_t>(lane) * k;
-  int64_t* bout = batches ? batches + static_cast<size_t>(lane) * k : nullptr;
-  long long ptr = 0, nb = 0;
+  double* row = out + static_cast<size_t>(lane) * k;
+  int64_t* brow = batches ? batches + static_cast<size_t>(lane) * k
+                          : nullptr;
+  // the two windows (kWin): this thread's query wbase + l of the first,
+  // wbase + 32 + l of the second; past the queue, +inf
+  int wbase = 0;
+  double c_r = INFINITY, c_b = 0.0, c_a = 0.0, c_e = 0.0;
+  double n_r = INFINITY, n_b = 0.0, n_a = 0.0, n_e = 0.0;
+  // a window's outputs: each thread's query, if it is before `upto`
+  auto flush = [&](int base, double b, double a, double e, int upto) {
+    if (base + l < upto) row[base + l] = kLatency ? latency(b, a, e, rpc) : e;
+  };
+  auto load = [&](int i, double& r, double& b, double& a) {
+    r = i < k ? __ldg(ready + i) : INFINITY;
+    if constexpr (kLatency) {
+      b = i < k ? __ldg(base_last + i) : 0.0;
+      a = i < k ? __ldg(arrivals + i) : 0.0;
+    }
+  };
+  if constexpr (kWin) {
+    load(l, c_r, c_b, c_a);
+    load(32 + l, n_r, n_b, n_a);
+  }
+  int ptr = 0, nb = 0;
   // every step takes at least the head of the queue (the start is never
   // before it), so k steps bound the loop
-  for (long long step = 0; step < k && ptr < k; ++step) {
-    double start;
-    const long long hi = form(ready, k, ptr, b_max, timeout_s, pool[0],
-                              &start);
-    const double end = __dadd_rn(start, __ldg(lut + (hi - ptr)));
-    for (long long i = ptr; i < hi; ++i) out[i] = end;
-    if (bout) bout[nb] = hi - ptr;
+  for (int step = 0; step < k && ptr < k; ++step) {
+    const int full = ptr + b_max;
+    const int limit = full < k ? full : k;
+    double r0;
+    double bl = 0.0, arr = 0.0;       // this thread's query ptr + l (!kWin)
+    unsigned c_mask = 0, n_mask = 0;  // [ptr, limit) in the windows (kWin)
+    if constexpr (kWin) {
+      // a step moves the queue at most 32 on, so one move of the windows
+      // keeps ptr in the first
+      if (ptr >= wbase + 32) {
+        flush(wbase, c_b, c_a, c_e, ptr);
+        wbase += 32;
+        c_r = n_r;
+        c_b = n_b;
+        c_a = n_a;
+        c_e = n_e;
+        load(wbase + 32 + l, n_r, n_b, n_a);
+      }
+      const int lo = ptr - wbase;
+      const int lim = limit - wbase;
+      c_mask = (kFull << lo) & (lim >= 32 ? kFull : ~(kFull << lim));
+      n_mask = lim > 32 ? ~(kFull << (lim - 32)) : 0u;
+      r0 = __shfl_sync(kFull, c_r, lo);
+    } else {
+      const bool in = ptr + l < limit;
+      c_r = in ? __ldg(ready + ptr + l) : 0.0;
+      if constexpr (kLatency) {
+        if (in) {
+          bl = __ldg(base_last + ptr + l);
+          arr = __ldg(arrivals + ptr + l);
+        }
+      }
+      r0 = __ldg(ready + ptr);
+    }
+    // the first query of [ptr, limit) that arrives after t, else limit
+    auto boundary_at = [&](double t) -> int {
+      if constexpr (kWin) {
+        const unsigned long long m =
+            (__ballot_sync(kFull, !(c_r <= t)) & c_mask) |
+            (static_cast<unsigned long long>(
+                 __ballot_sync(kFull, !(n_r <= t)) & n_mask) << 32);
+        return m ? wbase + __ffsll(m) - 1 : limit;
+      } else {
+        return warp_boundary(ready, ptr, limit, t, c_r, l);
+      }
+    };
+    double start = r0 > f ? r0 : f;
+    int hi = boundary_at(start);
+    if (timeout_s > 0.0 && hi < limit) {
+      const double hold_until = __dadd_rn(r0, timeout_s);
+      if (hold_until > start) {
+        double fill_t = kFarFuture;
+        if constexpr (kWin) {
+          const int j = full - 1 - wbase;
+          const double v = __shfl_sync(kFull, j < 32 ? c_r : n_r, j & 31);
+          if (full - 1 < k) fill_t = v;
+        } else {
+          if (full - 1 < k) fill_t = __ldg(ready + full - 1);
+        }
+        const double held = fill_t > start ? fill_t : start;
+        start = hold_until < held ? hold_until : held;
+        hi = boundary_at(start);
+      }
+    }
+    const double end = __dadd_rn(start, lut[hi - ptr]);
+    // pop the minimum and push `end`: the slots below `end` move one
+    // left and `end` takes the last of them. A pool whose minimum is not
+    // below `end` holds an equal value there and stays as it is (the
+    // scan's rank -1, which moves no slot here).
+    if constexpr (kRegs) {
+      const int p = __popc(__ballot_sync(kFull, slot < end)) - 1;
+      const double up = __shfl_down_sync(kFull, slot, 1);
+      slot = l < p ? up : (l == p ? end : slot);
+      f = f < end ? (f2 < end ? f2 : end) : f;
+      f2 = __shfl_sync(kFull, slot, 1);
+    } else if (f < end) {
+      int below = 0;
+      for (int c = 0; c < pool_cap; c += 32) {
+        const unsigned m = __ballot_sync(
+            kFull, c + l < pool_cap && pool[c + l] < end);
+        below += __popc(m);
+        if (m != kFull) break;        // sorted: no later slot is below
+      }
+      const int p = below - 1;
+      for (int c = 0; c < p; c += 32) {
+        const int i = c + l;
+        const double v = i < p ? pool[i + 1] : 0.0;
+        __syncwarp();
+        if (i < p) pool[i] = v;
+        __syncwarp();
+      }
+      if (l == 0) pool[p] = end;
+      __syncwarp();
+      f = pool[0];
+    }
+    // the batch's outputs: noted in the windows, or contiguous stores
+    if constexpr (kWin) {
+      const int lo = ptr - wbase;
+      const int h = hi - wbase;
+      c_e = l >= lo && l < h ? end : c_e;
+      n_e = l + 32 < h ? end : n_e;
+    } else {
+      for (int base = ptr; base < hi; base += 32) {
+        const int i = base + l;
+        if (i < hi) {
+          if constexpr (kLatency) {
+            double b = bl, a = arr;
+            if (base != ptr) {
+              b = __ldg(base_last + i);
+              a = __ldg(arrivals + i);
+            }
+            row[i] = latency(b, a, end, rpc);
+          } else {
+            row[i] = end;
+          }
+        }
+      }
+    }
+    if (brow && l == 0) brow[nb] = hi - ptr;
     ++nb;
     ptr = hi;
-    replace_min(pool, pool_cap, end);
   }
-  if (n_batches) n_batches[lane] = nb;
+  if constexpr (kWin) {
+    flush(wbase, c_b, c_a, c_e, ptr);
+    flush(wbase + 32, n_b, n_a, n_e, ptr);
+  }
+  if (n_batches && l == 0) n_batches[lane] = nb;
+  if constexpr (kRegs) {
+    if (l < pool_cap) pool_g[l] = slot;
+  } else {
+    for (int i = l; i < pool_cap; i += 32) pool_g[i] = pool[i];
+  }
 }
 
 // One lane, one thread: each iteration is one step of the numpy fill's
@@ -205,29 +402,75 @@ sim_fill_dynamic_kernel(const double* __restrict__ ready, long long k,
   *n_batches = nb;
 }
 
+template <bool kRegs, bool kWin, bool kLatency>
+cudaError_t launch_static(const void* ready, long long k, const void* luts,
+                          int lut_stride, const void* eff,
+                          const void* timeout, void* pools, int pool_cap,
+                          int lanes, void* out, void* batches,
+                          void* n_batches, const void* base_last,
+                          const void* arrivals, double rpc,
+                          cudaStream_t stream) {
+  const size_t per_warp = sizeof(double) *
+      (static_cast<size_t>(lut_stride) + (kRegs ? 0 : pool_cap));
+  int warps = kWarpsPerBlock;
+  while (warps > 1 && warps * per_warp > kMaxSmem) warps /= 2;
+  const size_t smem = warps * per_warp;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = sim_fill_static_kernel<kRegs, kWin, kLatency>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return rc;
+  }
+  const int blocks = (lanes + warps - 1) / warps;
+  kernel<<<blocks, warps * 32, smem, stream>>>(
+      static_cast<const double*>(ready), static_cast<int>(k),
+      static_cast<const double*>(luts), lut_stride,
+      static_cast<const int64_t*>(eff), static_cast<const double*>(timeout),
+      static_cast<double*>(pools), pool_cap, lanes, static_cast<double*>(out),
+      static_cast<int64_t*>(batches), static_cast<int64_t*>(n_batches),
+      static_cast<const double*>(base_last),
+      static_cast<const double*>(arrivals), rpc);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // ready: k + eff_max float64, +inf past the queue; luts: lanes rows of
 // lut_stride float64; eff: lanes int64; timeout: lanes float64; pools:
 // lanes rows of pool_cap float64 (each sorted: 0 for each replica, +inf
-// after), updated in place; done: lanes x k float64. batches (lanes x k
-// int64) and n_batches (lanes int64) may both be null.
+// after), updated in place; out: lanes x k float64. batches (lanes x k
+// int64) and n_batches (lanes int64) may both be null. With base_last
+// and arrivals (k float64 each, in sorted-queue order) out receives each
+// query's latency, else its completion.
 extern "C" int sim_fill_static(const void* ready, long long k,
                                const void* luts, int lut_stride,
                                const void* eff, const void* timeout,
                                void* pools, int pool_cap, int lanes,
-                               void* done, void* batches, void* n_batches,
-                               void* stream) {
+                               void* out, void* batches, void* n_batches,
+                               const void* base_last, const void* arrivals,
+                               double rpc, void* stream) {
   if (lanes <= 0 || k <= 0) return 0;
-  const int blocks = (lanes + kLanesPerBlock - 1) / kLanesPerBlock;
-  sim_fill_static_kernel<<<blocks, kLanesPerBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(ready), k, static_cast<const double*>(luts),
-      lut_stride, static_cast<const int64_t*>(eff),
-      static_cast<const double*>(timeout), static_cast<double*>(pools),
-      pool_cap, lanes, static_cast<double*>(done),
-      static_cast<int64_t*>(batches), static_cast<int64_t*>(n_batches));
-  return static_cast<int>(cudaGetLastError());
+  if (k > kMaxQueries) return static_cast<int>(cudaErrorInvalidValue);
+  const bool regs = pool_cap <= kRegSlots;
+  const bool win = lut_stride - 1 <= kWinLimit;
+  const bool latency = base_last != nullptr;
+  auto s = static_cast<cudaStream_t>(stream);
+#define REPRO_FILL_LAUNCH(R, W, L)                                         \
+  launch_static<R, W, L>(ready, k, luts, lut_stride, eff, timeout, pools,  \
+                         pool_cap, lanes, out, batches, n_batches,         \
+                         base_last, arrivals, rpc, s)
+#define REPRO_FILL_LAUNCH_RW(R, W)                                         \
+  (latency ? REPRO_FILL_LAUNCH(R, W, true) : REPRO_FILL_LAUNCH(R, W, false))
+  const cudaError_t rc =
+      regs ? (win ? REPRO_FILL_LAUNCH_RW(true, true)
+                  : REPRO_FILL_LAUNCH_RW(true, false))
+           : (win ? REPRO_FILL_LAUNCH_RW(false, true)
+                  : REPRO_FILL_LAUNCH_RW(false, false));
+#undef REPRO_FILL_LAUNCH_RW
+#undef REPRO_FILL_LAUNCH
+  return static_cast<int>(rc);
 }
 
 // pool: room for every replica the events can add, sorted, its first

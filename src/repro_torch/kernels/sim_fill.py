@@ -12,8 +12,11 @@ maxima and minima, and adds.
 :func:`fill_static` fills C lanes over one sorted queue, each with its
 own LUT, effective batch, timeout and static pool; :func:`fill_dynamic`
 fills one lane whose pool changes with unit ``(t, +1/-1)`` events. Both
-write each query's completion in sorted-queue order. One counter counts
-the launches of both.
+write each query's completion in sorted-queue order. :func:`fill_latency`
+is the planner grid's launch of the static kernel: it writes each
+query's latency instead, ``(max(base_last, end) - arrival) + rpc`` as
+the reference's host tail computes it. One counter counts the launches
+of all three.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from repro_torch.kernels import _build
 
 FAR_FUTURE = 1e18         # repro_torch.sim.queueing._FAR_FUTURE
+MAX_QUERIES = (1 << 31) - 65    # the static kernel's 32-bit indices
 
 counter = _build.LaunchCounter()
 
@@ -51,6 +55,29 @@ def fill_static(ready_pad: torch.Tensor, k: int, luts: torch.Tensor,
     if ready_pad.device.type == "cpu":
         return fill_static_ref(ready_pad, k, luts, eff, timeouts, pools,
                                with_batches)
+    raise ValueError(f"sim_fill: unsupported device {ready_pad.device}")
+
+
+def fill_latency(ready_pad: torch.Tensor, k: int, luts: torch.Tensor,
+                 eff: torch.Tensor, timeouts: torch.Tensor,
+                 pools: torch.Tensor, base_last: torch.Tensor,
+                 arrivals: torch.Tensor, rpc: float) -> torch.Tensor:
+    """Static-pool fills of C lanes, as :func:`fill_static`, that return
+    each query's latency: (C, k) float64, in sorted-queue order, where
+    ``base_last`` and ``arrivals`` (k,) are the queue's accumulated
+    completion maximum over the other stages and its arrival times, in
+    the same order. Element j is ``(np.maximum(base_last[j], end_j) -
+    arrivals[j]) + rpc``. ``rpc`` must be at least 0: then, with
+    ``arrivals >= 0`` and ``base_last >= arrivals``, no latency is -0.0,
+    which the select's keys would order below +0.0."""
+    if not rpc >= 0.0:
+        raise ValueError(f"sim_fill: rpc must be at least 0, got {rpc}")
+    if ready_pad.is_cuda:
+        return _launch_static(ready_pad, k, luts, eff, timeouts, pools,
+                              False, (base_last, arrivals, float(rpc)))[0]
+    if ready_pad.device.type == "cpu":
+        return fill_latency_ref(ready_pad, k, luts, eff, timeouts, pools,
+                                base_last, arrivals, rpc)
     raise ValueError(f"sim_fill: unsupported device {ready_pad.device}")
 
 
@@ -89,7 +116,10 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
             f"cuda:{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _launch_static(ready_pad, k, luts, eff, timeouts, pools, with_batches):
+def _launch_static(ready_pad, k, luts, eff, timeouts, pools, with_batches,
+                   latency=None):
+    """One launch of the static kernel; ``latency``, where given, is
+    (base_last, arrivals, rpc) and the output holds latencies."""
     dev = ready_pad.get_device()
     lanes, lut_w = luts.shape
     cap = pools.shape[1]
@@ -98,23 +128,34 @@ def _launch_static(ready_pad, k, luts, eff, timeouts, pools, with_batches):
     _check("eff", eff, I64, (lanes,), dev)
     _check("timeouts", timeouts, F64, (lanes,), dev)
     _check("pools", pools, F64, (lanes, cap), dev)
+    bl_ptr = arr_ptr = None
+    rpc = 0.0
+    if latency is not None:
+        base_last, arrivals, rpc = latency
+        _check("base_last", base_last, F64, (k,), dev)
+        _check("arrivals", arrivals, F64, (k,), dev)
+        bl_ptr, arr_ptr = base_last.data_ptr(), arrivals.data_ptr()
     if k < 1 or lanes < 1 or cap < 1:
         raise ValueError(f"sim_fill: needs k, lanes and a pool of at least "
                          f"1, got k={k}, {lanes} lanes, pool {cap}")
-    done = torch.empty((lanes, k), dtype=F64, device=ready_pad.device)
+    if k > MAX_QUERIES:
+        raise ValueError(f"sim_fill: a queue of at most {MAX_QUERIES} "
+                         f"queries (32-bit indices), got {k}")
+    out = torch.empty((lanes, k), dtype=F64, device=ready_pad.device)
     batches = n_batches = None
     if with_batches:
         batches = torch.empty((lanes, k), dtype=I64, device=ready_pad.device)
         n_batches = torch.empty(lanes, dtype=I64, device=ready_pad.device)
     rc = _build.entry("sim_fill_static")(
         ready_pad.data_ptr(), k, luts.data_ptr(), lut_w, eff.data_ptr(),
-        timeouts.data_ptr(), pools.data_ptr(), cap, lanes, done.data_ptr(),
+        timeouts.data_ptr(), pools.data_ptr(), cap, lanes, out.data_ptr(),
         batches.data_ptr() if with_batches else None,
-        n_batches.data_ptr() if with_batches else None, _build.stream(dev))
+        n_batches.data_ptr() if with_batches else None, bl_ptr, arr_ptr,
+        rpc, _build.stream(dev))
     if rc:
         _build.check(rc, "sim_fill_static")
     counter.add()
-    return done, batches, n_batches
+    return out, batches, n_batches
 
 
 def _launch_dynamic(ready_pad, k, lut, eff, timeout_s, pool, n_free, ev_t,
@@ -221,6 +262,27 @@ def fill_static_ref(ready_pad: torch.Tensor, k: int, luts: torch.Tensor,
     for i in range(lanes):
         batches[i, :int(n_batches[i])] = sizes_t[i][sizes_t[i] > 0]
     return done, batches, n_batches
+
+
+def latency_ref(done: torch.Tensor, base_last: torch.Tensor,
+                arrivals: torch.Tensor, rpc: float) -> torch.Tensor:
+    """The reference's latency assembly on completions ``done`` (C, k):
+    ``last = np.maximum(base_last, done)``, with numpy's rule (the first
+    argument where it is at least the second or NaN), then ``(last -
+    arrivals) + rpc``."""
+    last = torch.where((base_last >= done) | torch.isnan(base_last),
+                       base_last, done)
+    return (last - arrivals) + rpc
+
+
+def fill_latency_ref(ready_pad: torch.Tensor, k: int, luts: torch.Tensor,
+                     eff: torch.Tensor, timeouts: torch.Tensor,
+                     pools: torch.Tensor, base_last: torch.Tensor,
+                     arrivals: torch.Tensor, rpc: float) -> torch.Tensor:
+    """:func:`fill_static_ref`'s completions through :func:`latency_ref`.
+    Same arguments and result as :func:`fill_latency`."""
+    done = fill_static_ref(ready_pad, k, luts, eff, timeouts, pools)[0]
+    return latency_ref(done, base_last, arrivals, rpc)
 
 
 def fill_dynamic_ref(ready_pad: torch.Tensor, k: int, lut: torch.Tensor,

@@ -307,9 +307,9 @@ class TraceSession:
         # the torch backend's device, resolved now so that a session that
         # cannot reach it raises before it simulates anything
         self.device = resolve_device(device) if backend == "torch" else None
-        # the last device grid's host-clock split (torch_backend
-        # .grid_stage_percentiles): inputs, fill, copy back, host tail
-        self.grid_split: Dict[str, float] = {}
+        # the last device grid's counts (torch_backend
+        # .grid_stage_percentiles): chunks, launches, lanes, queries
+        self.grid_split: Dict[str, int] = {}
         self.engine = engine
         self.arrivals = np.asarray(arrivals, dtype=np.float64)
         self.n = int(self.arrivals.shape[0])
@@ -666,13 +666,15 @@ class TraceSession:
 
         With ``backend="torch"`` a candidate set that varies exactly one
         *sink* FIFO stage — the shape of every planner probe grid and
-        lockstep replica search — is additionally scored in ONE launch
-        of the CUDA fill kernel (:func:`repro_torch.sim.torch_backend
+        lockstep replica search — is additionally scored by two launches
+        a chunk, the CUDA fill and select kernels
+        (:func:`repro_torch.sim.torch_backend
         .grid_stage_percentiles`): the fixed stages simulate once on
         host, the varied stage's (lut, batch, replicas, timeout) grid
-        fills on the device, a thread a candidate, and reduces to
-        percentiles on the host. Bit-identical to the host loop;
-        ineligible sets fall through to it.
+        fills on the device, a warp a candidate, each candidate's two
+        order statistics are selected there, and the host interpolates
+        the percentiles. Bit-identical to the host loop; ineligible sets
+        fall through to it.
         """
         configs = list(configs)
         if self.backend == "torch" and not replica_schedules:

@@ -11,22 +11,27 @@ the reference's numpy results in ``tests/test_torch_sim_backend.py``):
   a sorted buffer (head = minimum, a completion inserted at its rank):
   the numpy heap's pop sequence depends only on the value multiset, so a
   sorted buffer with the same contents pops the same values.
-* :func:`grid_stage_percentiles` — the planner sweep: one launch fills a
-  whole (hw, batch, replica, timeout) candidate grid, a thread per
-  candidate, each writing its completions in sorted-queue order. Lanes
+* :func:`grid_stage_percentiles` — the planner sweep, two launches a
+  chunk of candidates: the fill kernel fills the whole (hw, batch,
+  replica, timeout) candidate grid, a warp per candidate, writing each
+  query's *latency* in sorted-queue order; the select kernel
+  (:mod:`repro_torch.kernels.sim_select`) returns each candidate's two
+  order statistics, the reference's ``np.partition`` ranks. Only those
+  (C, 2) doubles come back; the exact ``np.percentile`` lerp runs on the
+  host, as in :func:`percentile_1d`. A selection does not care about
+  order, so the reference's scatter into arrival order has no
+  counterpart, and the queries that never reach the varied stage form
+  one segment of latencies that every candidate's select reads. Lanes
   are laid out by expected step count (:func:`_expected_steps`, stable
-  argsort) so that lanes of similar load share a warp. The reference's
-  ``_GRID_SEGMENTS`` has no counterpart: it let lanes of a lockstep scan
-  stop early between segments, and a thread per lane stops by itself.
-  The O(n) tail — scatter into arrival order, latency assembly,
-  ``np.partition`` selection and the exact ``np.percentile`` lerp — runs
-  on the host as the reference's numpy code, so identity is structural.
+  argsort). The reference's ``_GRID_SEGMENTS`` has no counterpart: it
+  let lanes of a lockstep scan stop early between segments, and a warp
+  per lane stops by itself.
   :meth:`repro_torch.sim.TraceSession.percentile_many` routes eligible
   candidate grids here when the session's ``backend`` is ``"torch"``.
 
 Devices: every entry takes a ``torch.device``; on a CUDA device the
-kernel runs (a build or launch failure raises), on the CPU its plain
-torch version does (the tests). Nothing falls back to numpy quietly:
+kernels run (a build or launch failure raises), on the CPU their plain
+torch versions do (the tests). Nothing falls back to numpy quietly:
 the only routes to numpy are the reference's own — a single fill below
 ``_FILL_THRESHOLD`` queries (off by default: the reference measured a
 single device fill slower than numpy at every size, so the device
@@ -37,13 +42,12 @@ empty static pool.
 from __future__ import annotations
 
 import math
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import sim_fill
+from repro_torch.kernels import sim_fill, sim_select
 
 _FAR_FUTURE = 1e18
 
@@ -54,8 +58,8 @@ _FILL_THRESHOLD = 1 << 62
 # fills) are cheaper through the host loop's shared caches
 _GRID_MIN_CANDIDATES = 48
 _GRID_MIN_QUERIES = 2048
-# device bytes of one launch's (lanes, k) float64 completions: a grid
-# larger than this fills in several launches of whole lanes
+# device bytes of one chunk's (lanes, k) float64 latencies: a grid
+# larger than this fills and selects in several chunks of whole lanes
 _GRID_OUT_BYTES = 1 << 31
 
 def available() -> bool:
@@ -185,10 +189,17 @@ def _quantile_params(n: int, p: float) -> Tuple[int, int, float]:
     return prev, prev + 1, virt - prev
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """The grid's order statistics to the host (one seam for timing the
+    copy back from outside the package)."""
+    return t.cpu().numpy()
+
+
 def _host_lerp(a: np.ndarray, b: np.ndarray, t: float) -> np.ndarray:
     """numpy's ``_lerp`` verbatim (the t >= 0.5 branch computes from b),
     in host doubles: the interpolation stays IEEE-faithful whatever the
-    device would contract."""
+    device would contract. Elementwise on arrays, so each element equals
+    the scalar call."""
     diff = b - a
     res = a + diff * t
     if t >= 0.5:
@@ -248,6 +259,20 @@ def lane_inputs(luts: Sequence[np.ndarray], eff_batches: Sequence[int],
             np.asarray(timeouts, dtype=np.float64), pools)
 
 
+def _unvisited(order: np.ndarray, base_last: np.ndarray,
+               arrivals: np.ndarray, rpc_delay_s: float,
+               device: torch.device) -> torch.Tensor:
+    """The latencies of the queries that never reach the varied stage
+    (conditional routing), computed once on ``device``: the reference's
+    ``comp`` is ``-inf`` there, so ``last`` is ``base_last`` and the
+    latency ``(base_last - arrivals) + rpc``."""
+    mask = np.ones(arrivals.shape[0], dtype=bool)
+    mask[order] = False
+    u = np.nonzero(mask)[0]
+    return (_to(base_last[u], device) - _to(arrivals[u], device)) + \
+        rpc_delay_s
+
+
 def grid_stage_percentiles(
     sorted_ready: np.ndarray,
     order: np.ndarray,
@@ -260,7 +285,7 @@ def grid_stage_percentiles(
     timeouts: Sequence[float],
     p: float,
     device: torch.device,
-    split: Optional[Dict[str, float]] = None,
+    split: Optional[Dict[str, int]] = None,
 ) -> np.ndarray:
     """Score a candidate grid that varies ONE sink stage, on ``device``.
 
@@ -271,12 +296,13 @@ def grid_stage_percentiles(
     replica count, formation timeout. Returns one ``np.percentile``-
     bit-identical latency percentile per candidate.
 
-    The device runs the fills, a thread per candidate, and returns each
-    candidate's completions in sorted-queue order; the host assembles
-    latencies and selects the percentile with the reference's numpy
-    ops, in the reference's order. ``split``, where given, receives the
-    host-clock seconds of the parts: inputs to the device, the fill
-    (launch to synchronize), completions to the host, the host tail.
+    Each chunk of candidates is two launches: the fill writes each
+    query's latency, a warp per candidate, and the select reduces each
+    candidate's latencies, with the shared segment of the queries that
+    skip the stage, to the two order statistics that ``np.percentile``
+    interpolates. The host receives (C, 2) doubles and lerps them.
+    ``split``, where given, receives the counts: chunks, launches (two
+    a chunk), lanes and queries.
     """
     C = len(luts)
     k = int(sorted_ready.shape[0])
@@ -293,37 +319,24 @@ def grid_stage_percentiles(
         for i in range(C)
     ], kind="stable")
     per_launch = max(1, _GRID_OUT_BYTES // (8 * k))
-    out = np.empty(C)
-    kth = (prev, nxt) if nxt > prev else (prev,)
-    parts = dict.fromkeys(("upload_s", "fill_s", "copy_s", "tail_s"), 0.0)
-    t0 = time.perf_counter()
     ready_d = _ready_pad(sorted_ready, bmax, device)
+    bl_s = _to(base_last[order], device)
+    arr_s = _to(arrivals[order], device)
+    seg = _unvisited(order, base_last, arrivals, rpc_delay_s, device)
+    stats = []
     for s in range(0, C, per_launch):
         lanes = perm[s:s + per_launch]
-        args = (_to(luts_pad[lanes], device), _to(eff_arr[lanes], device),
-                _to(tmo_arr[lanes], device), _to(free0[lanes], device))
-        t1 = time.perf_counter()
-        done, _, _ = sim_fill.fill_static(ready_d, k, *args)
-        if done.is_cuda:
-            torch.cuda.synchronize(done.device)
-        t2 = time.perf_counter()
-        done_h = done.cpu().numpy()
-        del done
-        t3 = time.perf_counter()
-        for j, lane in enumerate(lanes):
-            comp = np.full(n, -np.inf)
-            comp[order] = done_h[j]
-            last = np.maximum(base_last, comp)
-            lat = last - arrivals + rpc_delay_s
-            part = np.partition(lat, kth)
-            out[lane] = _host_lerp(part[prev], part[nxt], gamma)
-        t4 = time.perf_counter()
-        parts["upload_s"] += t1 - t0
-        parts["fill_s"] += t2 - t1
-        parts["copy_s"] += t3 - t2
-        parts["tail_s"] += t4 - t3
-        t0 = t4
+        lat = sim_fill.fill_latency(
+            ready_d, k, _to(luts_pad[lanes], device),
+            _to(eff_arr[lanes], device), _to(tmo_arr[lanes], device),
+            _to(free0[lanes], device), bl_s, arr_s, rpc_delay_s)
+        stats.append(sim_select.select(lat, seg, prev, nxt))
+        del lat
+    ab = _to_host(torch.cat(stats))
+    out = np.empty(C)
+    out[perm] = _host_lerp(ab[:, 0], ab[:, 1], gamma)
     if split is not None:
         split.clear()
-        split.update(parts, launches=-(-C // per_launch), lanes=C, queries=k)
+        split.update(chunks=len(stats), launches=2 * len(stats), lanes=C,
+                     queries=k)
     return out

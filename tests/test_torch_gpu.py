@@ -1028,3 +1028,210 @@ def test_sim_fill_dynamic_kernel_equals_plain_and_numpy(gen, monkeypatch,
     p_done, p_b, p_n = sim_fill.fill_dynamic_ref(*copy)
     assert torch.equal(k_done, p_done) and torch.equal(k_n, p_n)
     assert torch.equal(k_b[:int(k_n)], p_b[:int(p_n)])
+
+
+# ------------------------------------------- the planner sweep's grid path
+
+# the fill's four layouts: pools of up to 32 replicas live in registers,
+# larger ones in shared memory (32 and 33 sit on either side); where
+# every eff is at most 32 the queue lives in register windows, else
+# each step loads its window (32 and 128)
+REG_LANES = [(e, r, t) for e in (1, 8, 128) for r in (1, 3, 16, 32)
+             for t in (0.0, 0.005)]
+SMEM_LANES = [(1, 33, 0.0), (8, 33, 0.005), (128, 2, 0.0), (8, 512, 0.0)]
+WIN_LANES = [(e, r, t) for e in (1, 2, 8, 32) for r in (1, 3, 16, 32)
+             for t in (0.0, 0.005)]
+WIN_SMEM_LANES = [(1, 33, 0.0), (8, 33, 0.005), (32, 2, 0.0), (2, 512, 0.01)]
+LAYOUTS = [REG_LANES, SMEM_LANES, WIN_LANES, WIN_SMEM_LANES]
+LAYOUT_IDS = ["registers", "shared", "registers-windows", "shared-windows"]
+
+
+def _latency_inputs(ready, seed=5):
+    """base_last and arrivals (in sorted-queue order) for a queue: the
+    arrivals precede each ready time, base_last is at least the
+    arrival."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.maximum(ready - rng.gamma(2.0, 0.004, ready.size), 0.0)
+    base_last = arrivals + rng.gamma(2.0, 0.01, ready.size)
+    return (torch.from_numpy(base_last).cuda(),
+            torch.from_numpy(arrivals).cuda())
+
+
+@pytest.mark.parametrize("regime", ["underloaded", "mixed", "saturated"])
+@pytest.mark.parametrize("lanes", LAYOUTS, ids=LAYOUT_IDS)
+def test_sim_fill_pools_in_registers_and_shared_equal_plain(gen, regime,
+                                                            lanes):
+    """Completions, batches and final pools of the four layouts equal the
+    plain version's on the card, and the completions the numpy fill's."""
+    from repro_torch.kernels import sim_fill
+    from repro_torch.sim.queueing import simulate_stage
+
+    ready = _fill_queue(regime, 4096)
+    k = ready.size
+    pad, luts, eff, tmo, pools = _lanes_on(torch.device("cuda"), ready,
+                                           lanes)
+    k_pools, p_pools = pools.clone(), pools.clone()
+    done, batches, nb = sim_fill.fill_static(pad, k, luts, eff, tmo,
+                                             k_pools, True)
+    p_done, p_batches, p_nb = sim_fill.fill_static_ref(
+        pad, k, luts, eff, tmo, p_pools, True)
+    assert torch.equal(done, p_done) and torch.equal(nb, p_nb)
+    assert torch.equal(k_pools, p_pools)
+    for i, (e, r, t) in enumerate(lanes):
+        n = int(nb[i])
+        assert torch.equal(batches[i, :n], p_batches[i, :n])
+        want_done, _, _ = simulate_stage("fifo", ready, _fill_lut(e), e, r,
+                                         None, t)
+        assert np.array_equal(done[i].cpu().numpy(), want_done), (e, r, t)
+
+
+@pytest.mark.parametrize("regime", ["underloaded", "mixed", "saturated"])
+@pytest.mark.parametrize("lanes", LAYOUTS, ids=LAYOUT_IDS)
+def test_sim_fill_latency_rows_equal_plain(gen, regime, lanes):
+    """The grid launch's latency rows equal the plain assembly over the
+    plain fill, bit for bit."""
+    from repro_torch.kernels import sim_fill
+
+    ready = _fill_queue(regime, 4096)
+    k = ready.size
+    pad, luts, eff, tmo, pools = _lanes_on(torch.device("cuda"), ready,
+                                           lanes)
+    bl, arr = _latency_inputs(ready)
+    before = sim_fill.counter.count
+    lat = sim_fill.fill_latency(pad, k, luts, eff, tmo, pools.clone(), bl,
+                                arr, 0.0015)
+    torch.cuda.synchronize()
+    assert sim_fill.counter.count == before + 1
+    want = sim_fill.fill_latency_ref(pad, k, luts, eff, tmo, pools.clone(),
+                                     bl, arr, 0.0015)
+    assert torch.equal(lat, want)
+
+
+def _select_rows():
+    """9a's rows: ties, +inf and FAR_FUTURE tails, n = 1, k < n (the
+    segment), all equal."""
+    rng = np.random.default_rng(11)
+    lat = rng.gamma(2.0, 0.05, 5000)
+    empty = np.empty(0)
+    return {
+        "ties": (np.repeat(rng.uniform(0.01, 0.2, 40), 125), empty),
+        "inf tail": (np.concatenate([lat, np.full(60, np.inf)]), empty),
+        "FAR_FUTURE tail": (np.concatenate([lat, np.full(90, 1e18)]), empty),
+        "n = 1": (np.array([0.75]), empty),
+        "k < n": (lat[:3000], lat[3000:] + 0.5),
+        "all equal": (np.full(4000, 0.125), empty),
+    }
+
+
+def _partition_pair(row, seg, r0, r1):
+    lat = np.concatenate([row, seg])
+    part = np.partition(lat, (r0, r1) if r1 > r0 else (r0,))
+    return float(part[r0]), float(part[r1])
+
+
+@pytest.mark.parametrize("name", list(_select_rows()))
+@pytest.mark.parametrize("p", [0.0, 50.0, 99.0, 100.0])
+def test_sim_select_equals_plain_and_partition(gen, name, p):
+    from repro_torch.kernels import sim_select
+    from repro_torch.sim.torch_backend import _quantile_params
+
+    row, seg = _select_rows()[name]
+    rows = np.stack([row, row[::-1].copy(), np.sort(row)])
+    prev, nxt, _ = _quantile_params(row.size + seg.size, p)
+    rows_d = torch.from_numpy(rows).cuda()
+    seg_d = torch.from_numpy(seg).cuda()
+    before = sim_select.counter.count
+    got = sim_select.select(rows_d, seg_d, prev, nxt)
+    torch.cuda.synchronize()
+    assert sim_select.counter.count == before + 1
+    assert torch.equal(got, sim_select.select_ref(rows_d, seg_d, prev, nxt))
+    for i in range(rows.shape[0]):
+        assert tuple(got[i].tolist()) == _partition_pair(rows[i], seg, prev,
+                                                         nxt)
+
+
+def test_sim_select_at_the_sweeps_shape(gen):
+    """1200 rows of 107,487 latencies (spread, tied, with +inf and
+    FAR_FUTURE tails): the kernel equals its plain version and
+    np.partition at p99 and p50, row by row."""
+    from repro_torch.kernels import sim_select
+    from repro_torch.sim.torch_backend import _quantile_params
+
+    rng = np.random.default_rng(26)
+    c, n = 1200, 107487
+    rows = rng.gamma(2.0, 0.05, (c, n))
+    rows[::3] = np.round(rows[::3], 2)                 # heavy ties
+    rows[1::7, -2000:] = np.inf
+    rows[2::7, -1500:] = 1e18
+    rows_d = torch.from_numpy(rows).cuda()
+    seg_d = torch.empty(0, dtype=torch.float64, device="cuda")
+    for p in (99.0, 50.0):
+        prev, nxt, _ = _quantile_params(n, p)
+        got = sim_select.select(rows_d, seg_d, prev, nxt)
+        assert torch.equal(got, sim_select.select_ref(rows_d, seg_d, prev,
+                                                      nxt))
+        part = np.partition(rows, (prev, nxt), axis=1)
+        assert np.array_equal(got.cpu().numpy(), part[:, [prev, nxt]])
+
+
+def test_sim_grid_makes_two_launches_a_chunk(gen, monkeypatch):
+    """A grid cut into three chunks launches the fill and the select
+    three times each, and scores what the plain versions score on the
+    CPU."""
+    from repro_torch.kernels import sim_fill, sim_select
+    from repro_torch.sim import torch_backend as tb
+
+    ready = _fill_queue("mixed", 4096)
+    rng = np.random.default_rng(2)
+    n = 5000
+    arrivals = np.sort(rng.uniform(0.0, ready[-1], n))
+    order = np.sort(rng.choice(n, ready.size, replace=False))
+    base_last = arrivals + rng.gamma(2.0, 0.01, n)
+    lanes = WIN_LANES[:9]
+    args = (ready, order, base_last, arrivals, 0.001,
+            [_fill_lut(e) for e, _, _ in lanes], [e for e, _, _ in lanes],
+            [r for _, r, _ in lanes], [t for _, _, t in lanes], 99.0)
+    want = tb.grid_stage_percentiles(*args, torch.device("cpu"))
+    monkeypatch.setattr(tb, "_GRID_OUT_BYTES", 3 * 8 * ready.size)
+    fills, selects = sim_fill.counter.count, sim_select.counter.count
+    split = {}
+    got = tb.grid_stage_percentiles(*args, torch.device("cuda"), split=split)
+    assert np.array_equal(got, want)
+    assert split == {"chunks": 3, "launches": 6, "lanes": 9,
+                     "queries": ready.size}
+    assert sim_fill.counter.count == fills + 3
+    assert sim_select.counter.count == selects + 3
+
+
+def test_sim_kernels_reject_what_they_do_not_take(gen):
+    from repro_torch.kernels import sim_fill, sim_select
+
+    rows = torch.rand(3, 100, dtype=torch.float64, device="cuda")
+    seg = torch.rand(5, dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError, match="rows"):
+        sim_select.select(rows.float(), seg, 0, 1)
+    with pytest.raises(ValueError, match="rows"):
+        sim_select.select(rows[:, ::2], seg, 0, 1)
+    with pytest.raises(ValueError, match="seg"):
+        sim_select.select(rows, seg.cpu(), 0, 1)
+    with pytest.raises(ValueError, match="seg"):
+        sim_select.select(rows, seg[None], 0, 1)
+    with pytest.raises(ValueError, match="r0"):
+        sim_select.select(rows, seg, 3, 105)
+    with pytest.raises(ValueError, match="r0"):
+        sim_select.select(rows, seg, 2, 1)
+    ready = _fill_queue("mixed", 256)
+    pad, luts, eff, tmo, pools = _lanes_on(torch.device("cuda"), ready,
+                                           REG_LANES[:2])
+    bl, arr = _latency_inputs(ready)
+    with pytest.raises(ValueError, match="base_last"):
+        sim_fill.fill_latency(pad, 256, luts, eff, tmo, pools, bl[1:], arr,
+                              0.0)
+    with pytest.raises(ValueError, match="arrivals"):
+        sim_fill.fill_latency(pad, 256, luts, eff, tmo, pools, bl,
+                              arr.float(), 0.0)
+    with pytest.raises(ValueError, match="base_last"):
+        sim_fill.fill_latency(pad, 256, luts, eff, tmo, pools, bl.cpu(), arr,
+                              0.0)
+    with pytest.raises(ValueError, match="rpc"):
+        sim_fill.fill_latency(pad, 256, luts, eff, tmo, pools, bl, arr, -1.0)

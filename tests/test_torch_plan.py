@@ -474,22 +474,34 @@ def test_a_plan_on_the_card_has_a_finite_cost():
 def test_the_analyzer_finds_nothing_in_the_copies(tmp_path):
     """KEY01 (cache-key completeness) and DET01 (determinism) locate
     their files by ``repro/...`` suffixes, so the port's copies are laid
-    out under a ``repro`` tree and scanned there."""
+    out under a ``repro`` tree and scanned there. The one accepted
+    finding is the reference's own (``analysis_baseline.txt``): the
+    measured profiler reads the wall clock by design."""
     src = ROOT / "src" / "repro_torch"
     copies = ["core/pipeline.py", "core/policy.py", "core/envelope.py",
-              "core/estimator.py", "core/planner.py", "sim/engine.py",
-              "sim/queueing.py", "sim/result.py", "workload/slo_classes.py"]
+              "core/estimator.py", "core/planner.py", "core/profiler.py",
+              "core/hardware.py", "configs/pipelines.py", "sim/engine.py",
+              "sim/queueing.py", "sim/result.py", "sim/torch_backend.py",
+              "workload/slo_classes.py"]
     for rel in copies:
         dst = tmp_path / "repro" / rel
         dst.parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(src / rel, dst)
+    accepted = [line for line in
+                (ROOT / "analysis_baseline.txt").read_text().splitlines()
+                if line.startswith("DET01\trepro/core/profiler.py\t")]
+    assert len(accepted) == 1
+    baseline = tmp_path / "baseline.txt"
+    baseline.write_text(accepted[0] + "\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro.analysis", "--root", str(tmp_path),
-         "--rules", "KEY01,DET01", "--baseline", str(tmp_path / "none"),
-         "--json"],
+         "--rules", "KEY01,DET01", "--baseline", str(baseline), "--json"],
         env=env, cwd=tmp_path, capture_output=True, text=True, timeout=120)
     report = json.loads(proc.stdout)
     assert report["files_scanned"] == len(copies)
     assert report["findings"] == [], report["findings"]
+    assert {(f["path"], f["scope"]) for f in report["suppressed"]} == \
+        {("repro/core/profiler.py", "profile_model_measured")}
+    assert report["unused_baseline"] == []
     assert proc.returncode == 0, proc.stderr

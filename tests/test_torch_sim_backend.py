@@ -287,9 +287,10 @@ def test_grid_percentiles_equal_the_reference_and_engage(monkeypatch,
     sess = SimEngine(ours.pipeline, ours.profiles).session(
         arr, backend="torch", device="cpu")
     assert sess.percentile_many(grid, 99.0) == want
-    assert plain_calls == [arr.size]          # one launch, every lane
+    assert plain_calls == [arr.size]          # one fill, every lane
     assert sess.grid_split["lanes"] == len(grid)
-    assert sess.grid_split["launches"] == 1
+    assert sess.grid_split["chunks"] == 1
+    assert sess.grid_split["launches"] == 2   # the fill and the select
     # the second pass is all cache hits, still equal
     assert sess.percentile_many(grid, 99.0) == want
     assert len(plain_calls) == 1
