@@ -17,7 +17,12 @@ Phases, in order; any failure exits non-zero:
    device time at every cluster size its plan could pick; for the scan
    its grid against the CTAs an SM holds (the waves), at the hybrid's
    prefill chunk and step shape in f32 and bf16, with a bound that
-   counts its exponentials on the special-function units;
+   counts its exponentials on the special-function units; for flash
+   attention also the forward's logsumexp and the backward kernel
+   against their plain versions (f32 5e-4, bf16 3e-2) at the training
+   shape and at edge shapes, and at the training shape the backward's
+   time beside its plain version's, SDPA's backward and its bound, and
+   the forward with its logsumexp against the forward without;
 3. check the port's forward, and its prefill + greedy decode, on the
    card against its plain CPU path on the smoke configs, build both
    cascade stages at full published width (xlstm-125m 12L x 768,
@@ -127,7 +132,18 @@ Phases, in order; any failure exits non-zero:
    each kernel's device time and its plain version's at the sweep's
    shape, the select's beside ``torch.kthvalue``, and (d) one fill,
    numpy against the kernel forced on, at 4096, 32768 and 262144
-   queries.
+   queries;
+10. train llama3.2-1b at published width on one card (16L x 2048, f32,
+   remat, AdamW(lr=1e-3), seeded random weights): (a) one train step on
+   the smoke config on the card against the CPU (loss, every leaf's
+   gradient and first moment); (b) at full width, B 2 x 512, one step's
+   gradients through the kernels against the plain versions on the card,
+   per leaf within 5e-4 of the leaf's largest entry; (c) the main path:
+   ``make_train_step`` on ``batches(cfg, 2, 4096)`` (train_4k's length,
+   its batch of 256 cut to 2), one warm-up and 8 timed steps, each
+   step's launches exact (rmsnorm 65, flash forward 32, backward 16),
+   ms a step, tokens/s, peak memory, the device's busy share of a traced
+   step, and the losses: finite, the mean of the last 3 below the first.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -190,6 +206,10 @@ from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import sim_fill, sim_select  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.config import dense_segments  # noqa: E402
+from repro_torch.kernels import ops as kernel_ops  # noqa: E402
+from repro_torch.train import AdamW, make_train_step  # noqa: E402
+from repro_torch.train.data import batches  # noqa: E402
+from repro_torch.train.tree import leaves as tree_leaves  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     SEQ,
     LiveControlLoop,
@@ -261,7 +281,20 @@ COUNTERS = {"rmsnorm": rms_mod.counter, "flash_attention": fa_mod.counter,
             "mamba_scan": ms_mod.counter}
 # the port's kernels, by the function names a profiler trace shows
 PORT_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "flash_fwd_kernel",
-                "decode_", "mamba_scan_kernel", "mamba_step_kernel")
+                "decode_", "mamba_scan_kernel", "mamba_step_kernel",
+                "flash_bwd_")
+# phase 10: llama3.2-1b trained at published width, f32 (the reference's
+# dtype), remat on as the dry-run sets it for every train shape
+# (src/repro/launch/shapes.py:124-127); train_4k's sequence length with
+# its batch of 256 cut to 2 to fit one card; the example's AdamW(lr=1e-3)
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 8
+TRAIN_LR = 1e-3
+GRAD_SEQ = 512                  # the kernels-vs-plain gradient check
+# the backward's bar against its plain version (the reference's bar for
+# its flash VJP against the oracle's autodiff, tests/test_kernels.py:213)
+BWD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-4),
+           torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
 
 
 def launches_per_forward(cfg, seq: int, mtp: bool = False) -> dict:
@@ -413,6 +446,159 @@ def check_flash(gen: torch.Generator) -> None:
             err = assert_close(got, exp, dtype, f"flash {name} {dtype}")
             log(f"  flash    {name:13s} {str(dtype):14s} "
                 f"max_abs_err={err:.3e}  ok")
+
+
+# the backward at the training shape and at edge shapes: the reference's
+# five cases (tests/test_kernels.py:183-189, B 2, D 64), G 1 / 2 / 4,
+# window 64, D 128, MLA's D 192 / Dv 128, Sq > Sk (rows that see no key)
+FLASH_BWD_CASES = (
+    # (name, b, sq, sk, h, kv, d, dv, causal, window)
+    ("train 4k", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64, 64, True, 0),
+    ("ref 256 G1", 2, 256, 256, 4, 4, 64, 64, True, 0),
+    ("ref 128x384 G2", 2, 128, 384, 4, 2, 64, 64, True, 0),
+    ("ref full G4", 2, 256, 256, 4, 1, 64, 64, False, 0),
+    ("ref window 64", 2, 256, 256, 8, 2, 64, 64, True, 64),
+    ("ref 100x200", 2, 100, 200, 4, 2, 64, 64, True, 0),
+    ("D 128 G 8", 2, 192, 192, 64, 8, 128, 128, True, 0),
+    ("MLA 192/128", 1, 160, 160, 16, 16, 192, 128, True, 0),
+    ("D!=Dv 64/32", 2, 70, 90, 6, 3, 64, 32, True, 16),
+    ("Sq>Sk", 1, 48, 16, 4, 1, 32, 32, True, 0),
+)
+
+
+def flash_bwd_inputs(gen, b, sq, sk, h, kv, d, dv, causal, window, dtype):
+    """q, k, v, the kernel's forward (out, lse) and a dO."""
+    q = rand(gen, (b, sq, h, d), dtype)
+    k = rand(gen, (b, sk, kv, d), dtype)
+    v = rand(gen, (b, sk, kv, dv), dtype)
+    out, lse = fa_mod._launch(q, k, v, causal, window, None, want_lse=True)
+    return q, k, v, out, lse, rand(gen, (b, sq, h, dv), dtype)
+
+
+def check_flash_bwd(gen: torch.Generator) -> None:
+    """The forward's lse against the plain version's, then the backward
+    kernel against its plain version on the same (q, k, v, out, lse,
+    dO), f32 5e-4 and bf16 3e-2; a row that sees no key gets zero dQ."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, b, sq, sk, h, kv, d, dv, causal, window in FLASH_BWD_CASES:
+            q, k, v, out, lse, do = flash_bwd_inputs(
+                gen, b, sq, sk, h, kv, d, dv, causal, window, dtype)
+            exp_out, exp_lse = ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window, return_lse=True)
+            assert_close(out, exp_out, dtype, f"flash {name} out")
+            seen = torch.isfinite(exp_lse)
+            if not torch.equal(seen, torch.isfinite(lse)):
+                raise RuntimeError(f"flash {name}: lse is +inf on other "
+                                   f"rows than the plain version's")
+            lse_err = float((lse[seen] - exp_lse[seen]).abs().max())
+            torch.testing.assert_close(
+                lse[seen], exp_lse[seen], **TOL[torch.float32],
+                msg=lambda m: f"flash {name} {dtype} lse: {m}")
+            before = fa_mod.bwd_counter.count
+            got = fa_mod._launch_bwd(q, k, v, out, lse, do, causal, window,
+                                     None)
+            torch.cuda.synchronize()
+            if fa_mod.bwd_counter.count != before + 1:
+                raise RuntimeError("flash backward: the call did not count "
+                                   "one launch")
+            exp = ref.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                              causal=causal, window=window)
+            errs = []
+            for what, g, e in zip(("dq", "dk", "dv"), got, exp):
+                errs.append(float((g.float() - e.float()).abs().max()))
+                torch.testing.assert_close(
+                    g.float(), e.float(), **BWD_TOL[dtype],
+                    msg=lambda m: f"flash bwd {name} {dtype} {what}: {m}")
+            if not seen.all() and got[0][~seen].abs().max() != 0:
+                raise RuntimeError(f"flash bwd {name}: a row that sees no "
+                                   f"key has a nonzero dQ")
+            log(f"  flash bwd {name:14s} {str(dtype):14s} lse "
+                f"{lse_err:.3e} dq/dk/dv max_abs_err "
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}  ok")
+            del q, k, v, out, lse, do, got, exp
+
+
+def flash_bwd_work(b, sq, sk, h, kv, d, dv, dtype, causal=True, window=0):
+    """(bytes, operations) of one backward call: q, k, v, out, dO and lse
+    read once, dQ, dK, dV written once; 2 (3 D + 2 Dv) operations per
+    (query, key) pair the mask keeps (S, dP, dV, dK, dQ)."""
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = (2 * b * sq * h * (d + dv) + 2 * b * sk * kv * (d + dv)) * esz \
+        + b * sq * h * 4
+    pairs = int(ref.causal_mask_ref(sq, sk, window, offset=sk - sq).sum()) \
+        if causal else sq * sk
+    return nbytes, b * h * pairs * 2 * (3 * d + 2 * dv)
+
+
+def time_flash_bwd(gen: torch.Generator) -> dict:
+    """The backward's record at the training shape, f32: the kernel, its
+    plain version and SDPA's backward (autograd on the same dO, the
+    library yardstick); beside it the forward with its lse against the
+    forward without, and the same in bf16."""
+    name, b, sq, sk, h, kv, d, dv, causal, window = FLASH_BWD_CASES[0]
+    record = None
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, out, lse, do = flash_bwd_inputs(
+            gen, b, sq, sk, h, kv, d, dv, causal, window, dtype)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        got = fa_mod._launch_bwd(q, k, v, out, lse, do, causal, window, None)
+        exp = ref.flash_attention_bwd_ref(q, k, v, out, lse, do)
+        err = max(float((g.float() - e.float()).abs().max())
+                  for g, e in zip(got, exp))
+        lib = torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True)
+        lib_err = max(float((g.transpose(1, 2).float() - e.float()).abs()
+                            .max()) for g, e in zip(lib, exp))
+        del got, exp, lib
+        ms = time_in_turns((
+            lambda: fa_mod._launch_bwd(q, k, v, out, lse, do, causal,
+                                       window, None),
+            lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, do),
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                        retain_graph=True),
+            lambda: fa_mod._launch(q, k, v, causal, window, None,
+                                   want_lse=True),
+            lambda: fa_mod._launch(q, k, v, causal, window, None)),
+            (10, 3, 10, 10, 10), rounds=3)
+        nbytes, nops = flash_bwd_work(b, sq, sk, h, kv, d, dv, dtype)
+        bytes_ms = nbytes / H100_HBM_BW * 1e3
+        if dtype == torch.float32:
+            # f32-accurate products: 3xTF32 on the tensor cores is the
+            # least time (as for the forward); the kernel's own f32 FMA
+            # on the CUDA cores would take ops / 67 TFLOP/s
+            ops_ms = 3 * nops / H100_PEAK_FLOPS_TF32 * 1e3
+            fma_ms = nops / H100_PEAK_FLOPS_F32 * 1e3
+        else:
+            ops_ms = nops / H100_PEAK_FLOPS_BF16 * 1e3
+            fma_ms = nops / H100_PEAK_FLOPS_F32 * 1e3
+        log(f"  flash bwd at the {name} shape B={b} S={sq} {h}/{kv} heads "
+            f"D={d} {str(dtype)[6:]}: kernel {ms[0]:.4f} ms, plain "
+            f"{ms[1]:.4f} ms, SDPA backward {ms[2]:.4f} ms (differs from "
+            f"the plain version by {lib_err:.3e}; not asserted), bound "
+            f"{max(bytes_ms, ops_ms):.4f} ms ({nops:.4g} operations; "
+            f"{'bytes' if bytes_ms >= ops_ms else 'operations'}), f32 FMA "
+            f"bound {fma_ms:.4f} ms; forward with lse {ms[3]:.4f} ms, "
+            f"without {ms[4]:.4f} ms; max_abs_err {err:.3e}")
+        if dtype == torch.float32:
+            record = {
+                "name": "flash_attention_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/"
+                          "flash_attention_bwd.cu",
+                "replaces": "src/repro/kernels/xla_flash.py:163",
+                "launches": 0, "max_abs_err": err, "ms": ms[0],
+                "plain_ms": ms[1], "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": ms[2]}
+        del q, k, v, out, lse, do, qt, kt, vt, ot, dot
+    args = flash_bwd_inputs(gen, b, sq, sk, h, kv, d, dv, causal, window,
+                            torch.float32)
+    report_trace(f"flash bwd at the {name} shape",
+                 cuda_events(lambda: fa_mod._launch_bwd(
+                     *args, causal, window, None)), record["ms"])
+    return record
 
 
 DECODE_CASES = (
@@ -832,6 +1018,9 @@ def time_launch_path(gen: torch.Generator) -> None:
     held.argtypes, held.restype = _build.SIGNATURES["rmsnorm_f32"]
     steps = (
         ("loop and lambda call (baseline)", lambda: None),
+        ("device type and grad route", lambda: (
+            x.device.type not in ("cuda", "cpu"), torch.is_grad_enabled()
+            and (x.requires_grad or g.requires_grad))),
         ("checks: dtype, shape, device, contiguity", lambda: (
             rms_mod.KERNEL_DTYPES.get(x.dtype), x.shape[-1],
             g.shape != (d,), g.get_device() != dev, x.is_contiguous(),
@@ -1135,12 +1324,12 @@ def check_decode_against_cpu() -> None:
             f"cuda vs cpu: max_abs_err={err:.3e} (tol 1e-4)  ok")
 
 
-def _tree_to(tree, device):
+def _tree_to(tree, device, copy: bool = False):
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
+        return {k: _tree_to(v, device, copy) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        return tuple(_tree_to(v, device) for v in tree)
-    return tree.to(device)
+        return tuple(_tree_to(v, device, copy) for v in tree)
+    return tree.to(device, copy=copy)
 
 
 def build_and_profile():
@@ -3044,6 +3233,238 @@ def planner_sweep() -> list:
     return records
 
 
+# --------------------------------------------------------------- phase 10
+
+class RecordingAdamW:
+    """AdamW that keeps a copy of the gradients of its last update (the
+    train step calls only ``update``)."""
+
+    def __init__(self, opt: AdamW):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, params, state, grads):
+        self.grads = [g.detach().clone() for g in tree_leaves(grads)]
+        return self.opt.update(params, state, grads)
+
+
+TRAIN_COUNTERS = {"rmsnorm": rms_mod.counter,
+                  "flash_attention": fa_mod.counter,
+                  "flash_attention_bwd": fa_mod.bwd_counter}
+
+
+def train_counts(reset: bool = False) -> dict:
+    if reset:
+        for c in TRAIN_COUNTERS.values():
+            c.reset()
+    return {name: c.count for name, c in TRAIN_COUNTERS.items()}
+
+
+def launches_per_train_step(cfg, seq: int) -> dict:
+    """Launches of one remat training step of a dense model: the
+    forward's, each layer's norms and flash again when the backward runs
+    the layer's checkpoint (the final norm is outside them), and one
+    flash backward per attention layer (65 / 32 / 16 for llama3.2-1b)."""
+    fwd = launches_per_forward(cfg, seq)
+    return {"rmsnorm": 2 * fwd["rmsnorm"] - 1,
+            "flash_attention": 2 * fwd["flash_attention"],
+            "flash_attention_bwd": fwd["flash_attention"]}
+
+
+def batch_on(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def leaf_errors(got: list, exp: list) -> list:
+    """Per leaf: max |got - exp| over the leaf's largest |exp|."""
+    return [float((g.float() - e.float()).abs().max())
+            / max(float(e.float().abs().max()), 1e-30)
+            for g, e in zip(got, exp)]
+
+
+def check_leaves(label: str, got: list, exp: list, rel: float) -> float:
+    errs = leaf_errors(got, exp)
+    worst = max(errs)
+    if not worst <= rel:
+        raise RuntimeError(f"{label}: a leaf's gradient differs by "
+                           f"{worst:.3e} of its largest entry (bar {rel})")
+    return worst
+
+
+# the bar for one training step's gradients held against another: per
+# leaf, 5e-4 of the leaf's largest entry, the backward's own bar (the
+# reference's for its flash VJP); relative to the leaf's scale because an
+# entry near zero carries absolute error, and f32 differences of ~1e-6
+# a kernel grow little through 16 layers
+STEP_REL = 5e-4
+
+
+def smoke_step_against_cpu() -> None:
+    """Phase 10 (a): one step of make_train_step with AdamW on the
+    llama3.2-1b smoke config (remat on) on the card against the same
+    step on the CPU: loss, every leaf's gradient, every first moment."""
+    cfg = dataclasses.replace(get_smoke(TRAIN_ARCH), remat=True)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    batch = next(batches(cfg, 2, 64, seed=2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev)
+        p = _tree_to(params, dev, copy=True)   # the step writes it in place
+        opt = RecordingAdamW(AdamW(lr=TRAIN_LR))
+        state = opt.init(p)
+        train_counts(reset=True)
+        _, state, m = make_train_step(model, opt)(p, state,
+                                                  batch_on(batch, dev))
+        torch.cuda.synchronize()
+        launched = train_counts()
+        out[dev] = (float(m["loss"]), [g.cpu() for g in opt.grads],
+                    [t.cpu() for t in tree_leaves(state.mu)], launched)
+        if dev == "cpu" and any(launched.values()):
+            raise RuntimeError(f"the CPU step launched kernels {launched}")
+    want = launches_per_train_step(cfg, 64)
+    if out["cuda"][3] != want:
+        raise RuntimeError(f"smoke step launches {out['cuda'][3]} != {want}")
+    (lc, gc_, mc, _), (lg, gg, mg, _) = out["cpu"], out["cuda"]
+    if not abs(lc - lg) <= 1e-5 * abs(lc):
+        raise RuntimeError(f"smoke step loss: card {lg} vs CPU {lc}")
+    g_err = check_leaves("smoke step, card vs CPU", gg, gc_, STEP_REL)
+    m_err = check_leaves("smoke step moments, card vs CPU", mg, mc, STEP_REL)
+    log(f"  (a) {cfg.name}, one step on the card vs the CPU: loss "
+        f"{lg:.6f} vs {lc:.6f}; {len(gg)} leaves, worst gradient "
+        f"{g_err:.3e} and first moment {m_err:.3e} of the leaf's largest "
+        f"entry (bar {STEP_REL}); card launches {out['cuda'][3]}")
+
+
+def plain_on_the_card():
+    """Point the model's norm and flash calls at the plain versions on
+    the card (autograd of plain PyTorch), for a comparison only; returns
+    the function that restores them."""
+    saved = kernel_ops.rmsnorm, kernel_ops.flash_attention
+    kernel_ops.rmsnorm = ref.rmsnorm_ref
+    kernel_ops.flash_attention = \
+        lambda q, k, v, causal=True, window=0: ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window)
+
+    def restore():
+        kernel_ops.rmsnorm, kernel_ops.flash_attention = saved
+    return restore
+
+
+def grads_against_plain(cfg) -> None:
+    """Phase 10 (b): at full width, B 2 x GRAD_SEQ, one step's gradients
+    through the kernels against the same step's through the plain
+    versions on the card (no kernel launched), per leaf within
+    STEP_REL of the leaf's largest entry."""
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    batch = batch_on(next(batches(cfg, TRAIN_BATCH, GRAD_SEQ, seed=1)),
+                     "cuda")
+    results = []
+    for plain in (False, True):
+        restore = plain_on_the_card() if plain else None
+        try:
+            opt = RecordingAdamW(AdamW(lr=TRAIN_LR))
+            train_counts(reset=True)
+            # a copy each time: the optimizer writes the tree in place
+            p = _tree_to(params, "cuda", copy=True)
+            _, _, m = make_train_step(model, opt)(p, opt.init(p), batch)
+            torch.cuda.synchronize()
+            results.append((float(m["loss"]), opt.grads, train_counts()))
+            del p
+        finally:
+            if restore:
+                restore()
+    (lk, gk, ck), (lp, gp, cp) = results
+    if ck != launches_per_train_step(cfg, GRAD_SEQ) or any(cp.values()):
+        raise RuntimeError(f"launches: kernels {ck}, plain {cp}")
+    worst = check_leaves(f"B {TRAIN_BATCH} x {GRAD_SEQ}, kernels vs plain",
+                         gk, gp, STEP_REL)
+    errs = leaf_errors(gk, gp)
+    if not abs(lk - lp) <= 1e-5 * abs(lp):
+        raise RuntimeError(f"loss with kernels {lk} vs plain {lp}")
+    log(f"  (b) B={TRAIN_BATCH} x {GRAD_SEQ}, one step's gradients through "
+        f"the kernels ({ck}) vs the plain versions on the card (no launch):"
+        f" loss {lk:.6f} vs {lp:.6f}; {len(gk)} leaves, worst "
+        f"{worst:.3e} of the leaf's largest entry (bar {STEP_REL}), median "
+        f"{float(np.median(errs)):.3e}")
+    del gk, gp, params, model
+
+
+def train_full_width() -> dict:
+    """Phase 10 (c), the main path of this slice: llama3.2-1b at
+    published width trained by make_train_step (AdamW, remat) on
+    batches(cfg, TRAIN_BATCH, TRAIN_SEQ): one warm-up step, TRAIN_STEPS
+    timed steps each with its launches checked exactly, then one traced
+    step. Returns the launches of the steps."""
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), remat=True)
+    smoke_step_against_cpu()
+    grads_against_plain(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    n = model_line(cfg, params, time.perf_counter() - t0)
+    step = make_train_step(model, opt)
+    data = batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    want = launches_per_train_step(cfg, TRAIN_SEQ)
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + TRAIN_STEPS):
+        batch = batch_on(next(data), "cuda")
+        torch.cuda.synchronize()
+        train_counts(reset=True)
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        if i:
+            step_s.append(time.perf_counter() - t)
+        got = train_counts()
+        if got != want:
+            raise RuntimeError(f"train step {i}: launches {got} != {want}")
+        for k in total:
+            total[k] += got[k]
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ms = float(np.mean(step_s)) * 1e3
+    log(f"  (c) {TRAIN_STEPS} timed steps after 1 warm-up, B={TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens (train_4k's length, its batch of 256 cut to "
+        f"{TRAIN_BATCH}), AdamW(lr={TRAIN_LR}), remat: {ms:.1f} ms a step "
+        f"(min {min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}), "
+        f"{tokens / (ms / 1e3):.1f} tokens/s, "
+        f"{6 * n * tokens / (ms / 1e3) / 1e12:.1f} TFLOP/s of 6 N T; "
+        f"peak device memory {peak:.2f} GB "
+        f"(torch.cuda.max_memory_allocated); launches a step {want}, "
+        f"exact in every step")
+    batch = batch_on(next(data), "cuda")
+    train_counts(reset=True)
+    report_trace("one traced training step",
+                 cuda_events(lambda: losses.append(float(
+                     step(params, state, batch)[2]["loss"])) or None),
+                 ms)
+    traced = train_counts()
+    if traced != {k: 2 * v for k, v in want.items()}:
+        raise RuntimeError(f"the traced steps launched {traced}")
+    for k in total:
+        total[k] += traced[k]
+    log(f"  losses {[round(x, 4) for x in losses]}")
+    if not all(np.isfinite(losses)) or \
+            not np.mean(losses[-3:]) < losses[0]:
+        raise RuntimeError(f"training did not lower the loss: {losses}")
+    log(f"  every loss finite; the mean of the last 3, "
+        f"{np.mean(losses[-3:]):.4f}, is below the first, {losses[0]:.4f}")
+    del params, state, model
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; this script runs the "
@@ -3074,11 +3495,15 @@ def main() -> int:
     check_flash(gen)
     check_decode(gen)
     check_mamba(gen)
+    check_flash_bwd(gen)
     records = time_kernels(gen)
+    bwd_record = time_flash_bwd(gen)     # its launches come from phase 10
     time_launch_path(gen)
     time_decode_launch_path(gen)
     sweep_decode_splits(gen)
 
+    # phases 3-9 serve, prefill and decode: none may launch the backward
+    launches_before_training = fa_mod.bwd_counter.count
     log("[3] forward and decode against the CPU path; full-width stages, "
         "profile")
     check_forward_against_cpu()
@@ -3158,8 +3583,21 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
     log(f"[9] the planner's device sweep ({nvidia_smi()})")
     records.extend(planner_sweep())
+    if fa_mod.bwd_counter.count != launches_before_training:
+        raise RuntimeError("a served path launched the flash backward")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[10] train full-width {TRAIN_ARCH} on one card "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before; "
+        f"{nvidia_smi()})")
+    trained = train_full_width()
+    records.append(bwd_record)
+    for r in records:
+        if r["name"] in trained:
+            r["launches"] += trained[r["name"]]
     if not all(r["launches"] > 0 for r in records):
-        raise RuntimeError(f"a kernel was not launched: {launches}")
+        raise RuntimeError(f"a kernel was not launched: "
+                           f"{[(r['name'], r['launches']) for r in records]}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(nvidia_smi())

@@ -43,10 +43,14 @@ SIGNATURES = {
     # (x, scale, out, rows, d, eps, stream) -> cudaError_t
     "rmsnorm_f32": ((_P, _P, _P, _I, _I, _F, _P), _I),
     "rmsnorm_bf16": ((_P, _P, _P, _I, _I, _F, _P), _I),
-    # (q, k, v, out, dtype, b, sq, sk, h, kv, d, dv, causal, window,
-    #  scale, stream) -> cudaError_t
-    "flash_attention_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _P), _I),
+    # (q, k, v, out, lse or null, dtype, b, sq, sk, h, kv, d, dv, causal,
+    #  window, scale, stream) -> cudaError_t
+    "flash_attention_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _F, _P), _I),
+    # (q, k, v, out, dout, lse, delta, dq, dk, dv, dtype, b, sq, sk, h, kv,
+    #  d, dv, causal, window, scale, stream) -> cudaError_t
+    "flash_attention_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _F, _P), _I),
     # (q, k, v, out, dtype, b, smax, h, kv, d, dv, lo, hi, splits, chunk,
     #  head_groups, scale, stream) -> cudaError_t
     "decode_attention_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

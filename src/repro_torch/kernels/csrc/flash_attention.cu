@@ -7,7 +7,12 @@
 // h / (H / KV) without expanding K/V; the causal diagonal is offset by
 // sk - sq and a window keeps keys with q_pos - k_pos < window; the output
 // is cast to q's type. Rows that see no key give 0, as the plain version
-// does.
+// does. With a non-null lse pointer the kernel also writes each row's
+// f32 logsumexp of the scaled scores, m + log(l) in natural units
+// (xla_flash.py:147-152), in the reference's (B, Sq, H) layout, and +inf
+// for a row that sees no key; flash_attention_bwd.cu reads it. With a
+// null pointer nothing else changes: the served CUDA graphs replay the
+// same kernel.
 //
 // Layouts (all contiguous, 16-byte aligned): q (B, Sq, H, D),
 // k (B, Sk, KV, D), v (B, Sk, KV, Dv), out (B, Sq, H, Dv). D and Dv are
@@ -78,6 +83,7 @@ constexpr int kThreads = 128;
 constexpr int kStages = 2;
 constexpr int kMaxDevices = 64;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Tile geometry of one (type, padded Q/K head dim, padded V head dim)
 // instance; DV <= DQK.
@@ -319,9 +325,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, (Tile<T, DQK, DV>::kMinBlocks))
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 int h, int kvh, int d, int dv, int causal, int window,
-                 float scale_log2) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, int h, int kvh,
+                 int d, int dv, int causal, int window, float scale_log2) {
   using Geo = Tile<T, DQK, DV>;
   constexpr int BN = Geo::kBN, LD = Geo::kLdK, LDV = Geo::kLdV;
   constexpr int VEC = Geo::kVec;
@@ -489,7 +495,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= rows) continue;
     const int pos = r / grp;
     const int head = kh * grp + r - pos * grp;
-    T* orow = o + ((static_cast<size_t>(bb) * sq + pos) * h + head) * dv;
+    const size_t row = (static_cast<size_t>(bb) * sq + pos) * h + head;
+    if (lse != nullptr && t == 0)
+      lse[row] = l > 0.f ? (m_i[hh] + log2f(l)) * kLn2 : INFINITY;
+    T* orow = o + row * dv;
 #pragma unroll
     for (int nt = 0; nt < DV / 8; ++nt) {
       const int c = nt * 8 + 2 * t;
@@ -500,9 +509,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DQK, int DV>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int b,
-              int sq, int sk, int h, int kvh, int d, int dv, int causal,
-              int window, float scale, cudaStream_t stream) {
+int launch_dh(const void* q, const void* k, const void* v, void* o,
+              float* lse, int b, int sq, int sk, int h, int kvh, int d,
+              int dv, int causal, int window, float scale,
+              cudaStream_t stream) {
   constexpr size_t smem = Tile<T, DQK, DV>::kSmem;
   auto kernel = flash_fwd_kernel<T, DQK, DV>;
   // the shared-memory opt-in, once per instance and device
@@ -523,47 +533,48 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((rows + kBM - 1) / kBM, kvh, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kvh, d, dv,
-      causal, window, scale * kLog2e);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h, kvh, d,
+      dv, causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kvh, int d, int dv, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int h, int kvh, int d, int dv, int causal,
            int window, float scale, cudaStream_t stream) {
   if (b <= 0 || sq <= 0 || h <= 0) return 0;
   if (kvh <= 0 || h % kvh != 0 || d <= 0 || d > 192 || dv <= 0 ||
       dv > 128 || d % 8 != 0 || dv % 8 != 0 || sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (d > 128)
-    return launch_dh<T, 192, 128>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
-                                  causal, window, scale, stream);
+    return launch_dh<T, 192, 128>(q, k, v, o, lse, b, sq, sk, h, kvh, d,
+                                  dv, causal, window, scale, stream);
   const int dmax = d > dv ? d : dv;
   if (dmax <= 32)
-    return launch_dh<T, 32, 32>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
+    return launch_dh<T, 32, 32>(q, k, v, o, lse, b, sq, sk, h, kvh, d, dv,
                                 causal, window, scale, stream);
   if (dmax <= 64)
-    return launch_dh<T, 64, 64>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
+    return launch_dh<T, 64, 64>(q, k, v, o, lse, b, sq, sk, h, kvh, d, dv,
                                 causal, window, scale, stream);
-  return launch_dh<T, 128, 128>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
+  return launch_dh<T, 128, 128>(q, k, v, o, lse, b, sq, sk, h, kvh, d, dv,
                                 causal, window, scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16; lse: null, or (B, Sq, H) float32
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int b,
-                                   int sq, int sk, int h, int kvh, int d,
-                                   int dv, int causal, int window,
-                                   float scale, void* stream) {
+                                   const void* v, void* o, void* lse,
+                                   int dtype, int b, int sq, int sk, int h,
+                                   int kvh, int d, int dv, int causal,
+                                   int window, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, b, sq, sk, h, kvh, d, dv, causal,
+    return launch<float>(q, k, v, o, l, b, sq, sk, h, kvh, d, dv, causal,
                          window, scale, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kvh, d, dv,
+    return launch<__nv_bfloat16>(q, k, v, o, l, b, sq, sk, h, kvh, d, dv,
                                  causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,7 +4,8 @@ wrapper.
 Replaces the TPU kernel ``repro/kernels/decode_attention.py:
 decode_attention``. A tensor on the CPU takes the plain version
 (:func:`ref.decode_attention_ref`); a CUDA tensor launches the kernel or
-raises. The kernel reads the cache in its own ``(B, Smax, KV, D)``
+raises; under grad it refuses (a decode step is not trained). The
+kernel reads the cache in its own ``(B, Smax, KV, D)``
 layout, takes ``valid_len`` as a host int (no device-to-host copy),
 takes any GQA group, and splits the valid keys across the CTAs of one
 thread-block cluster, which combine their partials in distributed
@@ -72,6 +73,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "decode_attention has no backward kernel (nor has the "
+            "reference's): a decode step is not trained; training attends "
+            "through flash_attention (ROADMAP A8). Call it under "
+            "torch.no_grad()")
     return _launch(q, k, v, valid_len, window, scale)
 
 

@@ -3,7 +3,8 @@
 
 Replaces the TPU kernel ``repro/kernels/mamba_scan.py:mamba_scan``. A
 tensor on the CPU takes the plain version (:func:`ref.mamba_scan_ref`);
-a CUDA tensor launches the kernel or raises. The kernel takes any
+a CUDA tensor launches the kernel or raises, and refuses under grad
+(the kernel has no backward yet). The kernel takes any
 sequence length in one launch (the state is carried through ``h0``
 between calls), so it has no chunk argument: the reference's model path
 calls its kernel with ``chunk = L`` too.
@@ -33,6 +34,12 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         return ref.mamba_scan_ref(dt, x, b, c, a, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {dt.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, x, b, c, a, h0)):
+        raise NotImplementedError(
+            "mamba_scan has no backward kernel yet, so the hybrid does not "
+            "train on the card (ROADMAP A14); the plain version on the CPU "
+            "is differentiable")
     return _launch(dt, x, b, c, a, h0)
 
 

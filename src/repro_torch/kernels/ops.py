@@ -4,6 +4,12 @@ A CUDA tensor goes to the hand-written kernel, or the call raises; a CPU
 tensor goes to the plain version. There is no switch and no fallback.
 The TPU's block-divisibility gates on attention have no counterpart: the
 CUDA kernels mask ragged edges themselves.
+
+Gradients: ``rmsnorm`` and flash attention (``kind`` "causal" or
+"full") are differentiable on both devices, through the same routes
+with or without grad: the flash backward is a CUDA kernel, the norm's a
+closed form in torch. Decode attention and the scan are differentiable
+on the CPU only; on CUDA under grad they raise.
 """
 
 from __future__ import annotations

@@ -32,6 +32,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     so shared KV heads are never expanded. Rows whose keys are all
     masked give 0.
     """
+    return _attention(q, k, v, mask, scale)[0]
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: Optional[torch.Tensor], scale: Optional[float],
+               want_lse: bool = False
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`attention_ref`, and with ``want_lse`` the f32 logsumexp of
+    each row's scaled scores, (B,Sq,H); +inf for a row that sees no key,
+    so that ``exp(s - lse)`` is 0 there."""
     b, sq, h, d = q.shape
     kv = k.shape[2]
     if h % kv:
@@ -54,7 +64,12 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     w = torch.nan_to_num(w, nan=0.0)           # fully-masked rows
     out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
-    return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    out = out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+    if not want_lse:
+        return out, None
+    lse = torch.logsumexp(s, dim=-1)                        # (B,KV,G,Sq)
+    lse = lse.masked_fill(lse == float("-inf"), float("inf"))
+    return out, lse.permute(0, 3, 1, 2).reshape(b, sq, h)
 
 
 def causal_mask_ref(sq: int, sk: int, window: int = 0, offset: int = 0,
@@ -71,13 +86,78 @@ def causal_mask_ref(sq: int, sk: int, window: int = 0, offset: int = 0,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None,
+                        return_lse: bool = False):
     """Plain version of the flash kernel: the causal diagonal is offset
-    by ``sk - sq``; the window applies only with ``causal``."""
+    by ``sk - sq``; the window applies only with ``causal``. With
+    ``return_lse`` it returns ``(out, lse)``: lse (B,Sq,H) f32 is each
+    row's logsumexp ``m + log(l)`` of the scaled scores (the reference's
+    ``xla_flash.py:147-152``), +inf where a row sees no key."""
     sq, sk = q.shape[1], k.shape[1]
     mask = (causal_mask_ref(sq, sk, window, offset=sk - sq, device=q.device)
             if causal else None)
-    return attention_ref(q, k, v, mask, scale)
+    out, lse = _attention(q, k, v, mask, scale, want_lse=return_lse)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True, window: int = 0,
+                            scale: Optional[float] = None,
+                            block: int = 256
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of the flash backward kernel: the reference's
+    ``xla_flash.py:_flash_bwd`` block by block, in f32 and the grouped
+    GQA layout. From the forward's ``out`` (in its stored dtype) and lse
+    (B,Sq,H), ``P = exp(S - lse)``, ``delta = rowsum(dO * O)``,
+    ``dS = P (dP - delta)``; ``dQ = dS K scale``, ``dK = dS^T Q scale``
+    and ``dV = P^T dO`` fold a GQA group onto its kv head. Blocks that
+    the mask hides from every row are skipped; a row whose lse is +inf
+    (it sees no key) adds nothing. Returns (dq, dk, dv) in q's, k's and
+    v's dtypes."""
+    b, sq, h, d = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    offset = sk - sq
+    qf = q.float().reshape(b, sq, kvh, g, d)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(b, sq, kvh, g, dv)
+    # (B, KV, G, Sq): the layout of the block scores' rows
+    lsef = lse.float().reshape(b, sq, kvh, g).permute(0, 2, 3, 1)
+    delta = (dof * out.float().reshape(b, sq, kvh, g, dv)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dvv = torch.zeros_like(vf)
+    for q0 in range(0, sq, block):
+        q1 = min(sq, q0 + block)
+        for k0 in range(0, sk, block):
+            k1 = min(sk, k0 + block)
+            if causal and (k0 > q1 - 1 + offset or
+                           (window > 0 and q0 + offset - (k1 - 1) >= window)):
+                continue
+            s = torch.einsum("bqkgd,bskd->bkgqs", qf[:, q0:q1],
+                             kf[:, k0:k1]) * scale
+            p = torch.exp(s - lsef[..., q0:q1, None])
+            if causal:      # the block's mask: its diagonal moves by q0 - k0
+                keep = causal_mask_ref(q1 - q0, k1 - k0, window,
+                                       offset=offset + q0 - k0,
+                                       device=q.device)
+                p = torch.where(keep, p, 0.0)
+            dp = torch.einsum("bqkgd,bskd->bkgqs", dof[:, q0:q1],
+                              vf[:, k0:k1])
+            ds = p * (dp - delta[..., q0:q1, None])
+            dq[:, q0:q1] += torch.einsum("bkgqs,bskd->bqkgd", ds,
+                                         kf[:, k0:k1]) * scale
+            dk[:, k0:k1] += torch.einsum("bkgqs,bqkgd->bskd", ds,
+                                         qf[:, q0:q1]) * scale
+            dvv[:, k0:k1] += torch.einsum("bkgqs,bqkgd->bskd", p,
+                                          dof[:, q0:q1])
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dvv.to(v.dtype))
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

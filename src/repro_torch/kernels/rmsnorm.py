@@ -3,6 +3,14 @@
 Replaces the TPU kernel ``repro/kernels/rmsnorm.py:rmsnorm``. A tensor on
 the CPU takes the plain version (:func:`ref.rmsnorm_ref`); a CUDA tensor
 launches the kernel or raises.
+
+With grad enabled and an input that requires it, the call is
+:class:`RMSNorm`: the forward is the same kernel (or plain version), and
+the backward is the closed form of the gradient of
+:func:`ref.rmsnorm_ref` in torch, with no kernel of its own. The
+reference has no backward kernel either: off the TPU its gradient is
+autodiff of the jnp oracle, and the backward's few elementwise passes
+and one row reduction move the same bytes as the forward.
 """
 
 from __future__ import annotations
@@ -22,12 +30,46 @@ counter = _build.LaunchCounter()
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); scale: (D,). ``x * rsqrt(mean(x^2) + eps)`` cast to
-    ``x.dtype``, times ``scale`` cast to ``x.dtype``."""
+    ``x.dtype``, times ``scale`` cast to ``x.dtype``. Differentiable in x
+    and scale."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNorm.apply(x, scale, eps)
     if x.is_cuda:
         return _launch(x, scale, eps)
-    if x.device.type == "cpu":
-        return ref.rmsnorm_ref(x, scale, eps)
-    raise ValueError(f"rmsnorm: unsupported device {x.device}")
+    return ref.rmsnorm_ref(x, scale, eps)
+
+
+class RMSNorm(torch.autograd.Function):
+    """The kernel's forward and the closed-form gradient of
+    :func:`ref.rmsnorm_ref`. With ``x^ = x rsqrt(mean(x^2) + eps)`` and
+    ``y = cast(x^, x.dtype) * scale``:
+
+      g = cast(dy * scale, x.dtype)          the cast's cotangent
+      dx = rstd (g - x^ mean(g x^))          in f32, cast to x.dtype
+      dscale = sum over rows of dy cast(x^, x.dtype)
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        out = _launch(x, scale, eps) if x.is_cuda \
+            else ref.rmsnorm_ref(x, scale, eps)
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        xf = x.float()
+        rstd = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + ctx.eps)
+        xhat = xf * rstd
+        g = (dy * scale).to(x.dtype).float()
+        dx = rstd * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+        dscale = (dy.float() * xhat.to(x.dtype).float()).reshape(
+            -1, x.shape[-1]).sum(dim=0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
 
 
 def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:

@@ -17,21 +17,26 @@ Entry points:
   Model.forward(params, batch)                -> (logits (B,S,V) f32, aux)
                                                  aux: the MoE routers' loss
                                                  plus the MTP loss
+  Model.loss(params, batch)                   -> scalar: next-token CE + aux
   Model.prefill(params, batch, smax)          -> (last logits (B,1,V), cache)
   Model.decode_step(params, token, pos, cache) -> (logits (B,1,V), cache)
 
 Dense-attention, MLA, MoE and Mamba/hybrid stacks decode; an xLSTM
 stack's recurrent-state decode arrives with its own slice, the
-encoder-decoder and image models with theirs, ``Model.loss`` with
-training.
+encoder-decoder and image models with theirs. With ``cfg.remat`` each
+layer of a training forward is a ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` of its scan body): only the layer
+boundaries are kept, and the backward runs each layer's forward again.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -54,9 +59,10 @@ def _check_supported(cfg: ArchConfig) -> None:
 def _cross_entropy(logits: torch.Tensor,
                    targets: torch.Tensor) -> torch.Tensor:
     """Per-token cross entropy in f32, the reference's ``lse - logit``
-    with the max subtracted."""
+    with the max subtracted (held out of the gradient, as the
+    reference's ``stop_gradient``)."""
     lf = logits.float()
-    m = lf.amax(dim=-1, keepdim=True)
+    m = lf.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
     tgt = torch.gather(lf, -1, targets[..., None].long())[..., 0]
     return lse - tgt
@@ -155,16 +161,34 @@ def _run_segment(params_stack, cfg: ArchConfig, seg: Segment,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Python loop over the repeat axis (the reference scans it). Layer r
     of block bi gets the views ``cache_stack[bi][...][r]``. Returns (x,
-    the sum of the MoE blocks' aux losses, or None without MoE)."""
+    the sum of the MoE blocks' aux losses, or None without MoE). With
+    ``cfg.remat`` and grad enabled (no cache), each repeat is one
+    checkpoint, as the reference checkpoints its scan body."""
+    remat = cfg.remat and cache_stack is None and torch.is_grad_enabled()
+    run = functools.partial(checkpoint, _run_repeat, use_reentrant=False) \
+        if remat else _run_repeat
     aux = None
     for r in range(seg.repeat):
-        for bi, block in enumerate(seg.blocks):
-            cache = None if cache_stack is None \
-                else _index(cache_stack[bi], r)
-            x, a = _apply_block(_index(params_stack[bi], r), cfg, block, x,
-                                positions, mask_kind, cache, cache_pos)
-            if a is not None:
-                aux = a if aux is None else aux + a
+        x, a = run(params_stack, cfg, seg, r, x, positions, mask_kind,
+                   cache_stack, cache_pos)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def _run_repeat(params_stack, cfg: ArchConfig, seg: Segment, r: int,
+                x: torch.Tensor, positions: torch.Tensor,
+                mask_kind: Optional[str], cache_stack,
+                cache_pos: Optional[int]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The pattern's blocks at repeat ``r``: (x, their aux sum or None)."""
+    aux = None
+    for bi, block in enumerate(seg.blocks):
+        cache = None if cache_stack is None else _index(cache_stack[bi], r)
+        x, a = _apply_block(_index(params_stack[bi], r), cfg, block, x,
+                            positions, mask_kind, cache, cache_pos)
+        if a is not None:
+            aux = a if aux is None else aux + a
     return x, aux
 
 
@@ -265,6 +289,21 @@ class Model:
                             "causal")
         logits = self._head(params, x, norm=mtp["norm"])
         return 0.1 * _cross_entropy(logits[:, :-1], tokens[:, 2:]).mean()
+
+    def loss(self, params: Params,
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross entropy of ``batch["tokens"]`` plus the
+        forward's aux; with ``batch["loss_mask"]`` (B,S) the CE is the
+        mean over the masked-in targets (at least 1 in the divisor)."""
+        logits, aux = self.forward(params, batch)
+        tokens = batch["tokens"]
+        ce = _cross_entropy(logits[:, :-1], tokens[:, 1:])
+        if "loss_mask" in batch:
+            m = batch["loss_mask"][:, 1:].float()
+            ce = (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+        else:
+            ce = ce.mean()
+        return ce + aux
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 smax: int) -> Tuple[torch.Tensor, Any]:

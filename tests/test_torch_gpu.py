@@ -9,6 +9,7 @@ runs on a GPU host that has only PyTorch:
     PYTHONPATH=src python -m pytest -m gpu -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import dataclasses
 import os
 import threading
 import time
@@ -175,6 +176,171 @@ def test_kernels_reject_what_they_do_not_take(gen):
         1, 8, 2, 16)
     with pytest.raises(ValueError, match="16-byte"):
         fa_mod.flash_attention(q, q, q)
+
+
+# the backward: the reference's five cases (tests/test_kernels.py:183-189),
+# G 1 / 2 / 4 / 8, window 64, D 128, MLA's D 192 / Dv 128, D != Dv,
+# ragged tiles, rows that see no key (Sq > Sk)
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,dv,causal,window", [
+    (2, 256, 256, 4, 4, 64, 64, True, 0),
+    (2, 128, 384, 4, 2, 64, 64, True, 0),
+    (2, 256, 256, 4, 1, 64, 64, False, 0),
+    (2, 256, 256, 8, 2, 64, 64, True, 64),
+    (2, 100, 200, 4, 2, 64, 64, True, 0),
+    (1, 512, 512, 32, 8, 64, 64, True, 0),     # llama3.2-1b's heads
+    (2, 96, 96, 64, 8, 128, 128, True, 0),     # G = 8, D 128
+    (1, 160, 160, 16, 16, 192, 128, True, 0),  # MLA
+    (2, 70, 90, 6, 3, 64, 32, True, 16),       # D != Dv, windowed, ragged
+    (2, 37, 37, 6, 2, 32, 32, False, 0),       # G = 3, full
+    (1, 48, 16, 4, 1, 32, 32, True, 0),        # Sq > Sk: rows see no key
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain(gen, b, sq, sk, h, kv, d, dv,
+                                             causal, window, dtype):
+    """Through the autograd Function: the forward writes its lse (which
+    matches the plain version's), the backward kernel's dq, dk, dv match
+    the plain blockwise backward (f32 5e-4, bf16 3e-2), and a row that
+    sees no key gets a zero dq."""
+    q, k = _rand(gen, (b, sq, h, d), dtype), _rand(gen, (b, sk, kv, d), dtype)
+    v, do = _rand(gen, (b, sk, kv, dv), dtype), _rand(gen, (b, sq, h, dv),
+                                                      dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (fa_mod.counter.count, fa_mod.bwd_counter.count)
+    out = fa_mod.flash_attention(*leaves, causal=causal, window=window)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa_mod.counter.count, fa_mod.bwd_counter.count) == \
+        (before[0] + 1, before[1] + 1)
+    exp_out, exp_lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window,
+                                               return_lse=True)
+    torch.testing.assert_close(out.detach().float(), exp_out.float(),
+                               **TOL[dtype])
+    _, lse = fa_mod._launch(q, k, v, causal, window, None, want_lse=True)
+    torch.testing.assert_close(lse, exp_lse, **TOL[torch.float32])
+    exp = ref.flash_attention_bwd_ref(q, k, v, out.detach(), lse, do,
+                                      causal=causal, window=window)
+    tol = dict(atol=5e-4, rtol=5e-4) if dtype == torch.float32 \
+        else TOL[dtype]
+    for g, e in zip(got, exp):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), e.float(), **tol)
+    blind = torch.isinf(exp_lse)
+    if blind.any():
+        assert got[0][blind].abs().max() == 0
+
+
+def test_flash_backward_rejects_what_it_does_not_take(gen):
+    q = _rand(gen, (1, 8, 2, 16), torch.float32)
+    out, lse = fa_mod._launch(q, q, q, True, 0, None, want_lse=True)
+    with pytest.raises(ValueError, match="do not match"):
+        fa_mod._launch_bwd(q, q, q, out, lse[:, :4], out, True, 0, None)
+    with pytest.raises(TypeError, match="f32 lse"):
+        fa_mod._launch_bwd(q, q, q, out, lse.double(), out, True, 0, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_mod._launch_bwd(q, q, q, out, lse,
+                           out.transpose(1, 2).contiguous().transpose(1, 2),
+                           True, 0, None)
+
+
+def test_a_forward_without_grad_writes_no_lse_and_saves_nothing(
+        gen, monkeypatch):
+    """The served path: a forward with no input that requires grad (or
+    under no_grad) launches the forward kernel with a null lse pointer,
+    one launch a call and no backward; the llama smoke forward launches
+    a norm per block and sublayer plus the final one, and a flash a
+    layer, as before."""
+    seen = []
+    real = _build.entry("flash_attention_fwd")
+
+    def spy(*args):
+        seen.append(args[4])
+        return real(*args)
+
+    monkeypatch.setitem(_build._entries, "flash_attention_fwd", spy)
+    q = _rand(gen, (1, 8, 4, 64), torch.float32)
+    out = fa_mod.flash_attention(q, q, q)
+    with torch.no_grad():
+        fa_mod.flash_attention(q.requires_grad_(True), q, q)
+    assert out.grad_fn is None and seen == [None, None]
+    cfg = get_smoke("llama3.2-1b")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    tok = torch.randint(0, cfg.vocab_size, (2, 32), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(1))
+    counts = (rms_mod.counter.count, fa_mod.counter.count,
+              fa_mod.bwd_counter.count)
+    seen.clear()
+    logits, _ = model.forward(params, {"tokens": tok})
+    torch.cuda.synchronize()
+    assert logits.grad_fn is None and len(seen) == cfg.num_layers
+    layers = cfg.num_layers
+    assert (rms_mod.counter.count - counts[0], fa_mod.counter.count -
+            counts[1], fa_mod.bwd_counter.count - counts[2]) == \
+        (2 * layers + 1, layers, 0)
+    assert set(seen) == {None}
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _flat(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _flat(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3.2-1b-sw"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_loss_backward_reaches_every_leaf_through_the_kernels(gen, arch,
+                                                              remat):
+    """One loss.backward() on a smoke llama on the card: every leaf gets
+    a finite, nonzero gradient (the kernels carry gradients), the
+    launches are the step's, and the gradients match the CPU's."""
+    cfg = dataclasses.replace(get_smoke(arch), remat=remat)
+    cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    card_params = _to(params, "cuda")
+    tok = torch.randint(0, cfg.vocab_size, (2, 96),
+                        generator=torch.Generator().manual_seed(1))
+    grads = []
+    for model, p, t in ((card, card_params, tok.cuda()), (cpu, params, tok)):
+        flat = _flat(p)
+        for leaf in flat:
+            leaf.requires_grad_(True)
+        counts = (rms_mod.counter.count, fa_mod.counter.count,
+                  fa_mod.bwd_counter.count)
+        model.loss(p, {"tokens": t}).backward()
+        if model is card:
+            torch.cuda.synchronize()
+            layers = cfg.num_layers
+            assert (rms_mod.counter.count - counts[0],
+                    fa_mod.counter.count - counts[1],
+                    fa_mod.bwd_counter.count - counts[2]) == \
+                (2 * layers + 1 + remat * 2 * layers,
+                 layers * (1 + remat), layers)
+        grads.append([leaf.grad for leaf in flat])
+    for g, e in zip(*grads):
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert float(g.abs().max()) > 0
+        scale = float(e.abs().max())
+        assert float((g.cpu() - e).abs().max()) <= 5e-4 * scale
+
+
+def test_decode_and_scan_refuse_grad_on_the_card(gen):
+    q = _rand(gen, (1, 1, 4, 64), torch.float32).requires_grad_(True)
+    kc = _rand(gen, (1, 16, 4, 64), torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        da_mod.decode_attention(q, kc, kc, 8)
+    with torch.no_grad():
+        da_mod.decode_attention(q, kc, kc, 8)
+    dt = _rand(gen, (1, 4, 64), torch.float32).requires_grad_(True)
+    bc = _rand(gen, (1, 4, 16), torch.float32)
+    a, h0 = -torch.ones(64, 16, device="cuda"), torch.zeros(
+        1, 64, 16, device="cuda")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ms_mod.mamba_scan(dt, dt, bc, bc, a, h0)
+    with torch.no_grad():
+        ms_mod.mamba_scan(dt, dt, bc, bc, a, h0)
 
 
 @pytest.mark.parametrize("b,smax,h,kv,d,dv,vl,window", [

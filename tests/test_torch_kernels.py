@@ -234,7 +234,16 @@ def test_cpu_calls_take_the_plain_version_and_count_no_launch():
                                       t[None, :, None], 8),
     lambda t: ms_mod.mamba_scan(t[None], t[None], t[None], t[None], t,
                                 t[None]),
-], ids=["rmsnorm", "flash_attention", "decode_attention", "mamba_scan"])
+    lambda t: fa_mod.flash_attention_backward(
+        t[None, :, None], t[None, :, None], t[None, :, None],
+        t[None, :, None], t[None, :, :1], t[None, :, None]),
+    # the autograd Functions: an input that requires grad
+    lambda t: rms_mod.rmsnorm(t.requires_grad_(True), t[0]),
+    lambda t: fa_mod.flash_attention(
+        t.requires_grad_(True)[None, :, None], t[None, :, None],
+        t[None, :, None]),
+], ids=["rmsnorm", "flash_attention", "decode_attention", "mamba_scan",
+        "flash_attention_backward", "rmsnorm-grad", "flash_attention-grad"])
 def test_other_devices_raise_instead_of_falling_back(call):
     with pytest.raises(ValueError, match="unsupported device"):
         call(torch.empty((8, 8), device="meta"))
@@ -300,13 +309,14 @@ def test_every_cuda_source_is_built_and_every_export_declared():
     """One nvcc call builds every csrc/*.cu; each C entry point the
     wrappers call has a ctypes signature (pointers as c_void_p)."""
     names = {p.name for p in _build.sources()}
-    assert {"rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
-            "mamba_scan.cu"} <= names
+    assert {"rmsnorm.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+            "decode_attention.cu", "mamba_scan.cu"} <= names
     text = "".join(p.read_text() for p in _build.sources())
     for fn, (argtypes, _) in _build.SIGNATURES.items():
         assert f'extern "C"' in text and f" {fn}(" in text, fn
     for fn in ("rmsnorm_f32", "rmsnorm_bf16", "flash_attention_fwd",
-               "decode_attention_fwd", "mamba_scan_fwd"):
+               "flash_attention_bwd", "decode_attention_fwd",
+               "mamba_scan_fwd"):
         argtypes = _build.SIGNATURES[fn][0]
         assert argtypes[0] is _build.ctypes.c_void_p
         assert argtypes[-1] is _build.ctypes.c_void_p        # the stream
