@@ -512,22 +512,34 @@ def check_flash_bwd(gen: torch.Generator) -> None:
             if not seen.all() and got[0][~seen].abs().max() != 0:
                 raise RuntimeError(f"flash bwd {name}: a row that sees no "
                                    f"key has a nonzero dQ")
+            again = ""
+            if name == FLASH_BWD_CASES[0][0]:
+                # deterministic: no atomics, a fixed order of every sum
+                if not all(torch.equal(a, b) for a, b in zip(
+                        got, fa_mod._launch_bwd(q, k, v, out, lse, do,
+                                                causal, window, None))):
+                    raise RuntimeError(f"flash bwd {name} {dtype}: two "
+                                       f"calls differ")
+                again = "; a second call bit-equal"
             log(f"  flash bwd {name:14s} {str(dtype):14s} lse "
                 f"{lse_err:.3e} dq/dk/dv max_abs_err "
-                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}  ok")
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}{again}  ok")
             del q, k, v, out, lse, do, got, exp
 
 
 def flash_bwd_work(b, sq, sk, h, kv, d, dv, dtype, causal=True, window=0):
-    """(bytes, operations) of one backward call: q, k, v, out, dO and lse
-    read once, dQ, dK, dV written once; 2 (3 D + 2 Dv) operations per
-    (query, key) pair the mask keeps (S, dP, dV, dK, dQ)."""
+    """(bytes, operations, executed operations) of one backward call: q,
+    k, v, out, dO and lse read once, dQ, dK, dV written once; 2 (3 D +
+    2 Dv) operations per (query, key) pair the mask keeps (S, dP, dV, dK,
+    dQ), the bound's count; the kernel executes 2 (4 D + 3 Dv), since its
+    dQ kernel computes S and dP again (7 products)."""
     esz = torch.finfo(dtype).bits // 8
     nbytes = (2 * b * sq * h * (d + dv) + 2 * b * sk * kv * (d + dv)) * esz \
         + b * sq * h * 4
     pairs = int(ref.causal_mask_ref(sq, sk, window, offset=sk - sq).sum()) \
         if causal else sq * sk
-    return nbytes, b * h * pairs * 2 * (3 * d + 2 * dv)
+    return (nbytes, b * h * pairs * 2 * (3 * d + 2 * dv),
+            b * h * pairs * 2 * (4 * d + 3 * dv))
 
 
 def time_flash_bwd(gen: torch.Generator) -> dict:
@@ -563,25 +575,32 @@ def time_flash_bwd(gen: torch.Generator) -> dict:
                                    want_lse=True),
             lambda: fa_mod._launch(q, k, v, causal, window, None)),
             (10, 3, 10, 10, 10), rounds=3)
-        nbytes, nops = flash_bwd_work(b, sq, sk, h, kv, d, dv, dtype)
+        nbytes, nops, exec_ops = flash_bwd_work(b, sq, sk, h, kv, d, dv,
+                                                dtype)
         bytes_ms = nbytes / H100_HBM_BW * 1e3
         if dtype == torch.float32:
-            # f32-accurate products: 3xTF32 on the tensor cores is the
-            # least time (as for the forward); the kernel's own f32 FMA
-            # on the CUDA cores would take ops / 67 TFLOP/s
+            # f32-accurate products: 3xTF32 on the tensor cores, the
+            # kernel's arithmetic, is the least time (as for the
+            # forward); f32 FMA on the CUDA cores would take ops / 67
+            # TFLOP/s
             ops_ms = 3 * nops / H100_PEAK_FLOPS_TF32 * 1e3
             fma_ms = nops / H100_PEAK_FLOPS_F32 * 1e3
+            passes = (f" ({3 * exec_ops / ms[0] / 1e9:.1f} of TF32 in 3 "
+                      f"passes)")
         else:
             ops_ms = nops / H100_PEAK_FLOPS_BF16 * 1e3
             fma_ms = nops / H100_PEAK_FLOPS_F32 * 1e3
+            passes = ""
         log(f"  flash bwd at the {name} shape B={b} S={sq} {h}/{kv} heads "
             f"D={d} {str(dtype)[6:]}: kernel {ms[0]:.4f} ms, plain "
             f"{ms[1]:.4f} ms, SDPA backward {ms[2]:.4f} ms (differs from "
             f"the plain version by {lib_err:.3e}; not asserted), bound "
             f"{max(bytes_ms, ops_ms):.4f} ms ({nops:.4g} operations; "
             f"{'bytes' if bytes_ms >= ops_ms else 'operations'}), f32 FMA "
-            f"bound {fma_ms:.4f} ms; forward with lse {ms[3]:.4f} ms, "
-            f"without {ms[4]:.4f} ms; max_abs_err {err:.3e}")
+            f"bound {fma_ms:.4f} ms; executed {exec_ops:.4g} operations "
+            f"(7 products) at {exec_ops / ms[0] / 1e9:.1f} TFLOP/s{passes}; "
+            f"forward with lse {ms[3]:.4f} ms, without {ms[4]:.4f} ms; "
+            f"max_abs_err {err:.3e}")
         if dtype == torch.float32:
             record = {
                 "name": "flash_attention_bwd", "route": "cuda",

@@ -63,10 +63,8 @@
 //   way. At DQK 192 / DV 128: f32 (64 + 2 x 32) x 196 x 4 + 2 x 32 x 132
 //   x 4 B = 131 KiB, one CTA an SM (__launch_bounds__ says so); bf16
 //   (64 + 2 x 64) x 200 x 2 + 2 x 64 x 136 x 2 B = 109 KiB, two.
-// - In the PV product of the tf32 path the kv index inside a k-step of 8
-//   is permuted (MMA k index t holds kv column 2t, t + 4 holds 2t + 1),
-//   the same way for P and V, so P feeds the MMA from the score
-//   accumulators without a shuffle; the sum is unchanged.
+// - The products are mma.cuh's: S = Q K^T is abt, P V is pb, which feeds
+//   P to the MMA from the score accumulators without a shuffle.
 // - cudaFuncSetAttribute runs once per template instance and device.
 #include <math.h>
 #include <stdint.h>
@@ -74,9 +72,11 @@
 #include <mutex>
 #include <type_traits>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using namespace repro;
 
 constexpr int kBM = 64;        // packed q rows per CTA: 4 warps x 16
 constexpr int kThreads = 128;
@@ -99,227 +99,6 @@ struct Tile {
   // CTAs an SM holds: two while both fit the SM's 227 KiB
   static constexpr int kMinBlocks = 2 * kSmem <= 227 * 1024 ? 2 : 1;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; with valid false it writes 16 zero bytes.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small: big = tf32(x) rounded to nearest, small the f32
-// remainder x - big (exact), of which the MMA reads the TF32 part (its top
-// 19 bits; truncating there costs ~2^-21 |x|, the order of the small *
-// small term the split leaves out).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = to_tf32(x);
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-// Not volatile: register operands only, so the compiler may interleave
-// MMAs of independent accumulators.
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// Accumulator layout of an m16n8 tile (both instructions): lane
-// (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t, 2t + 1
-// as c[0], c[1] (row g) and c[2], c[3] (row g + 8).
-
-// s (16 x BN of this warp) = Q K^T, f32 inputs, 3xTF32. sq: the warp's
-// 16 rows of Q; sk: the kv tile. ldmatrix reads f32 fragments too: an
-// 8 x 8 b16 matrix is 8 rows of 4 floats, and lane (g, t) receives float
-// (g, t), the tf32 A and B layout. Each pass runs over the k-step's
-// independent n-tiles before the next pass adds to them, small terms
-// first.
-template <int DQK, int BN, int LD>
-__device__ __forceinline__ void scores_f32(float (&s)[BN / 8][4],
-                                           const float* sq, const float* sk,
-                                           int lane) {
-  const int i = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < DQK / 8; ++ks) {
-    uint32_t qa[4], ab[4], as[4];  // rows 0-7 | 8-15, columns t | t + 4
-    ldsm_x4(qa, sq + ((i & 1) * 8 + r) * LD + ks * 8 + (i >> 1) * 4);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      split_tf32(__uint_as_float(qa[e]), ab[e], as[e]);
-    uint32_t bb[BN / 8][2], bs[BN / 8][2];
-#pragma unroll
-    for (int np = 0; np < BN / 16; ++np) {
-      uint32_t kb[4];  // kv rows 16np + 0..7 | 8..15, columns t | t + 4
-      ldsm_x4(kb, sk + (np * 16 + (i >> 1) * 8 + r) * LD + ks * 8 +
-                      (i & 1) * 4);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        split_tf32(__uint_as_float(kb[e]), bb[2 * np + (e >> 1)][e & 1],
-                   bs[2 * np + (e >> 1)][e & 1]);
-    }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-      mma_tf32(s[nt], as, bb[nt][0], bb[nt][1]);
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-      mma_tf32(s[nt], ab, bs[nt][0], bs[nt][1]);
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt)
-      mma_tf32(s[nt], ab, bb[nt][0], bb[nt][1]);
-  }
-}
-
-// acc (16 x DV) += P V, f32, 3xTF32; P in the score accumulators. The
-// output n-tiles go in groups of 4, three passes per group.
-template <int DV, int BN, int LD>
-__device__ __forceinline__ void pv_f32(float (&acc)[DV / 8][4],
-                                       const float (&p)[BN / 8][4],
-                                       const float* sv, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 8; ++kk) {
-    // MMA k index t is kv column 2t, t + 4 is 2t + 1 (see the note)
-    uint32_t ab[4], as[4];
-    split_tf32(p[kk][0], ab[0], as[0]);
-    split_tf32(p[kk][2], ab[1], as[1]);
-    split_tf32(p[kk][1], ab[2], as[2]);
-    split_tf32(p[kk][3], ab[3], as[3]);
-    const float* vr = sv + (kk * 8 + 2 * t) * LD + g;
-#pragma unroll
-    for (int n0 = 0; n0 < DV / 8; n0 += 4) {
-      uint32_t bb[4][2], bs[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        split_tf32(vr[(n0 + j) * 8], bb[j][0], bs[j][0]);
-        split_tf32(vr[LD + (n0 + j) * 8], bb[j][1], bs[j][1]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mma_tf32(acc[n0 + j], as, bb[j][0], bb[j][1]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mma_tf32(acc[n0 + j], ab, bs[j][0], bs[j][1]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mma_tf32(acc[n0 + j], ab, bb[j][0], bb[j][1]);
-    }
-  }
-}
-
-// s = Q K^T, bf16; Q fragments already in registers.
-template <int DQK, int BN, int LD>
-__device__ __forceinline__ void scores_bf16(float (&s)[BN / 8][4],
-                                            const uint32_t (&qf)[DQK / 16][4],
-                                            const __nv_bfloat16* sk,
-                                            int lane) {
-  const int i = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < DQK / 16; ++ks) {
-#pragma unroll
-    for (int np = 0; np < BN / 16; ++np) {
-      uint32_t b[4];  // kv rows 16np + 0..7 | 8..15, d low | high half
-      ldsm_x4(b, sk + (np * 16 + (i >> 1) * 8 + r) * LD + ks * 16 +
-                     (i & 1) * 8);
-      mma_bf16(s[2 * np], qf[ks], b[0], b[1]);
-      mma_bf16(s[2 * np + 1], qf[ks], b[2], b[3]);
-    }
-  }
-}
-
-// acc += P V, bf16; P rounded to bf16 from the score accumulators.
-template <int DV, int BN, int LD>
-__device__ __forceinline__ void pv_bf16(float (&acc)[DV / 8][4],
-                                        const float (&p)[BN / 8][4],
-                                        const __nv_bfloat16* sv, int lane) {
-  const int i = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-        pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < DV / 16; ++np) {
-      uint32_t b[4];  // kv rows low | high half, dv columns 16np + 0..7 | 8..15
-      ldsm_x4_trans(b, sv + (kk * 16 + (i & 1) * 8 + r) * LD + np * 16 +
-                           (i >> 1) * 8);
-      mma_bf16(acc[2 * np], a, b[0], b[1]);
-      mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-template <typename T>
-__device__ void zero_cols(T* base, int nrows, int ld, int c0, int c1) {
-  const int w = c1 - c0;
-  if (w <= 0) return;
-  for (int idx = threadIdx.x; idx < nrows * w; idx += kThreads) {
-    const int r = idx / w;
-    base[r * ld + c0 + idx - r * w] = repro::from_float<T>(0.f);
-  }
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // One CTA per (q tile of 64 packed rows, kv head, batch).
 template <typename T, int DQK, int DV>
@@ -359,8 +138,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_hi = kv_hi > kv_lo ? (kv_hi + BN - 1) / BN : t_lo;
 
   // head-dim padding stays zero: the copies never write it
-  zero_cols(sQ, kBM + kStages * BN, LD, d, DQK);
-  zero_cols(sV, kStages * BN, LDV, dv, DV);
+  zero_cols<kThreads>(sQ, kBM + kStages * BN, LD, d, DQK);
+  zero_cols<kThreads>(sV, kStages * BN, LDV, dv, DV);
 
   // Q: packed row m0 + rr is position (m0 + rr) / grp, head
   // kh * grp + (m0 + rr) % grp
@@ -398,10 +177,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* sQw = sQ + warp * 16 * LD;
   uint32_t qf[kF32 ? 1 : DQK / 16][4];
   if constexpr (!kF32) {
-    const int i = lane >> 3, r = lane & 7;
-#pragma unroll
-    for (int ks = 0; ks < DQK / 16; ++ks)
-      ldsm_x4(qf[ks], sQw + ((i & 1) * 8 + r) * LD + ks * 16 + (i >> 1) * 8);
+    load_a_bf16<DQK, LD>(qf, sQw, lane);
   }
 
   const int r0 = m0 + warp * 16 + g;  // this lane's rows r0, r0 + 8
@@ -428,9 +204,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
     if constexpr (kF32)
-      scores_f32<DQK, BN, LD>(s, sQw, sKs, lane);
+      abt_f32<DQK, BN, LD>(s, sQw, sKs, lane);
     else
-      scores_bf16<DQK, BN, LD>(s, qf, sKs, lane);
+      abt_bf16<DQK, BN, LD>(s, qf, sKs, lane);
 
     const int kv0 = tile * BN;
     const bool mask =
@@ -479,9 +255,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 
     if constexpr (kF32)
-      pv_f32<DV, BN, LDV>(acc, s, sVs, g, t);
+      pb_f32<DV, BN, LDV>(acc, s, sVs, g, t);
     else
-      pv_bf16<DV, BN, LDV>(acc, s, sVs, lane);
+      pb_bf16<DV, BN, LDV>(acc, s, sVs, lane);
     __syncthreads();  // every warp is done with this stage
   }
 

@@ -230,6 +230,23 @@ def test_flash_backward_kernel_matches_plain(gen, b, sq, sk, h, kv, d, dv,
         assert got[0][blind].abs().max() == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_is_deterministic(gen, dtype):
+    """No atomics and a fixed order of every sum: two backward calls at
+    llama3.2-1b's heads give bit-equal dq, dk and dv."""
+    b, sq, sk, h, kv, d, dv, causal, window = (1, 512, 512, 32, 8, 64, 64,
+                                               True, 0)
+    q, k = _rand(gen, (b, sq, h, d), dtype), _rand(gen, (b, sk, kv, d), dtype)
+    v, do = _rand(gen, (b, sk, kv, dv), dtype), _rand(gen, (b, sq, h, dv),
+                                                      dtype)
+    out, lse = fa_mod._launch(q, k, v, causal, window, None, want_lse=True)
+    first = fa_mod._launch_bwd(q, k, v, out, lse, do, causal, window, None)
+    second = fa_mod._launch_bwd(q, k, v, out, lse, do, causal, window, None)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
 def test_flash_backward_rejects_what_it_does_not_take(gen):
     q = _rand(gen, (1, 8, 2, 16), torch.float32)
     out, lse = fa_mod._launch(q, q, q, True, 0, None, want_lse=True)
