@@ -143,7 +143,23 @@ Phases, in order; any failure exits non-zero:
    its batch of 256 cut to 2), one warm-up and 8 timed steps, each
    step's launches exact (rmsnorm 65, flash forward 32, backward 16),
    ms a step, tokens/s, peak memory, the device's busy share of a traced
-   step, and the losses: finite, the mean of the last 3 below the first.
+   step, and the losses: finite, the mean of the last 3 below the first;
+11. with at least four cards, sharded serving over NCCL, four ranks
+   spawned one a card (``repro_torch.models.parallel``: TP over
+   ``model``, FSDP over ``data``): (a) qwen2-72b cut to phase 8's 4
+   layers, f32, the same seeded weights on one card and split over (1,
+   4) and (2, 2): the forward's logits of 8 x 32, prefill 8 x 512 and 16
+   greedy steps into 1024 slots, within 1e-4 (max |dlogit| / max
+   |logit|) of the one-card run with every greedy token equal; (b)
+   granite-moe-1b-a400m whole on (1, 4), drop-free, the same bar; (c)
+   qwen2-72b whole, 80 layers at published width in bf16 (the dry-run's
+   serving policy), each card drawing its own shards: prefill 8 x 512
+   into 1024 slots and 32 greedy steps, their times, tokens/s, each
+   card's peak, one traced step's busy and NCCL shares on rank 0, and
+   each rank's launches (every rank must launch flash, decode attention
+   and rmsnorm, exactly as the config implies); (d) the port's dry-run of
+   (c) on the (1, 4) mesh beside (c)'s measured peak. On fewer cards it
+   prints "not run".
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -283,6 +299,19 @@ COUNTERS = {"rmsnorm": rms_mod.counter, "flash_attention": fa_mod.counter,
 PORT_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "flash_fwd_kernel",
                 "decode_", "mamba_scan_kernel", "mamba_step_kernel",
                 "flash_bwd_")
+# phase 11: sharded serving over NCCL on four cards: qwen2-72b cut to
+# phase 8's depth and granite-moe whole, each against its one-card run,
+# on these meshes; granite-34b cut to phase 8's depth on (1, 4), whose
+# one KV head puts the cache's sequence over model; qwen2-72b whole at
+# the dry-run's serving policy
+PAR_CARDS = 4
+PAR_CUT = dict(DEPTH_CUTS)["qwen2-72b"]
+PAR_SPLIT_CUT = dict(DEPTH_CUTS)["granite-34b"]
+PAR_MESHES = ((1, 4), (2, 2))
+PAR_FWD = (8, 32)               # the forward's batch x tokens
+PAR_STEPS, PAR_WHOLE_STEPS = 16, 32
+PAR_REL = 1e-4                  # max |dlogit| / max |logit|
+PAR_JOIN_S = 600
 # phase 10: llama3.2-1b trained at published width, f32 (the reference's
 # dtype), remat on as the dry-run sets it for every train shape
 # (src/repro/launch/shapes.py:124-127); train_4k's sequence length with
@@ -432,6 +461,18 @@ FLASH_CASES = (
 )
 
 
+# the split-sequence decode's calls (Parallel.split_decode): one query
+# row, every head, against one rank's slice of a cache whose sequence is
+# split over model, with each row's logsumexp, non-causal; granite-34b's
+# 48 heads on its one KV head at (1, 4) (SMAX / 4 slots a rank, phase
+# 11 (e)) and qwen2-72b's 64 on 8 on model 16 (a slice partly valid)
+FLASH_LSE_CASES = (
+    # (name, b, sk, h, kv, d)
+    ("split gr-34b", DECODE_BATCH, SMAX // PAR_CARDS, 48, 1, 128),
+    ("split qwen2", DECODE_BATCH, 37, 64, 8, 128),
+)
+
+
 def check_flash(gen: torch.Generator) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         for name, b, sq, sk, h, kv, d, dv, causal, window in FLASH_CASES:
@@ -446,6 +487,21 @@ def check_flash(gen: torch.Generator) -> None:
             err = assert_close(got, exp, dtype, f"flash {name} {dtype}")
             log(f"  flash    {name:13s} {str(dtype):14s} "
                 f"max_abs_err={err:.3e}  ok")
+        for name, b, sk, h, kv, d in FLASH_LSE_CASES:
+            q = rand(gen, (b, 1, h, d), dtype)
+            k = rand(gen, (b, sk, kv, d), dtype)
+            v = rand(gen, (b, sk, kv, d), dtype)
+            got, lse = fa_mod.flash_attention_with_lse(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            exp, exp_lse = ref.flash_attention_ref(q, k, v, causal=False,
+                                                   return_lse=True)
+            err = assert_close(got, exp, dtype, f"flash {name} {dtype}")
+            torch.testing.assert_close(
+                lse, exp_lse, **TOL[torch.float32],
+                msg=lambda m: f"flash {name} {dtype} lse: {m}")
+            lse_err = float((lse - exp_lse).abs().max())
+            log(f"  flash    {name:13s} {str(dtype):14s} "
+                f"max_abs_err={err:.3e}, lse {lse_err:.3e}  ok")
 
 
 # the backward at the training shape and at edge shapes: the reference's
@@ -3264,9 +3320,9 @@ class RecordingAdamW:
     def init(self, params):
         return self.opt.init(params)
 
-    def update(self, params, state, grads):
+    def update(self, params, state, grads, sq_norm):
         self.grads = [g.detach().clone() for g in tree_leaves(grads)]
-        return self.opt.update(params, state, grads)
+        return self.opt.update(params, state, grads, sq_norm)
 
 
 TRAIN_COUNTERS = {"rmsnorm": rms_mod.counter,
@@ -3484,6 +3540,349 @@ def train_full_width() -> dict:
     return total
 
 
+# --------------------------------------------------------------- phase 11
+def _p11_greedy(model, params, prompt, steps: int):
+    """Prefill and ``steps`` greedy steps of a (sharded or plain) model
+    on this rank's rows: (every step's whole-vocabulary logits (B, 1 +
+    steps, V), tokens (B, 1 + steps), prefill s, the steps' s)."""
+    whole = model.gather_logits
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, {"tokens": prompt}, SMAX)
+    outs = [whole(logits)]
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    toks = [outs[-1].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, state = model.decode_step(params, toks[-1], PROMPT + i,
+                                          state)
+        outs.append(whole(logits))
+        toks.append(outs[-1].argmax(-1))
+    torch.cuda.synchronize()
+    return (torch.cat(outs, 1), torch.cat(toks, 1), pre_s,
+            time.perf_counter() - t0)
+
+
+def _p11_rel(got: torch.Tensor, exp: torch.Tensor) -> float:
+    return float((got - exp).abs().max() / exp.abs().max())
+
+
+def _p11_against_one_card(rank: int, cfg, meshes) -> dict:
+    """(a), (b): the same seeded weights, drawn on every card; rank 0
+    runs the plain model on its card, then every mesh of ``meshes``
+    runs the sharded one. Returns rank 0's errors and token agreement,
+    and this rank's launches over the sharded runs."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.parallel import (ShardedModel, shard_batch,
+                                             shard_params)
+    dev = torch.device("cuda", rank)
+    full = build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(11)
+    fwd = torch.from_numpy(rng.integers(0, cfg.vocab_size, PAR_FWD)).to(dev)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (DECODE_BATCH, PROMPT))).to(dev)
+    out = {"meshes": {}}
+    with torch.no_grad():
+        if rank == 0:
+            plain = build_model(cfg, dev)
+            ref_fwd, _ = plain.forward(full, {"tokens": fwd})
+            ref_steps, ref_toks, _, _ = _p11_greedy(plain, full, prompt,
+                                                    PAR_STEPS)
+        torch.distributed.barrier()
+        total = dict.fromkeys(COUNTERS, 0)
+        for shape in meshes:
+            mesh = make_mesh(*shape)
+            model = ShardedModel(cfg, mesh, dev)
+            par = model.par
+            local = shard_params(full, mesh)
+            reset_counts()
+            logits, _ = model.forward(local, shard_batch({"tokens": fwd},
+                                                         mesh))
+            logits = par.all_gather(model.gather_logits(logits), 0, "data")
+            rows = shard_batch({"tokens": prompt}, mesh)["tokens"]
+            steps, toks, _, _ = _p11_greedy(model, local, rows, PAR_STEPS)
+            steps = par.all_gather(steps, 0, "data")
+            toks = par.all_gather(toks, 0, "data")
+            add_counts(total, counts())
+            if rank == 0:
+                out["meshes"][f"{shape[0]}x{shape[1]}"] = {
+                    "forward_rel": _p11_rel(logits, ref_fwd),
+                    "steps_rel": _p11_rel(steps, ref_steps),
+                    "tokens_equal": int((toks == ref_toks).sum()),
+                    "tokens": toks.numel(),
+                    "collectives": {f"{k}/{n}": c for (k, n), (c, _)
+                                    in par.stats.by_kind.items()}}
+            del local, model, steps, logits
+            torch.distributed.barrier()
+    out["launches"] = total
+    return out
+
+
+def _p11_whole(rank: int) -> dict:
+    """(c): qwen2-72b, 80 layers at full width, bf16 params and compute
+    (the dry-run's serving policy), on the (1, 4) mesh, each card's
+    shards drawn from its own seeded generator: prefill DECODE_BATCH x
+    PROMPT into SMAX slots (a cold call, then a timed one), then
+    PAR_WHOLE_STEPS greedy steps; launches checked per rank; one more
+    step traced on rank 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import SHAPES, dryrun_config
+    from repro_torch.models.parallel import ShardedModel
+    dev = torch.device("cuda", rank)
+    cfg, _ = dryrun_config(get_arch("qwen2-72b"), SHAPES["prefill_32k"], 1)
+    mesh = make_mesh(1, PAR_CARDS)
+    model = ShardedModel(cfg, mesh, dev)
+    t0 = time.perf_counter()
+    params = model.init_local(torch.Generator(device=dev).manual_seed(
+        1000 + rank))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)     # serving's peak, from here
+    out = {"init_s": time.perf_counter() - t0,
+           "local_gb": sum(t.numel() * t.element_size()
+                           for t in _leaves(params)) / 1e9,
+           "params": cfg.param_count()}
+    prompt = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (DECODE_BATCH, PROMPT))).to(dev)
+    with torch.no_grad():
+        _, state = model.prefill(params, {"tokens": prompt}, SMAX)   # cold
+        del state
+        reset_counts()
+        steps, toks, pre_s, dec_s = _p11_greedy(model, params, prompt,
+                                                PAR_WHOLE_STEPS)
+        launches = counts()
+        want = launches_per_forward(cfg, PROMPT)
+        for k, n in launches_per_step(cfg).items():
+            want[k] += n * PAR_WHOLE_STEPS
+        if launches != want:
+            raise RuntimeError(f"rank {rank}: launches {launches} != {want}")
+        if not bool(torch.isfinite(steps).all()) or tuple(steps.shape) != (
+                DECODE_BATCH, 1 + PAR_WHOLE_STEPS, cfg.vocab_size):
+            raise RuntimeError(f"rank {rank}: bad logits "
+                               f"{tuple(steps.shape)}")
+        out.update(prefill_ms=pre_s * 1e3,
+                   step_ms=dec_s / PAR_WHOLE_STEPS * 1e3,
+                   tokens_per_s=DECODE_BATCH * PAR_WHOLE_STEPS / dec_s,
+                   launches=launches,
+                   first_tokens=toks[0, :8].tolist())
+        # one more step, at the next position, traced on rank 0 only
+        _, state = model.prefill(params, {"tokens": prompt}, SMAX)
+        tok = toks[:, :1]
+
+        def step():
+            model.decode_step(params, tok, PROMPT, state)
+            torch.cuda.synchronize()
+        step()
+        torch.distributed.barrier()
+        if rank == 0:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step()
+                wall = (time.perf_counter() - t0) * 1e3
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kern) / 1e3
+            nccl = sum(e.self_device_time_total for e in kern
+                       if "nccl" in e.key.lower()) / 1e3
+            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+            out["trace"] = {
+                "wall_ms": wall, "busy_ms": busy, "nccl_ms": nccl,
+                "kernels": sum(e.count for e in kern),
+                "top": [(e.key[:70], e.self_device_time_total / 1e3,
+                         e.count) for e in top]}
+        else:
+            step()
+        torch.distributed.barrier()
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["collectives"] = {f"{k}/{n}": [c, b] for (k, n), (c, b)
+                          in model.par.stats.by_kind.items()}
+    return out
+
+
+def _p11_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of phase 11: NCCL over a FileStore, one card a rank."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load(rebuild=False)      # the parent's build
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(store, world), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=600),
+        device_id=torch.device("cuda", rank))
+    res: dict = {"rank": rank}
+
+    def cut(arch: str, layers: int):
+        full = get_arch(arch)
+        return dataclasses.replace(full, name=f"{full.name}-{layers}L",
+                                   segments=dense_segments(layers))
+    try:
+        res["a"] = _p11_against_one_card(rank, cut("qwen2-72b", PAR_CUT),
+                                         PAR_MESHES)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["b"] = _p11_against_one_card(
+            rank, drop_free(get_arch("granite-moe-1b-a400m")), PAR_MESHES[:1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["e"] = _p11_against_one_card(
+            rank, cut("granite-34b", PAR_SPLIT_CUT), PAR_MESHES[:1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["c"] = _p11_whole(rank)
+    except Exception:  # noqa: BLE001 — reported to the parent
+        res["error"] = traceback.format_exc()
+    path = Path(out_dir) / f"rank{rank}.json"
+    path.with_suffix(".tmp").write_text(json.dumps(res))
+    path.with_suffix(".tmp").replace(path)
+    if "error" not in res:
+        dist.destroy_process_group()
+
+
+def dryrun_peaks(world: int) -> dict:
+    """(d): the port's dry-run of (c)'s configuration on the (1, world)
+    mesh, in a subprocess (its fake group is process-global): the
+    prefill into SMAX slots and a decode step against them; returns
+    each one's per-device peak bytes."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "from repro_torch.launch.dryrun import lower_one\n"
+        "from repro_torch.launch.shapes import ShapeSpec\n"
+        f"p = lower_one('qwen2-72b', ShapeSpec('prefill', 'prefill', "
+        f"{PROMPT}, {DECODE_BATCH}), (1, {world}), smax={SMAX}, "
+        "verbose=False)\n"
+        f"d = lower_one('qwen2-72b', ShapeSpec('decode', 'decode', {SMAX}, "
+        f"{DECODE_BATCH}), (1, {world}), verbose=False)\n"
+        "print(json.dumps({'prefill': p, 'decode': d}))\n")
+    run = subprocess.run([sys.executable, "-W", "ignore", "-c", code],
+                         capture_output=True, text=True, timeout=600)
+    if run.returncode:
+        raise RuntimeError(f"the dry-run failed: {run.stderr[-3000:]}")
+    arts = json.loads(run.stdout.strip().splitlines()[-1])
+    return {k: a["peak_bytes_per_device"] for k, a in arts.items()}
+
+
+def sharded_on_four_cards() -> dict:
+    """Phase 11: PAR_CARDS ranks spawned, one a card (NCCL over a
+    FileStore under build/): (a) qwen2-72b cut to PAR_CUT layers, f32,
+    the same seeded weights unsharded on cuda:0 and split over each mesh
+    of PAR_MESHES: the forward's logits of PAR_FWD, then prefill
+    DECODE_BATCH x PROMPT and PAR_STEPS greedy steps into SMAX slots,
+    within PAR_REL (max |dlogit| / max |logit|) and every greedy token
+    equal; (b) granite-moe-1b-a400m whole on (1, 4), drop-free, the
+    same bar; (e) granite-34b cut to PAR_SPLIT_CUT layers on (1, 4),
+    the same bar, its decode over the sequence-split cache; (c) qwen2-72b whole (80 layers, bf16) on (1, 4); (d) the
+    dry-run's peak beside (c)'s. Returns the ranks' launches, summed."""
+    import multiprocessing as mp
+    out_dir = ROOT / "build" / "phase11"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for f in out_dir.glob("*"):
+        f.unlink()
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_p11_rank, args=(
+        r, PAR_CARDS, str(out_dir / "store"), str(out_dir)))
+        for r in range(PAR_CARDS)]
+    for p in procs:
+        p.start()
+    # every rank writes its result; a failed rank leaves the others
+    # waiting in a collective, so they are killed at once
+    deadline = time.monotonic() + PAR_JOIN_S
+    while any(p.is_alive() for p in procs) and \
+            time.monotonic() < deadline:
+        time.sleep(1.0)
+        if any("error" in json.loads(f.read_text())
+               for f in out_dir.glob("rank*.json")):
+            break
+    for p in procs:
+        p.join(5.0)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    log(f"  {PAR_CARDS} ranks ran in {time.perf_counter() - t0:.1f} s; exit "
+        f"codes {[p.exitcode for p in procs]}")
+    res = []
+    for r in range(PAR_CARDS):
+        path = out_dir / f"rank{r}.json"
+        if not path.exists():
+            raise RuntimeError(f"phase 11: rank {r} wrote no result (exit "
+                               f"code {procs[r].exitcode})")
+        res.append(json.loads(path.read_text()))
+    errors = [x["error"] for x in res if "error" in x]
+    if errors:
+        raise RuntimeError("phase 11 failed:\n" + "\n".join(errors))
+    if any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"phase 11: exit codes "
+                           f"{[p.exitcode for p in procs]}")
+
+    for part, label in (("a", f"qwen2-72b {PAR_CUT}L f32"),
+                        ("b", "granite-moe-1b-a400m whole, drop-free"),
+                        ("e", f"granite-34b {PAR_SPLIT_CUT}L f32, one KV "
+                              f"head: the sequence split over model")):
+        for mesh, m in res[0][part]["meshes"].items():
+            log(f"  ({part}) {label} on ({mesh.replace('x', ', ')}): "
+                f"forward {PAR_FWD[0]}x{PAR_FWD[1]} max|dlogit|/max|logit| "
+                f"{m['forward_rel']:.3e}; prefill {DECODE_BATCH}x{PROMPT} + "
+                f"{PAR_STEPS} steps {m['steps_rel']:.3e} (bar {PAR_REL:g}); "
+                f"greedy tokens equal {m['tokens_equal']} of {m['tokens']}; "
+                f"collectives a rank {m['collectives']}")
+            if not (m["forward_rel"] <= PAR_REL and m["steps_rel"] <= PAR_REL
+                    and m["tokens_equal"] == m["tokens"]):
+                raise RuntimeError(f"phase 11 ({part}) {mesh}: {m}")
+        log(f"  ({part}) launches a rank over its sharded runs: "
+            f"{[x[part]['launches'] for x in res]}")
+    # (e) decodes by the split-sequence flash (rank 0 holds the prompt's
+    # first slots, so it attends at every step), never the decode kernel
+    e0 = res[0]["e"]["launches"]
+    if any(x["e"]["launches"]["decode_attention"] for x in res) or \
+            e0["flash_attention"] < PAR_STEPS * PAR_SPLIT_CUT:
+        raise RuntimeError(f"phase 11 (e) did not decode by the split "
+                           f"sequence: {[x['e']['launches'] for x in res]}")
+    c = [x["c"] for x in res]
+    c0 = c[0]
+    log(f"  (c) qwen2-72b whole: 80 layers, {c0['params']} parameters "
+        f"bf16, {c0['local_gb']:.2f} GB of shards a card (drawn in "
+        f"{c0['init_s']:.1f} s); prefill {DECODE_BATCH}x{PROMPT} into "
+        f"{SMAX} slots {c0['prefill_ms']:.3f} ms (the second call); "
+        f"{PAR_WHOLE_STEPS} greedy steps {c0['step_ms']:.3f} ms a step, "
+        f"{c0['tokens_per_s']:.1f} tokens/s; first row's tokens "
+        f"{c0['first_tokens']}")
+    log(f"  (c) peak device memory a card (torch.cuda.max_memory_allocated):"
+        f" {[round(x['peak_gb'], 2) for x in c]} GB")
+    for rank, x in enumerate(c):
+        log(f"  (c) rank {rank} launches {x['launches']}")
+        if not all(x["launches"][k] > 0 for k in
+                   ("rmsnorm", "flash_attention", "decode_attention")):
+            raise RuntimeError(f"phase 11 (c): a rank launched no kernel of "
+                               f"the path: {x['launches']}")
+    log(f"  (c) collectives a rank [calls, bytes]: {c0['collectives']}")
+    t = c0["trace"]
+    log(f"  (c) one traced step on rank 0: {t['kernels']} kernels, device "
+        f"busy {t['busy_ms']:.3f} of {t['wall_ms']:.3f} ms "
+        f"({t['busy_ms'] / t['wall_ms']:.1%}), NCCL {t['nccl_ms']:.3f} ms "
+        f"({t['nccl_ms'] / t['wall_ms']:.1%})")
+    for key, ms, n in t["top"]:
+        log(f"    {ms:8.3f} ms  x{n:<5d} {key}")
+    peaks = dryrun_peaks(PAR_CARDS)
+    measured = max(x["peak_gb"] for x in c) * 1e9
+    for kind in ("prefill", "decode"):
+        log(f"  (d) the dry-run of (c) on (1, {PAR_CARDS}), {kind}: peak "
+            f"{peaks[kind] / 1e9:.2f} GB a device; (c) measured "
+            f"{measured / 1e9:.2f} GB: ratio {peaks[kind] / measured:.3f}")
+    total = dict.fromkeys(COUNTERS, 0)
+    for x in res:
+        for part in ("a", "b", "e", "c"):
+            add_counts(total, x[part]["launches"])
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; this script runs the "
@@ -3614,6 +4013,17 @@ def main() -> int:
     for r in records:
         if r["name"] in trained:
             r["launches"] += trained[r["name"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= PAR_CARDS:
+        log(f"[11] sharded serving on {PAR_CARDS} cards over NCCL "
+            f"({nvidia_smi()})")
+        sharded = sharded_on_four_cards()
+        for r in records:
+            r["launches"] += sharded.get(r["name"], 0)
+    else:
+        log(f"[11] not run: it shards over {PAR_CARDS} cards, and torch "
+            f"sees {torch.cuda.device_count()}")
     if not all(r["launches"] > 0 for r in records):
         raise RuntimeError(f"a kernel was not launched: "
                            f"{[(r['name'], r['launches']) for r in records]}")

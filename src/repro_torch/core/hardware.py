@@ -30,6 +30,13 @@ H100_PEAK_FLOPS_F32 = 67e12   # outside the tensor cores
 H100_PEAK_FLOPS_TF32 = 495e12  # tensor cores, TF32 inputs, f32 accumulate
 H100_PEAK_FLOPS_F64 = 34e12   # outside the tensor cores
 H100_HBM_BW = 3.35e12
+# NVLink 4 within one 8-card HGX node (through NVSwitch): 900 GB/s a card
+# in both directions together, NVIDIA's H100 data sheet; 450 GB/s each
+# way, the rate one collective's bytes leave a card at. The reference's
+# model axis of 16 spans two such nodes, whose link between them
+# (InfiniBand, ~50 GB/s a card) is slower: a term over this constant is
+# a lower bound there.
+H100_NVLINK_BW = 450e9
 
 # CPU host core (measured-profile fallback / non-acceleratable stages)
 CPU_PEAK_FLOPS = 0.15e12      # effective fp32 FLOP/s for one host core

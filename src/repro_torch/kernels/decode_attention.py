@@ -23,7 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -67,7 +67,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B,1,H,D); k: (B,Smax,KV,D); v: (B,Smax,KV,Dv) -> (B,1,H,Dv) in
     q's dtype. Slots ``[0, valid_len)`` count, and with ``window > 0``
     only the last ``window`` of them. The kernel takes ``valid_len`` as a
-    host int; the plain version also takes a ``(B,)`` tensor."""
+    host int; the plain version also takes a ``(B,)`` tensor. Inside
+    :func:`meta.shapes_only`, ``meta`` tensors take the meta branch."""
+    if meta.takes(q):
+        b, _, h, d = q.shape
+        vl = operator.index(valid_len)
+        n = min(vl, window) if window > 0 else vl
+        out = q.new_empty((b, 1, h, v.shape[3]))
+        # the n slots that count are read, once
+        meta.add(2 * b * h * n * (d + v.shape[3]), q, out, k[:, :n],
+                 v[:, :n])
+        return out
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, valid_len, window=window,
                                         scale=scale)

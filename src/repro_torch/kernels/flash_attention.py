@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_QK_HEAD_DIM = 192
@@ -41,16 +41,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B,Sq,H,D); k: (B,Sk,KV,D); v: (B,Sk,KV,Dv) -> (B,Sq,H,Dv) in
     q's dtype. The causal diagonal is offset by ``Sk - Sq``; ``window``
-    applies with ``causal`` only. Differentiable in q, k and v."""
-    if q.device.type not in ("cuda", "cpu"):
+    applies with ``causal`` only. Differentiable in q, k and v. Inside
+    :func:`meta.shapes_only`, ``meta`` tensors take the meta branch."""
+    if q.device.type not in ("cuda", "cpu") and not meta.takes(q):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, scale)
     if q.is_cuda:
         return _launch(q, k, v, causal, window, scale)[0]
+    if q.is_meta:
+        return _meta_fwd(q, k, v, causal, window, False)[0]
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True,
+                             window: int = 0,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward and each row's logsumexp (B,Sq,H) f32, without
+    autograd: the forward kernel with its lse on CUDA (one launch), the
+    plain version on the CPU. For combining partial softmaxes over
+    slices of the keys; a row that sees no key has lse +inf."""
+    if q.is_cuda:
+        return _launch(q, k, v, causal, window, scale, want_lse=True)
+    if meta.takes(q):
+        return _meta_fwd(q, k, v, causal, window, True)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale, return_lse=True)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -63,6 +85,8 @@ class FlashAttention(torch.autograd.Function):
                 scale: Optional[float]):
         if q.is_cuda:
             out, lse = _launch(q, k, v, causal, window, scale, want_lse=True)
+        elif q.is_meta:
+            out, lse = _meta_fwd(q, k, v, causal, window, True)
         else:
             out, lse = ref.flash_attention_ref(q, k, v, causal=causal,
                                                window=window, scale=scale,
@@ -93,6 +117,15 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     blockwise version."""
     if q.is_cuda:
         return _launch_bwd(q, k, v, out, lse, dout, causal, window, scale)
+    if meta.takes(q):
+        _check_shapes(q, k, v)
+        b, sq, h, d = q.shape
+        pairs = meta.attention_pairs(b, sq, k.shape[1], h, causal, window)
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        # S and dP recomputed, dV, dK and dQ: the three kernels' products
+        meta.add(2 * pairs * (4 * d + 3 * v.shape[3]), q, k, v, out, lse,
+                 dout, *grads)
+        return grads
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                            causal=causal, window=window,
@@ -101,8 +134,22 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                      f"{q.device}")
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
-    """Raise on what the kernels do not take; return the dtype code."""
+def _meta_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int, want_lse: bool
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel's outputs, shapes only: out (B,Sq,H,Dv) and,
+    under grad, the lse (B,Sq,H) f32; never the S x S scores."""
+    _check_shapes(q, k, v)
+    b, sq, h, d = q.shape
+    dv = v.shape[3]
+    out = q.new_empty((b, sq, h, dv))
+    lse = q.new_empty((b, sq, h), dtype=torch.float32) if want_lse else None
+    meta.add(2 * meta.attention_pairs(b, sq, k.shape[1], h, causal, window)
+             * (d + dv), q, k, v, out, *([lse] if want_lse else []))
+    return out, lse
+
+
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes 4-D q, k, v")
     b, sq, h, d = q.shape
@@ -112,6 +159,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
                          f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
     if h % kvh:
         raise ValueError(f"q heads {h} not divisible by kv heads {kvh}")
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; return the dtype code."""
+    _check_shapes(q, k, v)
+    d, dv = q.shape[3], v.shape[3]
     if d > MAX_QK_HEAD_DIM or dv > MAX_V_HEAD_DIM or d % 8 or dv % 8:
         raise ValueError(f"flash_attention kernel takes head dims that are "
                          f"multiples of 8, D up to {MAX_QK_HEAD_DIM} and Dv "

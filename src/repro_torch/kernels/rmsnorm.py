@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 # entry point, and the alignment its 4-element vector loads need (bytes)
 KERNEL_DTYPES = {torch.float32: ("rmsnorm_f32", 16),
@@ -31,14 +31,25 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); scale: (D,). ``x * rsqrt(mean(x^2) + eps)`` cast to
     ``x.dtype``, times ``scale`` cast to ``x.dtype``. Differentiable in x
-    and scale."""
-    if x.device.type not in ("cuda", "cpu"):
+    and scale. Inside :func:`meta.shapes_only`, ``meta`` tensors take
+    the meta branch."""
+    if x.device.type not in ("cuda", "cpu") and not meta.takes(x):
         raise ValueError(f"rmsnorm: unsupported device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return RMSNorm.apply(x, scale, eps)
     if x.is_cuda:
         return _launch(x, scale, eps)
+    if x.is_meta:
+        return _meta(x)
     return ref.rmsnorm_ref(x, scale, eps)
+
+
+def _meta(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's output, shapes only: a square, a sum, a scale and a
+    product an element."""
+    out = torch.empty_like(x)
+    meta.add(4 * x.numel(), x, out)
+    return out
 
 
 class RMSNorm(torch.autograd.Function):
@@ -53,8 +64,12 @@ class RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, eps: float):
-        out = _launch(x, scale, eps) if x.is_cuda \
-            else ref.rmsnorm_ref(x, scale, eps)
+        if x.is_cuda:
+            out = _launch(x, scale, eps)
+        elif x.is_meta:
+            out = _meta(x)
+        else:
+            out = ref.rmsnorm_ref(x, scale, eps)
         ctx.save_for_backward(x, scale)
         ctx.eps = eps
         return out

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
+KV_WEIGHTS = ("wk", "wv", "bk", "bv")
 
 
 def _dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
@@ -76,6 +77,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# One rank's collectives
+# ---------------------------------------------------------------------------
+
+class Local:
+    """The collectives of a single rank, every one the identity.
+
+    :func:`attention`, :func:`mlp`, :func:`moe` and the model's layer
+    loop take one as ``par``; under a mesh it is a
+    :class:`repro_torch.models.parallel.Parallel`, whose methods issue
+    the collectives over the mesh's groups. A layer reads from its
+    weights' local shapes which dimension is split over ``model`` (fewer
+    query heads than ``cfg.num_heads``, a narrower FFN hidden, fewer
+    experts), and only then asks ``par`` for the all-reduce that makes
+    a partial output whole."""
+
+    model_rank = 0
+
+    def to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f: identity forward, all-reduce backward."""
+        return x
+
+    def from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's g: all-reduce forward, identity backward."""
+        return x
+
+    def layer(self, p: Params, spec) -> Params:
+        """One layer's weights for use (FSDP's all-gather)."""
+        return p
+
+    def cache_slots(self, slots: int) -> Tuple[int, int, int]:
+        """(first slot, slots, slots in all) of this rank's slice of a
+        cache's sequence."""
+        return 0, slots, slots
+
+    def moe_rows(self, x: torch.Tensor, groups: int
+                 ) -> Tuple[torch.Tensor, int]:
+        """The rows a MoE routes, and its routing groups among them."""
+        return x, groups
+
+    def moe_own(self, out: torch.Tensor, aux: torch.Tensor, b: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's ``b`` rows of a MoE's output, and its aux."""
+        return out, aux
+
+
+LOCAL = Local()
+
+
+# ---------------------------------------------------------------------------
 # GQA self-attention
 # ---------------------------------------------------------------------------
 
@@ -97,10 +147,46 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
+def _kv_heads(cfg: ArchConfig, hl: int, rank: int) -> slice:
+    """The KV heads that the ``hl`` query heads of model rank ``rank``
+    attend with, when every rank computes all KV heads."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    h0 = rank * hl
+    if hl % g == 0:
+        return slice(h0 // g, h0 // g + hl // g)
+    if g % hl == 0:
+        return slice(h0 // g, h0 // g + 1)
+    raise NotImplementedError(
+        f"{cfg.name}: {hl} query heads a rank in groups of {g}")
+
+
+def _write_prompt(cfg: ArchConfig, ck: torch.Tensor, cv: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, lo: int,
+                  smax: int) -> None:
+    """A prompt's k/v into the cache's slots from ``lo`` on, of ``smax``
+    in all: token t at slot t, or, for a sliding-window ring shorter
+    than the prompt, the last ``smax`` tokens at slot ``t % smax``."""
+    n, s = ck.shape[1], k.shape[1]
+    if smax >= s:
+        cnt = max(0, min(lo + n, s) - lo)
+        ck[:, :cnt] = k[:, lo:lo + cnt].to(ck.dtype)
+        cv[:, :cnt] = v[:, lo:lo + cnt].to(cv.dtype)
+        return
+    if cfg.sliding_window <= 0:
+        raise ValueError(
+            f"full-attention cache too small: smax={smax} < prompt length "
+            f"{s} (did you forget the modality prefix when sizing the "
+            f"cache?)")
+    slot = torch.arange(lo, lo + n, device=ck.device)
+    tok = s - 1 - (s - 1 - slot) % smax          # the last token at a slot
+    ck[:, :n] = k[:, tok].to(ck.dtype)
+    cv[:, :n] = v[:, tok].to(cv.dtype)
+
+
 def attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, kind: str = "causal",
               cache: Optional[Params] = None,
-              cache_pos: Optional[int] = None
+              cache_pos: Optional[int] = None, par: Local = LOCAL
               ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Self-attention over x (B,S,d). Returns (output, cache or None).
 
@@ -123,47 +209,61 @@ def attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
     segment's stacked ``(repeat, B, Smax, KV, hd)`` tensors, so no step
     copies the cache (the reference's functional update returns a new
     one). The returned cache is ``cache`` itself.
+
+    Under a mesh the query heads are this rank's when ``wq`` holds fewer
+    than ``cfg.num_heads``, and ``wo``'s partial output is all-reduced.
+    KV heads that do not divide ``model`` stay whole: every rank computes
+    all of them and attends with its own query heads' ones, and the
+    cache holds this rank's slice of the sequence (``par.cache_slots``);
+    a decode step over a split sequence combines the slices' partial
+    softmaxes (``par.split_decode``).
     """
     cd = cfg.cdtype
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(cd))
+    hl = params["wq"].shape[1]
+    heads_tp = hl < cfg.num_heads
+    kv_whole = heads_tp and params["wk"].shape[1] == cfg.num_kv_heads
+    if heads_tp:
+        x = par.to_model(x)
+
+    def w(name: str) -> torch.Tensor:
+        t = params[name].to(cd)
+        # a replicated KV weight that this rank uses in part
+        return par.to_model(t) if kv_whole and name in KV_WEIGHTS else t
+
+    q = torch.einsum("bsd,dhk->bshk", x, w("wq"))
+    k = torch.einsum("bsd,dhk->bshk", x, w("wk"))
+    v = torch.einsum("bsd,dhk->bshk", x, w("wv"))
     if "bq" in params:
-        q = q + params["bq"].to(cd)
-        k = k + params["bk"].to(cd)
-        v = v + params["bv"].to(cd)
+        q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    heads = _kv_heads(cfg, hl, par.model_rank) if kv_whole else slice(None)
 
     window, valid_len = cfg.sliding_window, None
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
-        smax = ck.shape[1]
-        if cache_pos is not None:
+        lo, n, smax = par.cache_slots(ck.shape[1])
+        if cache_pos is None:
+            _write_prompt(cfg, ck, cv, k, v, lo, smax)
+        else:
             slot = cache_pos % smax if cfg.sliding_window > 0 \
                 else min(cache_pos, smax - 1)
-            ck[:, slot] = k[:, 0].to(ck.dtype)
-            cv[:, slot] = v[:, 0].to(cv.dtype)
-            k, v = ck.to(cd), cv.to(cd)
+            if lo <= slot < lo + n:
+                ck[:, slot - lo] = k[:, 0].to(ck.dtype)
+                cv[:, slot - lo] = v[:, 0].to(cv.dtype)
+            k, v = ck, cv
             valid_len = min(cache_pos + 1, smax)
             kind, window = "decode", 0
-        else:
-            s = k.shape[1]
-            if smax >= s:
-                ck[:, :s] = k.to(ck.dtype)
-                cv[:, :s] = v.to(cv.dtype)
-            else:
-                if cfg.sliding_window <= 0:
-                    raise ValueError(
-                        f"full-attention cache too small: smax={smax} < "
-                        f"prompt length {s} (did you forget the modality "
-                        f"prefix when sizing the cache?)")
-                slots = torch.arange(s - smax, s, device=ck.device) % smax
-                ck[:, slots] = k[:, -smax:].to(ck.dtype)
-                cv[:, slots] = v[:, -smax:].to(cv.dtype)
-    out = ops.attention(q, k, v, None, cd, kind=kind, window=window,
+            if n != smax:                       # the sequence is split
+                out = par.split_decode(q, ck, cv, lo, valid_len, heads,
+                                       heads_tp, cd)
+                out = torch.einsum("bshk,hkd->bsd", out, w("wo"))
+                return (par.from_model(out) if heads_tp else out), cache
+    out = ops.attention(q, k[:, :, heads], v[:, :, heads], None, cd,
+                        kind=kind, window=window,
                         valid_len=valid_len)                # (B,S,H,hd)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"].to(cd)), cache
+    out = torch.einsum("bshk,hkd->bsd", out, w("wo"))
+    return (par.from_model(out) if heads_tp else out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -300,15 +400,23 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig, device: torch.device,
     return p
 
 
-def mlp(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: Params, cfg: ArchConfig, x: torch.Tensor,
+        par: Local = LOCAL, d_ff: Optional[int] = None) -> torch.Tensor:
+    """The SwiGLU or GELU MLP of hidden ``d_ff`` (default
+    ``cfg.d_ff``). Under a mesh, ``wg``/``wu`` narrower than it are
+    column-parallel, ``wd`` row-parallel and its output all-reduced."""
     cd = cfg.cdtype
+    tp = params["wu"].shape[-1] < (d_ff or cfg.d_ff)
+    if tp:
+        x = par.to_model(x)
     u = torch.einsum("bsd,df->bsf", x, params["wu"].to(cd))
     if "wg" in params:  # swiglu
         g = torch.einsum("bsd,df->bsf", x, params["wg"].to(cd))
         h = F.silu(g) * u
     else:               # non-gated gelu (jax.nn.gelu's tanh form)
         h = F.gelu(u, approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, params["wd"].to(cd))
+    out = torch.einsum("bsf,fd->bsd", h, params["wd"].to(cd))
+    return par.from_model(out) if tp else out
 
 
 # ---------------------------------------------------------------------------
@@ -342,15 +450,18 @@ def moe_capacity(cfg: ArchConfig, t: int) -> int:
     return max(capacity, t) if t <= 64 else capacity
 
 
-def _moe_tokens(params: Params, cfg: ArchConfig, xt: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_tokens(params: Params, cfg: ArchConfig, xt: torch.Tensor,
+                par: Local = LOCAL) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route one token group (t, d) through the experts; returns (out
     (t, d), aux). The reference's sort-based dispatch: f32 router,
     softmax top-k renormalised, each assignment's slot in its expert from
     a stable argsort of the expert ids, the assignments past an expert's
     capacity dropped, the kept ones gathered into an ``(E, C, D)``
     buffer, the experts' SwiGLU as batched products, and the outputs
-    combined with the routing weights, plus the shared expert."""
+    combined with the routing weights. Under a mesh whose ``model`` axis
+    splits the experts, this rank's ``E / model`` run: the assignments
+    to other ranks' experts are masked out, and ``out`` is this rank's
+    partial sum."""
     t, d = xt.shape
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     cd, dev = cfg.cdtype, xt.device
@@ -376,49 +487,66 @@ def _moe_tokens(params: Params, cfg: ArchConfig, xt: torch.Tensor
     pos = torch.empty_like(flat_e)
     pos[order] = torch.arange(t * k, device=dev) - starts[sorted_e]
     keep = pos < capacity
+    el = params["wg"].shape[0]                   # this rank's experts
+    e0 = 0
+    if el < e:
+        e0 = par.model_rank * el
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + el)
+        # the router's inputs and outputs, used here in part
+        xt, top_w = par.to_model(xt), par.to_model(top_w)
 
     # the kept assignments into (E, C, D); a dropped one adds zeros to
     # the last slot, as the reference's scatter does, so every slot's
     # sum is exact in any order
     tok_idx = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
     src = torch.where(keep[:, None], xt[tok_idx].to(cd), 0.0)
-    slot = torch.where(keep, flat_e * capacity + pos, e * capacity - 1)
-    buf = torch.zeros((e * capacity, d), dtype=cd, device=dev).index_add_(
-        0, slot, src).view(e, capacity, d)
+    slot = torch.where(keep, (flat_e - e0) * capacity + pos,
+                       el * capacity - 1)
+    buf = torch.zeros((el * capacity, d), dtype=cd, device=dev).index_add_(
+        0, slot, src).view(el, capacity, d)
 
     g = torch.einsum("ecd,edf->ecf", buf, params["wg"].to(cd))
     u = torch.einsum("ecd,edf->ecf", buf, params["wu"].to(cd))
     y = torch.einsum("ecf,efd->ecd", F.silu(g) * u, params["wd"].to(cd))
 
     # gather back; the k outputs of a token sit side by side
-    out_tk = torch.where(keep[:, None], y.reshape(e * capacity, d)[slot],
+    out_tk = torch.where(keep[:, None], y.reshape(el * capacity, d)[slot],
                          0.0)
     w = top_w.reshape(-1).to(cd)
     out = (out_tk * w[:, None]).view(t, k, d).sum(dim=1)
-    if "shared" in params:
-        out = out + mlp(params["shared"], cfg, xt[None]).reshape(t, d)
     return out, aux.float()
 
 
-def moe(params: Params, cfg: ArchConfig, x: torch.Tensor
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k routed experts with static capacity; returns (out, aux).
+def moe(params: Params, cfg: ArchConfig, x: torch.Tensor,
+        par: Local = LOCAL) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with static capacity, plus the shared
+    expert; returns (out, aux).
 
     With ``cfg.moe_groups > 1`` and the tokens dividing into that many
     groups, each group routes on its own (group-limited capacity) and
     the aux is the mean over groups. The reference vmaps or maps the
     groups by the size of the expert hidden; both compute this, so the
-    groups go in a loop, which keeps one group's buffers live."""
+    groups go in a loop, which keeps one group's buffers live. Under a
+    mesh, ``par.moe_rows`` says which rows route in which groups (a
+    data rank's own, or every data rank's gathered), the experts'
+    partial sums are all-reduced over ``model``, and ``par.moe_own``
+    keeps this rank's rows."""
     b, s, d = x.shape
-    t = b * s
+    x, g = par.moe_rows(x, cfg.moe_groups)
+    t = x.shape[0] * s
     xt = x.reshape(t, d)
-    g = cfg.moe_groups
     if g > 1 and t % g == 0:
-        outs, auxes = zip(*(_moe_tokens(params, cfg, xg)
+        outs, auxes = zip(*(_moe_tokens(params, cfg, xg, par)
                             for xg in xt.view(g, t // g, d)))
-        return torch.cat(outs).view(b, s, d), torch.stack(auxes).mean()
-    out, aux = _moe_tokens(params, cfg, xt)
-    return out.view(b, s, d), aux
+        out, aux = torch.cat(outs), torch.stack(auxes).mean()
+    else:
+        out, aux = _moe_tokens(params, cfg, xt, par)
+    if params["wg"].shape[0] < cfg.num_experts:
+        out = par.from_model(out)
+    if "shared" in params:
+        out = out + mlp(params["shared"], cfg, xt[None], par,
+                        cfg.moe_d_ff * cfg.num_shared_experts).reshape(t, d)
+    return par.moe_own(out.view(-1, s, d), aux, b)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ Entry points:
                                                  aux: the MoE routers' loss
                                                  plus the MTP loss
   Model.loss(params, batch)                   -> scalar: next-token CE + aux
+  Model.grad_sq_norm(grads)                   -> the clip's squared norm
   Model.prefill(params, batch, smax)          -> (last logits (B,1,V), cache)
   Model.decode_step(params, token, pos, cache) -> (logits (B,1,V), cache)
 
@@ -27,6 +28,10 @@ encoder-decoder and image models with theirs. With ``cfg.remat`` each
 layer of a training forward is a ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of its scan body): only the layer
 boundaries are kept, and the backward runs each layer's forward again.
+
+The same code runs sharded: :class:`repro_torch.models.parallel.
+ShardedModel` is a ``Model`` whose ``par`` issues the mesh's collectives
+and whose ``seg_specs`` place each layer's weights.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig, Block, Segment
 from repro_torch.models.kvcache import init_cache
+from repro_torch.train.tree import sq_norm
 
 Params = Dict[str, Any]
 MTP_BLOCK = Block("attn", "dense")   # DeepSeek's MTP module is one layer
@@ -103,16 +109,19 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, block: Block,
 def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
                  positions: torch.Tensor, mask_kind: Optional[str],
                  cache: Optional[Params] = None,
-                 cache_pos: Optional[int] = None
+                 cache_pos: Optional[int] = None, par: L.Local = L.LOCAL
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One block; returns (x, the MoE router's aux loss or None). An
     attention or Mamba block with ``cache`` writes it in place."""
     aux = None
     h = L.rmsnorm(p["norm1"], cfg, x)
-    if block.kind == "attn":
-        attend = L.mla_attention if cfg.use_mla else L.attention
-        out, _ = attend(p["core"], cfg, h, positions, kind=mask_kind,
-                        cache=cache, cache_pos=cache_pos)
+    if block.kind == "attn" and cfg.use_mla:
+        out, _ = L.mla_attention(p["core"], cfg, h, positions,
+                                 kind=mask_kind, cache=cache,
+                                 cache_pos=cache_pos)
+    elif block.kind == "attn":
+        out, _ = L.attention(p["core"], cfg, h, positions, kind=mask_kind,
+                             cache=cache, cache_pos=cache_pos, par=par)
     elif block.kind == "mamba":
         out = L.mamba_block(p["core"], cfg, h, cache)
     elif block.kind == "mlstm":
@@ -122,10 +131,10 @@ def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
     x = x + out
     if block.ffn == "dense":
         h = L.rmsnorm(p["norm2"], cfg, x)
-        x = x + L.mlp(p["ffn"], cfg, h)
+        x = x + L.mlp(p["ffn"], cfg, h, par)
     elif block.ffn == "moe":
         h = L.rmsnorm(p["norm2"], cfg, x)
-        out, aux = L.moe(p["ffn"], cfg, h)
+        out, aux = L.moe(p["ffn"], cfg, h, par)
         x = x + out
     return x, aux
 
@@ -157,20 +166,24 @@ def _stack(layers):
 def _run_segment(params_stack, cfg: ArchConfig, seg: Segment,
                  x: torch.Tensor, positions: torch.Tensor,
                  mask_kind: Optional[str], cache_stack=None,
-                 cache_pos: Optional[int] = None
+                 cache_pos: Optional[int] = None, par: L.Local = L.LOCAL,
+                 specs=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Python loop over the repeat axis (the reference scans it). Layer r
     of block bi gets the views ``cache_stack[bi][...][r]``. Returns (x,
     the sum of the MoE blocks' aux losses, or None without MoE). With
     ``cfg.remat`` and grad enabled (no cache), each repeat is one
-    checkpoint, as the reference checkpoints its scan body."""
+    checkpoint, as the reference checkpoints its scan body. Under a mesh
+    ``specs`` holds each block's per-layer placements, by which
+    ``par.layer`` gathers a layer's weights (inside the checkpoint, so
+    that the backward gathers them again)."""
     remat = cfg.remat and cache_stack is None and torch.is_grad_enabled()
     run = functools.partial(checkpoint, _run_repeat, use_reentrant=False) \
         if remat else _run_repeat
     aux = None
     for r in range(seg.repeat):
         x, a = run(params_stack, cfg, seg, r, x, positions, mask_kind,
-                   cache_stack, cache_pos)
+                   cache_stack, cache_pos, par, specs)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -179,14 +192,18 @@ def _run_segment(params_stack, cfg: ArchConfig, seg: Segment,
 def _run_repeat(params_stack, cfg: ArchConfig, seg: Segment, r: int,
                 x: torch.Tensor, positions: torch.Tensor,
                 mask_kind: Optional[str], cache_stack,
-                cache_pos: Optional[int]
+                cache_pos: Optional[int], par: L.Local = L.LOCAL,
+                specs=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The pattern's blocks at repeat ``r``: (x, their aux sum or None)."""
     aux = None
     for bi, block in enumerate(seg.blocks):
         cache = None if cache_stack is None else _index(cache_stack[bi], r)
-        x, a = _apply_block(_index(params_stack[bi], r), cfg, block, x,
-                            positions, mask_kind, cache, cache_pos)
+        p = _index(params_stack[bi], r)
+        if specs is not None:
+            p = par.layer(p, specs[bi])
+        x, a = _apply_block(p, cfg, block, x, positions, mask_kind, cache,
+                            cache_pos, par)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -209,6 +226,11 @@ def _check_decodes(cfg: ArchConfig) -> None:
 class Model:
     cfg: ArchConfig
     device: torch.device
+
+    # one rank; a sharded model (repro_torch.models.parallel) sets its
+    # mesh's collectives and each segment's per-layer placements
+    par = L.LOCAL
+    seg_specs = None
 
     def __post_init__(self):
         _check_supported(self.cfg)
@@ -254,6 +276,34 @@ class Model:
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         return torch.einsum("bsd,dv->bsv", x, w.to(cfg.cdtype)).float()
 
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole vocabulary of the logits an entry point returns
+        (they are whole here)."""
+        return logits
+
+    def _layers(self, params: Params, x: torch.Tensor, kind: str,
+                positions: torch.Tensor, state=None,
+                cache_pos: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every segment over x, with the cache of ``state`` if given:
+        (x, the MoE blocks' aux sum)."""
+        cfg = self.cfg
+        par = self.par if state is None else self._cache_par(state)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for si, (seg, ps) in enumerate(zip(cfg.segments,
+                                           params["segments"])):
+            x, a = _run_segment(
+                ps, cfg, seg, x, positions, kind,
+                None if state is None else state[0][si], cache_pos, par,
+                None if self.seg_specs is None else self.seg_specs[si])
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def _cache_par(self, state) -> L.Local:
+        """The collectives of a run over the cache of ``state``."""
+        return self.par
+
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Scoring forward over ``batch["tokens"]`` (B,S) int. Returns
@@ -263,11 +313,7 @@ class Model:
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for seg, ps in zip(cfg.segments, params["segments"]):
-            x, a = _run_segment(ps, cfg, seg, x, positions, "causal")
-            if a is not None:
-                aux = aux + a
+        x, aux = self._layers(params, x, "causal", positions)
         logits = self._head(params, x)
         if cfg.mtp_depth and batch.get("enable_mtp", True) is not False:
             aux = aux + self._mtp_loss(params, x, batch["tokens"])
@@ -290,6 +336,15 @@ class Model:
         logits = self._head(params, x, norm=mtp["norm"])
         return 0.1 * _cross_entropy(logits[:, :-1], tokens[:, 2:]).mean()
 
+    def _cross_entropy(self, logits: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+        return _cross_entropy(logits, targets)
+
+    def _mean_loss(self, num: torch.Tensor, den: torch.Tensor,
+                   aux: torch.Tensor) -> torch.Tensor:
+        """The loss from the summed cross entropy, its count and aux."""
+        return num / torch.clamp(den, min=1.0) + aux
+
     def loss(self, params: Params,
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Mean next-token cross entropy of ``batch["tokens"]`` plus the
@@ -297,45 +352,54 @@ class Model:
         mean over the masked-in targets (at least 1 in the divisor)."""
         logits, aux = self.forward(params, batch)
         tokens = batch["tokens"]
-        ce = _cross_entropy(logits[:, :-1], tokens[:, 1:])
+        ce = self._cross_entropy(logits[:, :-1], tokens[:, 1:])
         if "loss_mask" in batch:
             m = batch["loss_mask"][:, 1:].float()
-            ce = (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+            num, den = (ce * m).sum(), m.sum()
         else:
-            ce = ce.mean()
-        return ce + aux
+            num = ce.sum()
+            den = torch.tensor(float(ce.numel()), device=ce.device)
+        return self._mean_loss(num, den, aux)
+
+    def grad_sq_norm(self, grads) -> torch.Tensor:
+        """The squared global norm of a gradient tree, which the
+        optimizer's clip reads."""
+        return sq_norm(grads)
+
+    def init_cache(self, batch: int, smax: int, device=None):
+        """A fresh cache state of ``smax`` slots: (cache, cross)."""
+        return init_cache(self.cfg, batch, smax,
+                          device=self.device if device is None else device)
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 smax: int) -> Tuple[torch.Tensor, Any]:
         """Process the prompt ``batch["tokens"]`` (B,S) into a fresh cache
         of ``smax`` slots. Returns (last-position logits (B,1,V) f32,
         (cache, None))."""
-        cfg = self.cfg
-        _check_decodes(cfg)
-        x = self._embed_inputs(params, batch)
+        tokens = batch["tokens"]
+        return self._prefill(params, tokens, self.init_cache(
+            tokens.shape[0], smax, tokens.device))
+
+    def _prefill(self, params: Params, tokens: torch.Tensor, state):
+        _check_decodes(self.cfg)
+        x = self._embed_inputs(params, {"tokens": tokens})
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        cache, cross = init_cache(cfg, x.shape[0], smax, device=x.device)
-        for seg, ps, cs in zip(cfg.segments, params["segments"], cache):
-            x, _ = _run_segment(ps, cfg, seg, x, positions, "causal",
-                                cache_stack=cs)
+        x, _ = self._layers(params, x, "causal", positions, state)
         # the kernels take contiguous rows: the last position's is a copy
-        return self._head(params, x[:, -1:].contiguous()), (cache, cross)
+        return self._head(params, x[:, -1:].contiguous()), state
 
     def decode_step(self, params: Params, token: torch.Tensor, pos: int,
                     cache_state) -> Tuple[torch.Tensor, Any]:
         """One decode step. token: (B,1) int; pos: the token's position
         (0-based) as a host int. Returns (logits (B,1,V) f32, cache
         state); the cache is updated in place and returned."""
-        cfg = self.cfg
-        _check_decodes(cfg)
+        _check_decodes(self.cfg)
         pos = int(pos)
-        cache, cross = cache_state
         x = self._embed_inputs(params, {"tokens": token})
         positions = torch.full((1, 1), pos, device=x.device)
-        for seg, ps, cs in zip(cfg.segments, params["segments"], cache):
-            x, _ = _run_segment(ps, cfg, seg, x, positions, "decode",
-                                cache_stack=cs, cache_pos=pos)
-        return self._head(params, x), (cache, cross)
+        x, _ = self._layers(params, x, "decode", positions, cache_state,
+                            pos)
+        return self._head(params, x), cache_state
 
 
 def build_model(cfg: ArchConfig,

@@ -14,12 +14,12 @@ each (the reference's functional update returns new trees).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.device import torch_dtype
-from repro_torch.train.tree import leaves, tree_map
+from repro_torch.train.tree import leaves, sq_norm as _sq_norm, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -53,18 +53,21 @@ class AdamW:
             mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
     @torch.no_grad()
-    def update(self, params, state: AdamWState,
-               grads) -> Tuple[Any, AdamWState]:
+    def update(self, params, state: AdamWState, grads,
+               sq_norm: Callable[[Any], torch.Tensor] = _sq_norm
+               ) -> Tuple[Any, AdamWState]:
         """One step from ``grads`` (the structure of ``params``): the
         parameters, ``state.mu``, ``state.nu`` and ``state.step`` are
-        written in place and returned."""
+        written in place and returned. ``sq_norm`` maps ``grads`` to
+        the global squared norm the clip reads: the model's
+        ``grad_sq_norm`` (a sharded model's sums over every rank's
+        shards); by default, the sum over the leaves."""
         md = self._mdtype()
         state.step.add_(1)
         flat_g = leaves(grads)
         scale = None
         if self.grad_clip > 0:
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                                   for g in flat_g))
+            gnorm = torch.sqrt(sq_norm(grads))
             scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         b1, b2 = self.b1, self.b2
         t = state.step.float()

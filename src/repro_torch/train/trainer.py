@@ -13,14 +13,17 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Iterator, Optional, Tuple
+from typing import (TYPE_CHECKING, Any, Callable, Dict, Iterator, Optional,
+                    Tuple)
 
 import torch
 
 from repro_torch.device import torch_dtype
-from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamW
 from repro_torch.train.tree import leaves, unflatten
+
+if TYPE_CHECKING:      # the model imports repro_torch.train.tree
+    from repro_torch.models.model import Model
 
 
 def _value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor,
@@ -45,13 +48,17 @@ def make_train_step(model: Model, opt: AdamW, microbatches: int = 1,
     accumulated in ``accum_dtype`` (f32 by default) and the sum scaled by
     ``1 / microbatches`` into the parameters' dtypes (standard gradient
     accumulation: activation memory scales with the microbatch). The
-    parameter leaves are made to require grad on the first call."""
+    parameter leaves are made to require grad on the first call. The
+    model's ``grad_sq_norm`` gives the clip the global norm (a sharded
+    model, :class:`repro_torch.models.parallel.ShardedModel`, takes this
+    rank's shards and rows and sums the norm over the mesh)."""
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
             loss, grads = _value_and_grad(model, params, batch)
             params, opt_state = opt.update(params, opt_state,
-                                           unflatten(params, grads))
+                                           unflatten(params, grads),
+                                           sq_norm=model.grad_sq_norm)
             return params, opt_state, {"loss": loss}
 
         adt = torch_dtype(accum_dtype) if isinstance(accum_dtype, str) \
@@ -72,7 +79,8 @@ def make_train_step(model: Model, opt: AdamW, microbatches: int = 1,
         inv = 1.0 / microbatches
         grads = unflatten(params, [(a * inv).to(p.dtype)
                                    for a, p in zip(acc, flat)])
-        params, opt_state = opt.update(params, opt_state, grads)
+        params, opt_state = opt.update(params, opt_state, grads,
+                                       sq_norm=model.grad_sq_norm)
         return params, opt_state, {"loss": loss_sum * inv}
 
     return train_step

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
 
+import torch
+
 
 def _is_namedtuple(node) -> bool:
     return isinstance(node, tuple) and hasattr(node, "_fields")
@@ -60,3 +62,8 @@ def unflatten(like, values) -> Any:
     :func:`leaves`' order, by ``values``."""
     it = iter(values)
     return tree_map(lambda _: next(it), like)
+
+
+def sq_norm(tree) -> torch.Tensor:
+    """The sum of squares of every leaf, in f32."""
+    return sum(torch.sum(torch.square(g.float())) for g in leaves(tree))

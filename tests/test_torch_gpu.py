@@ -1418,3 +1418,123 @@ def test_sim_kernels_reject_what_they_do_not_take(gen):
                               0.0)
     with pytest.raises(ValueError, match="rpc"):
         sim_fill.fill_latency(pad, 256, luts, eff, tmo, pools, bl, arr, -1.0)
+
+
+# ---------------------------------------------------------------------------
+# sharded serving and training over NCCL, four cards
+# ---------------------------------------------------------------------------
+
+SHARD_ARCHS = ("llama3.2-1b", "qwen2-72b", "granite-34b",
+               "granite-moe-1b-a400m")
+SHARD_MESHES = ((1, 4), (2, 2))
+SHARD_RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "_torch_parallel_ranks.py")
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_numpy_tree(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+@pytest.fixture(scope="module")
+def four_card_runs(tmp_path_factory):
+    """Each mesh's four NCCL ranks (one a card) on the smoke configs,
+    and the plain model's outputs on cuda:0 from the same weights."""
+    import pickle
+    import subprocess
+    import sys
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.train.tree import leaves
+
+    _need_cards(4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    workdir = tmp_path_factory.mktemp("sharded")
+    cases, wants = {}, {}
+    for arch in SHARD_ARCHS:
+        cfg = get_smoke(arch)
+        full = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(3)
+        case = dict(cfg=cfg, params=_numpy_tree(full),
+                    tokens=rng.integers(0, cfg.vocab_size, (4, 16)),
+                    prompt=rng.integers(0, cfg.vocab_size, (4, 8)),
+                    smax=32, steps=6)
+        model = build_model(cfg, "cuda")
+        params = params_from_numpy(case["params"], "cuda")
+        tokens = torch.from_numpy(case["tokens"]).cuda()
+        with torch.no_grad():
+            logits, _ = model.forward(params, {"tokens": tokens})
+            out, state = model.prefill(
+                params, {"tokens": torch.from_numpy(case["prompt"]).cuda()},
+                32)
+            steps, toks = [out], [out.argmax(-1)]
+            for i in range(6):
+                out, state = model.decode_step(params, toks[-1], 8 + i, state)
+                steps.append(out)
+                toks.append(out.argmax(-1))
+        seen = []
+
+        class Recording(AdamW):
+            def update(self, params, state, grads, sq_norm=None):
+                seen.append(grads)
+                return super().update(params, state, grads)
+
+        opt = Recording(lr=1e-3)
+        _, _, metrics = make_train_step(model, opt)(
+            params, opt.init(params), {"tokens": tokens})
+        cases[arch] = case
+        wants[arch] = dict(
+            logits=logits.cpu().numpy(),
+            step_logits=torch.cat(steps, 1).cpu().numpy(),
+            tokens=torch.cat(toks, 1).cpu().numpy(),
+            loss=float(metrics["loss"]),
+            grads=[g.cpu().numpy() for g in leaves(seen[0])])
+    with open(workdir / "inputs.pkl", "wb") as f:
+        pickle.dump(cases, f)
+    runs = {}
+    for data, model_size in SHARD_MESHES:
+        procs = [subprocess.Popen(
+            [sys.executable, SHARD_RANKS, str(r), str(data), str(model_size),
+             str(workdir), "cuda"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT) for r in range(data * model_size)]
+        logs = []
+        for p in procs:
+            try:
+                out, _ = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, _ = p.communicate()
+            logs.append(out.decode(errors="replace"))
+        path = workdir / f"out_{data}x{model_size}.pkl"
+        runs[(data, model_size)] = pickle.loads(path.read_bytes()) \
+            if path.exists() else {"error": "\n".join(logs)[-6000:]}
+    return runs, wants
+
+
+@pytest.mark.parametrize("arch", SHARD_ARCHS)
+@pytest.mark.parametrize("mesh", SHARD_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_sharded_model_on_four_cards_matches_one_card(four_card_runs, mesh,
+                                                      arch):
+    """The sharded forward, prefill, greedy decode and train step over
+    NCCL, one rank a card, against the plain model on cuda:0 from the
+    same weights, through the kernels on both sides: logits 1e-4, tokens
+    equal, loss and every gradient 5e-4."""
+    runs, wants = four_card_runs
+    res = runs[mesh]
+    assert "error" not in res, res["error"]
+    got, want = res[arch], wants[arch]
+    assert "error" not in got, got["error"]
+    tol = dict(atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got["logits"], want["logits"], **tol)
+    np.testing.assert_allclose(got["step_logits"], want["step_logits"],
+                               **tol)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+    np.testing.assert_allclose(got["loss"], want["loss"], atol=5e-4,
+                               rtol=5e-4)
+    for g, w in zip(got["grads"], want["grads"]):
+        np.testing.assert_allclose(g, w, atol=5e-4, rtol=5e-4)

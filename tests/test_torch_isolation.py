@@ -56,7 +56,10 @@ def test_port_imports_with_jax_unavailable():
             "repro_torch.serving.dataplane, repro_torch.serving.procpool, "
             "repro_torch.serving.ingress, repro_torch.serving.cluster, "
             "repro_torch.sim.torch_backend, repro_torch.kernels.sim_fill, "
-            "repro_torch.configs.pipelines\n"
+            "repro_torch.configs.pipelines, repro_torch.models.sharding, "
+            "repro_torch.models.parallel, repro_torch.launch.mesh, "
+            "repro_torch.launch.shapes, repro_torch.launch.dryrun, "
+            "repro_torch.roofline.analysis\n"
             "from repro_torch.core import Planner, Estimator\n"
             "from repro_torch.serving import LiveControlLoop, "
             "LiveClusterSim, AsyncIngress, ProcessStage\n")

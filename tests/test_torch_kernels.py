@@ -8,6 +8,8 @@ Tolerances are the repo's kernel tolerances (tests/test_kernels.py):
 f32 2e-5/2e-5, bf16 3e-2/3e-2.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -402,3 +404,55 @@ def test_every_cuda_source_is_built_and_every_export_declared():
         argtypes = _build.SIGNATURES[fn][0]
         assert argtypes[0] is _build.ctypes.c_void_p
         assert argtypes[-1] is _build.ctypes.c_void_p        # the stream
+
+
+def test_meta_branch_gives_true_shapes_and_counts_the_work():
+    """Inside ``meta.shapes_only`` (the dry-run) the wrappers take meta
+    tensors: outputs of the kernels' true shapes and dtypes, flash's
+    logsumexp only under grad and never an S x S tensor, and the
+    kernels' FLOPs counted (flash: 2 (D + Dv) a kept pair; the backward
+    2 (4 D + 3 Dv); decode: 2 (D + Dv) a valid slot). No counter moves."""
+    from repro_torch.kernels import meta
+    m = dict(device="meta")
+    before = (rms_mod.counter.count, fa_mod.counter.count,
+              fa_mod.bwd_counter.count, da_mod.counter.count)
+    with meta.shapes_only():
+        x = torch.empty(6, 64, **m)
+        assert rms_mod.rmsnorm(x, torch.empty(64, **m)).shape == (6, 64)
+        assert meta.flops() == 4 * 6 * 64
+        q = torch.empty(2, 8, 4, 64, **m)
+        k = torch.empty(2, 8, 2, 64, **m)
+        v = torch.empty(2, 8, 2, 32, **m)
+        out = fa_mod.flash_attention(q, k, v)
+        assert out.shape == (2, 8, 4, 32) and out.is_meta
+        pairs = meta.attention_pairs(2, 8, 8, 4, True, 0)
+        assert pairs == 2 * 4 * 36
+        assert meta.flops() == 4 * 6 * 64 + 2 * pairs * 96
+        out, lse = fa_mod.flash_attention_with_lse(q, k, v, causal=False)
+        assert lse.shape == (2, 8, 4) and lse.dtype == torch.float32
+        qg = q.clone().requires_grad_(True)
+        fa_mod.flash_attention(qg, k, v).sum().backward()
+        assert qg.grad.shape == q.shape
+        n0 = meta.flops()
+        d = da_mod.decode_attention(q[:, :1], k, v, 5)
+        assert d.shape == (2, 1, 4, 32)
+        assert meta.flops() - n0 == 2 * 2 * 4 * 5 * 96
+    assert not meta.enabled() and meta.flops() == 0.0
+    assert (rms_mod.counter.count, fa_mod.counter.count,
+            fa_mod.bwd_counter.count, da_mod.counter.count) == before
+
+
+def test_flash_with_lse_is_the_plain_forward_and_its_logsumexp():
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 1, 4, 32, generator=g)
+    k = torch.randn(2, 9, 2, 32, generator=g)
+    v = torch.randn(2, 9, 2, 32, generator=g)
+    out, lse = fa_mod.flash_attention_with_lse(q, k, v, causal=False)
+    exp_out, exp_lse = ref.flash_attention_ref(q, k, v, causal=False,
+                                               return_lse=True)
+    torch.testing.assert_close(out, exp_out, rtol=0, atol=0)
+    torch.testing.assert_close(lse, exp_lse, rtol=0, atol=0)
+    s = torch.einsum("bqhd,bkhd->bhqk", q,
+                     k.repeat_interleave(2, dim=2)) / math.sqrt(32)
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1).transpose(1, 2),
+                               atol=1e-5, rtol=1e-5)

@@ -438,7 +438,7 @@ class _Recording:
     def __init__(self):
         self.grads = None
 
-    def update(self, params, state, grads):
+    def update(self, params, state, grads, sq_norm=None):
         self.grads = grads
         return params, state
 
