@@ -22,9 +22,17 @@ Phases, in order; any failure exits non-zero:
    against their plain versions (f32 5e-4, bf16 3e-2) at the training
    shape and at edge shapes, and at the training shape the backward's
    time beside its plain version's, SDPA's backward and its bound, and
-   the forward with its logsumexp against the forward without;
+   the forward with its logsumexp against the forward without; the
+   flash and decode shapes of phase 12's whisper-small and pixtral-12b
+   (the encoder's non-causal B 8 x 1500, the cross-attention over 1500
+   frames at 64 query rows and at one, pixtral's causal prefill of
+   1088; decode at 12/12 heads D 64 and 32/8 D 128), each held against
+   its plain version and timed beside SDPA, and the decode-time
+   cross-attention also through decode attention at valid_len 1500;
 3. check the port's forward, and its prefill + greedy decode, on the
-   card against its plain CPU path on the smoke configs, build both
+   card against its plain CPU path on the smoke configs (xLSTM's decode
+   with its carried state, whisper with stub frames, pixtral with stub
+   patch embeddings among them), build both
    cascade stages at full published width (xlstm-125m 12L x 768,
    llama3.2-1b 16L x 2048, seeded random weights), capture each stage's
    CUDA graphs (one a power-of-two bucket, 1-128), hold every bucket's
@@ -159,7 +167,19 @@ Phases, in order; any failure exits non-zero:
    each rank's launches (every rank must launch flash, decode attention
    and rmsnorm, exactly as the config implies); (d) the port's dry-run of
    (c) on the (1, 4) mesh beside (c)'s measured peak. On fewer cards it
-   prints "not run".
+   prints "not run";
+12. the recurrent, encoder-decoder and image families at published
+   width, f32, seeded random weights, each freed before the next: (a)
+   xlstm-125m, prefill 8 x 512 and 64 greedy steps through its carried
+   state; (b) whisper-small (12 + 12 layers x 768), 8 x 1500 stub frames
+   through the encoder, a 64-token prompt into 448 slots and 64 greedy
+   steps over the cross cache; (c) pixtral-12b, all 40 layers (49 GB of
+   f32 weights), 4 x (1024 stub patch embeddings + 64 text tokens) into
+   1152 slots and 32 greedy steps. Each as phase 6: the launches of a
+   prefill and the steps exact, every step's logits against the port's
+   forward over the same tokens and features, the greedy tokens equal,
+   the prefill and step times, tokens/s, a traced step's busy share and
+   the peak memory, with the card's name and power limit.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -221,6 +241,7 @@ from repro_torch.kernels import mamba_scan as ms_mod  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_mod  # noqa: E402
 from repro_torch.kernels import sim_fill, sim_select  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.model import AUDIO_FEAT_DIM, IMAGE_FEAT_DIM  # noqa: E402
 from repro_torch.models.config import dense_segments  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.train import AdamW, make_train_step  # noqa: E402
@@ -324,35 +345,63 @@ GRAD_SEQ = 512                  # the kernels-vs-plain gradient check
 # its flash VJP against the oracle's autodiff, tests/test_kernels.py:213)
 BWD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-4),
            torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+# phase 12: (arch, batch, text prompt, cache slots, greedy steps) at
+# published width; whisper takes encoder_max_frames (30 s) of stub
+# frames, pixtral its 1024 stub patch embeddings before the prompt
+P12_RUNS = (("xlstm-125m", DECODE_BATCH, PROMPT, SMAX, 64),
+            ("whisper-small", DECODE_BATCH, 64, 448, 64),
+            ("pixtral-12b", 4, 64, 1152, 32))
 
 
-def launches_per_forward(cfg, seq: int, mtp: bool = False) -> dict:
+def _layers(segments) -> list:
+    return [b for seg in segments for b in seg.blocks
+            for _ in range(seg.repeat)]
+
+
+def _norms(blocks) -> int:
+    """A norm before every block's core and before its MLP or MoE."""
+    return len(blocks) + sum(b.ffn != "none" for b in blocks)
+
+
+def launches_per_forward(cfg, seq: int, mtp: bool = False,
+                         encoder: bool = True) -> dict:
     """Launches of one forward or prefill over ``seq`` tokens: a norm
     before every block's core and before its MLP or MoE, plus the final
     norm (33 for llama3.2-1b, 13 for xlstm-125m, 17 for the one-period
-    hybrid); one flash attention per attention block; one scan per
-    Mamba block and chunk of ``min(ssm_chunk, seq)`` tokens (one chunk
-    when ``seq`` is not a multiple). With ``mtp``, the forward's MTP
-    module adds its block's two norms, its own norm and a flash call
-    (MLA's latent norms are plain, as the reference's are)."""
-    blocks = [b for seg in cfg.segments for b in seg.blocks
-              for _ in range(seg.repeat)]
+    hybrid, 81 for pixtral-12b); one flash attention per attention
+    block; one scan per Mamba block and chunk of ``min(ssm_chunk, seq)``
+    tokens (one chunk when ``seq`` is not a multiple). With ``mtp``, the
+    forward's MTP module adds its block's two norms, its own norm and a
+    flash call (MLA's latent norms are plain, as the reference's are).
+    An encoder-decoder config adds, a decoder attention block, the
+    cross-attention's norm and flash call, and with ``encoder`` the
+    encoder's norms, its final norm and a flash call a layer (whisper:
+    62 norms, 36 flash)."""
+    blocks = _layers(cfg.segments)
+    enc = _layers(cfg.encoder_segments) if encoder else []
+    attn = sum(b.kind == "attn" for b in blocks)
+    cross = attn if cfg.is_encoder_decoder else 0
     chunk = min(cfg.ssm_chunk, seq)
     chunks = seq // chunk if seq % chunk == 0 else 1
-    return {"rmsnorm": len(blocks) + sum(b.ffn != "none" for b in blocks)
-            + 1 + 3 * mtp,
-            "flash_attention": sum(b.kind == "attn" for b in blocks) + mtp,
+    return {"rmsnorm": _norms(blocks) + 1 + 3 * mtp + cross
+            + (_norms(enc) + 1 if enc else 0),
+            "flash_attention": attn + mtp + cross
+            + sum(b.kind == "attn" for b in enc),
             "decode_attention": 0,
             "mamba_scan": chunks * sum(b.kind == "mamba" for b in blocks)}
 
 
 def launches_per_step(cfg) -> dict:
     """Launches of one decode step: decode attention where the forward
-    runs flash (MLA's absorbed decode is plain torch, as the
-    reference's), one scan per Mamba block."""
-    per = launches_per_forward(cfg, 1)
-    per["decode_attention"] = 0 if cfg.use_mla else per["flash_attention"]
-    per["flash_attention"] = 0
+    runs self-attention through flash (MLA's absorbed decode is plain
+    torch, as the reference's), one scan per Mamba block; no encoder,
+    and a decoder block's cross-attention over the cached frames stays
+    flash with one query row (the reference's route), so whisper's step
+    is 37 norms, 12 decode attention and 12 flash."""
+    per = launches_per_forward(cfg, 1, encoder=False)
+    self_attn = sum(b.kind == "attn" for b in _layers(cfg.segments))
+    per["decode_attention"] = 0 if cfg.use_mla else self_attn
+    per["flash_attention"] -= self_attn
     return per
 
 
@@ -1006,6 +1055,71 @@ def decode_line(gen, label, b, smax, h, kv, hd, vl, dtype) -> None:
                              calls=20), ms[0], calls=20)
 
 
+# phase 12's flash shapes: (label, b, sq, sk, h, kv, d, causal)
+FAMILY_FLASH = (
+    ("whisper encoder", DECODE_BATCH, 1500, 1500, 12, 12, 64, False),
+    ("whisper cross prefill", DECODE_BATCH, 64, 1500, 12, 12, 64, False),
+    ("whisper cross decode", DECODE_BATCH, 1, 1500, 12, 12, 64, False),
+    ("pixtral prefill", 4, 1088, 1088, 32, 8, 128, True),
+)
+# phase 12's decode-attention shapes: (label, b, smax, h, kv, d, valid_len
+# at the last step)
+FAMILY_DECODE = (("whisper step", DECODE_BATCH, 448, 12, 12, 64, 128),
+                 ("pixtral step", 4, 1152, 32, 8, 128, 1120))
+
+
+def time_family_shapes(gen: torch.Generator) -> None:
+    """Phase 12's attention shapes in f32, none of which an earlier
+    phase holds: each flash call against its plain version (2e-5) and
+    timed beside it and SDPA, each decode shape through
+    :func:`decode_line`; and whisper's decode-time cross-attention (one
+    query row over 1500 frames) through flash, the reference's route,
+    beside decode attention at valid_len 1500 on the same tensors."""
+    dtype = torch.float32
+    for label, b, sq, sk, h, kv, d, causal in FAMILY_FLASH:
+        q = rand(gen, (b, sq, h, d), dtype)
+        k = rand(gen, (b, sk, kv, d), dtype)
+        v = rand(gen, (b, sk, kv, d), dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        err = assert_close(
+            fa_mod.flash_attention(q, k, v, causal=causal),
+            ref.flash_attention_ref(q, k, v, causal=causal), dtype,
+            f"flash at the {label}")
+        nbytes, _, ops_ms = flash_work(b, sq, sk, h, kv, d, d, dtype, causal)
+        bytes_ms = nbytes / H100_HBM_BW * 1e3
+        iters = 200 if sq == 1 else 20
+        ms = time_in_turns((
+            lambda: fa_mod.flash_attention(q, k, v, causal=causal),
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
+            (iters, 5, iters))
+        log(f"  flash at the {label} B={b} Sq={sq} Sk={sk} {h}/{kv} heads "
+            f"D={d} {'causal' if causal else 'full'} f32: max_abs_err="
+            f"{err:.3e}, kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms, "
+            f"F.scaled_dot_product_attention {ms[2]:.4f} ms, bound "
+            f"{max(bytes_ms, ops_ms):.6f} ms "
+            f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+        if sq == 1:
+            # the same function through the decode kernel: every one of
+            # the sk slots valid, no window
+            err = assert_close(da_mod.decode_attention(q, k, v, sk),
+                               ref.flash_attention_ref(q, k, v,
+                                                       causal=False),
+                               dtype, f"decode at the {label}")
+            dms = time_in_turns((
+                lambda: da_mod.decode_attention(q, k, v, sk),
+                lambda: fa_mod.flash_attention(q, k, v, causal=False)),
+                (200, 200))
+            log(f"  the {label} through decode_attention at valid_len "
+                f"{sk}: max_abs_err={err:.3e} against the plain flash, "
+                f"{dms[0]:.4f} ms against flash's {dms[1]:.4f} ms (in "
+                f"turns)")
+        del q, k, v, qt, kt, vt
+    for label, b, smax, h, kv, d, vl in FAMILY_DECODE:
+        decode_line(gen, label, b, smax, h, kv, d, vl, dtype)
+
+
 def scan_work(b, length, d, n, dtype) -> tuple:
     """(bytes, least ms of the operations) of one scan call: dt, x, y and
     B, C once in ``dtype``, A, h0 and h_out once in f32; the operations
@@ -1324,26 +1438,44 @@ def smoke_cfg(arch: str):
         else get_smoke(arch)
 
 
+def smoke_batch(cfg, tok: torch.Tensor, frames: int = 0) -> dict:
+    """``tok`` with the stub features of an encoder-decoder config
+    (``frames`` frames, default its encoder_max_frames) or an image
+    config (its image tokens), seeded, on the CPU."""
+    rng = np.random.default_rng(1)
+    batch = {"tokens": tok}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (tok.shape[0], frames or cfg.encoder_max_frames,
+             AUDIO_FEAT_DIM), dtype=np.float32))
+    if cfg.num_image_tokens:
+        batch["image_feats"] = torch.from_numpy(rng.standard_normal(
+            (tok.shape[0], cfg.num_image_tokens, IMAGE_FEAT_DIM),
+            dtype=np.float32))
+    return batch
+
+
 def check_forward_against_cpu() -> None:
     """The port's forward through the kernels on the card agrees with its
     plain path on the CPU, same parameters, smoke configs (the hybrid
-    over two scan chunks of 64)."""
+    over two scan chunks of 64; whisper over its 64 stub frames, pixtral
+    after its 16 stub patch embeddings)."""
     for arch, s in (("llama3.2-1b", 32), ("llama3.2-1b-sw", 96),
                     ("xlstm-125m", 32), (HYBRID, 128),
                     ("phi3-mini-3.8b", 32), ("qwen2-72b", 32),
                     ("granite-34b", 32), ("granite-moe-1b-a400m", 96),
-                    (DEEPSEEK, 32)):
+                    (DEEPSEEK, 32), ("whisper-small", 32),
+                    ("pixtral-12b", 32)):
         cfg = smoke_cfg(arch)
         cpu_model = build_model(cfg, "cpu")
         params = cpu_model.init(torch.Generator().manual_seed(0))
         gpu_model = build_model(cfg, "cuda")
         gpu_params = _tree_to(params, "cuda")
-        tok = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (2, s), dtype=np.int64))
+        batch = smoke_batch(cfg, torch.from_numpy(np.random.default_rng(
+            0).integers(0, cfg.vocab_size, (2, s), dtype=np.int64)))
         with torch.inference_mode():
-            exp, _ = cpu_model.forward(params, {"tokens": tok})
-            got, _ = gpu_model.forward(gpu_params,
-                                       {"tokens": tok.to("cuda")})
+            exp, _ = cpu_model.forward(params, batch)
+            got, _ = gpu_model.forward(gpu_params, batch_on(batch, "cuda"))
         got = got.cpu()
         err = float((got - exp).abs().max())
         torch.testing.assert_close(got, exp, atol=1e-4, rtol=1e-4,
@@ -1357,28 +1489,36 @@ def check_decode_against_cpu() -> None:
     agrees with its plain path on the CPU, same parameters and tokens,
     smoke configs: llama3.2-1b, and llama3.2-1b-sw with a prompt longer
     than its 64-slot window and steps that wrap the ring, the hybrid
-    with a prompt of two scan chunks and 8 steps past it, and the dense,
+    with a prompt of two scan chunks and 8 steps past it, the dense,
     MoE and MLA families of phase 8 (MLA's absorbed decode is plain on
-    both sides; its prefill runs the flash kernel)."""
+    both sides; its prefill runs the flash kernel), xLSTM with a prompt
+    of two mLSTM chunks and 8 steps of its carried state, whisper over 8
+    stub frames (fewer than its 64) with the cross-attention over them
+    at each step, and pixtral after its 16 stub patch embeddings, its
+    positions counting them."""
     for arch, prompt, steps in (("llama3.2-1b", 9, 3),
                                 ("llama3.2-1b-sw", 96, 40), (HYBRID, 128, 8),
                                 ("phi3-mini-3.8b", 9, 3), ("qwen2-72b", 9, 3),
                                 ("granite-34b", 9, 3),
                                 ("granite-moe-1b-a400m", 9, 3),
-                                (DEEPSEEK, 9, 3)):
+                                (DEEPSEEK, 9, 3), ("xlstm-125m", 128, 8),
+                                ("whisper-small", 9, 3),
+                                ("pixtral-12b", 9, 3)):
         cfg = smoke_cfg(arch)
         cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg,
                                                                     "cuda")
         params = cpu_model.init(torch.Generator().manual_seed(0))
         gpu_params = _tree_to(params, "cuda")
-        tok = torch.from_numpy(np.random.default_rng(0).integers(
-            0, cfg.vocab_size, (2, prompt), dtype=np.int64))
-        smax = prompt + steps
+        batch = smoke_batch(cfg, torch.from_numpy(np.random.default_rng(
+            0).integers(0, cfg.vocab_size, (2, prompt), dtype=np.int64)),
+            frames=8)
+        npfx = cfg.num_image_tokens
+        smax = npfx + prompt + steps
         err = 0.0
         with torch.inference_mode():
-            exp, state = cpu_model.prefill(params, {"tokens": tok}, smax)
-            got, gpu_state = gpu_model.prefill(
-                gpu_params, {"tokens": tok.to("cuda")}, smax)
+            exp, state = cpu_model.prefill(params, batch, smax)
+            got, gpu_state = gpu_model.prefill(gpu_params,
+                                               batch_on(batch, "cuda"), smax)
             for i in range(steps + 1):
                 got = got.cpu()
                 err = max(err, float((got - exp).abs().max()))
@@ -1391,10 +1531,10 @@ def check_decode_against_cpu() -> None:
                 if i == steps:
                     break
                 nxt = exp.argmax(-1)
-                exp, state = cpu_model.decode_step(params, nxt, prompt + i,
-                                                   state)
+                pos = npfx + prompt + i
+                exp, state = cpu_model.decode_step(params, nxt, pos, state)
                 got, gpu_state = gpu_model.decode_step(
-                    gpu_params, nxt.to("cuda"), prompt + i, gpu_state)
+                    gpu_params, nxt.to("cuda"), pos, gpu_state)
         log(f"  {arch:15s} smoke prefill {prompt} + {steps} decode steps "
             f"cuda vs cpu: max_abs_err={err:.3e} (tol 1e-4)  ok")
 
@@ -2401,32 +2541,41 @@ def concurrent_replays(stages, reps: int = 20) -> None:
 
 # ------------------------------------------------------------ phases 6, 7
 
-def decode_and_check(model, params, steps: int) -> tuple:
-    """Greedy decode at full width: prefill DECODE_BATCH prompts of PROMPT
-    tokens into SMAX slots (a cold call, then the best of 3 warm ones),
-    then ``steps`` decode steps, with the counters zeroed just before and
-    read just after each warm prefill and the steps, and held to the
-    launches the config implies. Every step's logits are held against
-    the port's forward over the same PROMPT + ``steps`` tokens, and every
-    greedy token against the forward's argmax (a position whose top-2
-    gap is below the max abs error may differ; the log says so). Traces
-    one more step. Returns (one prefill's launches, the steps' launches,
-    the step's ms)."""
+def decode_and_check(model, params, steps: int, b: int = DECODE_BATCH,
+                     prompt_len: int = PROMPT, smax: int = SMAX,
+                     extra=None) -> tuple:
+    """Greedy decode at full width: prefill ``b`` prompts of
+    ``prompt_len`` tokens (default DECODE_BATCH x PROMPT) into ``smax``
+    slots (a cold call, then the best of 3 warm ones), then ``steps``
+    decode steps, with the counters zeroed just before and read just
+    after each warm prefill and the steps, and held to the launches the
+    config implies. ``extra`` holds the stub features an
+    encoder-decoder or image config takes (``frames``,
+    ``image_feats``); an image prefix's positions come before the
+    prompt's, so step i is at position prefix + prompt_len + i. Every
+    step's logits are held against the port's forward over the same
+    prompt_len + ``steps`` tokens and features, and every greedy token
+    against the forward's argmax (a position whose top-2 gap is below
+    the max abs error may differ; the log says so). Traces one prefill
+    and one more step. Returns (one prefill's launches, the steps'
+    launches, the step's ms)."""
     cfg = model.cfg
+    extra = extra or {}
+    npfx = extra["image_feats"].shape[1] if "image_feats" in extra else 0
     prompt = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab_size, (DECODE_BATCH, PROMPT))).to("cuda")
+        0, cfg.vocab_size, (b, prompt_len))).to("cuda")
 
     def prefill():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = model.prefill(params, {"tokens": prompt}, SMAX)
+        out = model.prefill(params, {"tokens": prompt, **extra}, smax)
         torch.cuda.synchronize()
         return time.perf_counter() - t0, out
 
     with torch.inference_mode():
         cold_s, _ = prefill()
         warm_s = []
-        want_pre = launches_per_forward(cfg, PROMPT)
+        want_pre = launches_per_forward(cfg, npfx + prompt_len)
         for _ in range(3):
             reset_counts()
             t, (logits, state) = prefill()
@@ -2438,8 +2587,8 @@ def decode_and_check(model, params, steps: int) -> tuple:
         reset_counts()
         t0 = time.perf_counter()
         for i in range(steps):
-            logits, state = model.decode_step(params, toks[-1], PROMPT + i,
-                                              state)
+            logits, state = model.decode_step(params, toks[-1],
+                                              npfx + prompt_len + i, state)
             outs.append(logits)
             toks.append(logits.argmax(-1))
         torch.cuda.synchronize()
@@ -2450,15 +2599,15 @@ def decode_and_check(model, params, steps: int) -> tuple:
             raise RuntimeError(f"decode launches {step_counts} != {want}")
 
         seq = torch.cat([prompt] + toks[:steps], dim=1)
-        full, _ = model.forward(params, {"tokens": seq,
+        full, _ = model.forward(params, {"tokens": seq, **extra,
                                          "enable_mtp": False})
         err, refs = 0.0, []
-        for i, out in enumerate(outs):      # position PROMPT - 1 + i
-            ref_logits = full[:, PROMPT - 1 + i]
+        for i, out in enumerate(outs):      # text position prompt_len-1+i
+            ref_logits = full[:, prompt_len - 1 + i]
             refs.append(ref_logits)
             got = out[:, 0]
             if not bool(torch.isfinite(got).all()) or \
-                    got.shape != (DECODE_BATCH, cfg.vocab_size):
+                    got.shape != (b, cfg.vocab_size):
                 raise RuntimeError(f"decode step {i}: bad logits "
                                    f"{tuple(got.shape)}")
             err = max(err, float((got - ref_logits).abs().max()))
@@ -2481,28 +2630,30 @@ def decode_and_check(model, params, steps: int) -> tuple:
         del full, refs
 
         step_ms = decode_s / steps * 1e3
-        log(f"  prefill B={DECODE_BATCH} x {PROMPT} tokens into {SMAX} "
+        feats = "".join(f" + {k} {tuple(v.shape)}" for k, v in extra.items())
+        log(f"  prefill B={b} x {prompt_len} tokens{feats} into {smax} "
             f"slots: {min(warm_s) * 1e3:.3f} ms (best of 3 warm calls; "
             f"the first, cold call {cold_s * 1e3:.3f} ms); launches {pre}")
         log(f"  {steps} greedy decode steps: {step_ms:.3f} ms per step, "
-            f"{DECODE_BATCH * steps / decode_s:.1f} tokens/s; launches "
+            f"{b * steps / decode_s:.1f} tokens/s; launches "
             f"{step_counts} (expected {want})")
         log(f"  logits of prefill and every step vs forward over "
-            f"{seq.shape[1]} tokens: max_abs_err={err:.3e} (atol 5e-4, "
-            f"rtol 1e-3); greedy tokens equal to the forward's argmax: "
-            f"{agree} of {DECODE_BATCH * len(outs)}")
+            f"{seq.shape[1]} tokens{feats}: max_abs_err={err:.3e} (atol "
+            f"5e-4, rtol 1e-3); greedy tokens equal to the forward's "
+            f"argmax: {agree} of {b * len(outs)}")
         for i, row, gap in near_ties:
             log(f"  step {i} row {row}: greedy token differs from the "
                 f"forward's argmax at a top-2 gap of {gap:.3e}, below the "
                 f"max abs error")
 
-        report_trace(f"one prefill of B={DECODE_BATCH} x {PROMPT}",
+        report_trace(f"one prefill of B={b} x {prompt_len}{feats}",
                      cuda_events(lambda: model.prefill(
-                         params, {"tokens": prompt}, SMAX)),
+                         params, {"tokens": prompt, **extra}, smax)),
                      min(warm_s) * 1e3)
-        # the step after the last, at valid_len PROMPT + steps + 1 (run
-        # twice at that position: the second writes the same slot)
-        tok, pos = toks[-1], PROMPT + steps
+        # the step after the last, at valid_len npfx + prompt_len + steps
+        # + 1 (run twice at that position: the second writes the same
+        # slot; a recurrent state takes the step twice)
+        tok, pos = toks[-1], npfx + prompt_len + steps
         report_trace(
             f"one decode step at valid_len {pos + 1}",
             cuda_events(lambda: model.decode_step(params, tok, pos, state)),
@@ -3883,6 +4034,52 @@ def sharded_on_four_cards() -> dict:
     return total
 
 
+# --------------------------------------------------------------- phase 12
+
+def families_of_the_slice() -> dict:
+    """xlstm-125m, whisper-small and pixtral-12b at published width, f32,
+    seeded random weights and stub features, one at a time (each freed
+    before the next): phase 6's prefill, greedy decode and checks at
+    P12_RUNS's shapes. Returns the launches of the prefills and steps
+    that decode_and_check counted, summed."""
+    total = dict.fromkeys(COUNTERS, 0)
+    for arch, b, prompt_len, smax, steps in P12_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_arch(arch)
+        t0 = time.perf_counter()
+        model = build_model(cfg, "cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        model_line(cfg, params, time.perf_counter() - t0)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        extra = {}
+        if cfg.is_encoder_decoder:
+            log(f"  encoder: {sum(s.num_layers for s in cfg.encoder_segments)}"
+                f"L over {cfg.encoder_max_frames} stub frames of "
+                f"{AUDIO_FEAT_DIM}; a cross-attention in every decoder layer")
+            extra["frames"] = torch.randn(
+                (b, cfg.encoder_max_frames, AUDIO_FEAT_DIM), generator=gen,
+                device="cuda")
+        if cfg.num_image_tokens:
+            log(f"  image prefix: {cfg.num_image_tokens} stub patch "
+                f"embeddings of {IMAGE_FEAT_DIM} through img_proj")
+            extra["image_feats"] = torch.randn(
+                (b, cfg.num_image_tokens, IMAGE_FEAT_DIM), generator=gen,
+                device="cuda")
+        pre, stepped, _ = decode_and_check(model, params, steps, b=b,
+                                           prompt_len=prompt_len, smax=smax,
+                                           extra=extra)
+        peak_line(f"{arch} ({nvidia_smi()})")
+        add_counts(total, pre)
+        add_counts(total, stepped)
+        del model, params, extra
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; this script runs the "
@@ -3919,6 +4116,7 @@ def main() -> int:
     time_launch_path(gen)
     time_decode_launch_path(gen)
     sweep_decode_splits(gen)
+    time_family_shapes(gen)
 
     # phases 3-9 serve, prefill and decode: none may launch the backward
     launches_before_training = fa_mod.bwd_counter.count
@@ -4024,6 +4222,15 @@ def main() -> int:
     else:
         log(f"[11] not run: it shards over {PAR_CARDS} cards, and torch "
             f"sees {torch.cuda.device_count()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[12] xlstm-125m, whisper-small and pixtral-12b at published "
+        f"width ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before; {nvidia_smi()})")
+    for name, n in families_of_the_slice().items():
+        for r in records:
+            if r["name"] == name:
+                r["launches"] += n
     if not all(r["launches"] > 0 for r in records):
         raise RuntimeError(f"a kernel was not launched: "
                            f"{[(r['name'], r['launches']) for r in records]}")

@@ -2,15 +2,12 @@
 
 Each module exports ``ARCH`` (the exact published widths) and ``SMOKE``
 (a reduced same-family variant for CPU tests), copied from the JAX
-reference's registry. The port carries every decoder-only config of the
+reference's registry. The port carries every config of the
 reference: the served cascade's xLSTM and Llama, the dense phi3-mini,
 qwen2-72b and granite-34b, the MoE granite-moe and DeepSeek-V3 (MLA,
-MTP) and the Mamba/attention hybrid Jamba, with its experts or in the
-expert-free one-period form of :func:`without_experts`, and the
-configs of the image model ``pixtral-12b`` and the encoder-decoder
-``whisper-small``, which the pipeline motifs
-(:mod:`repro_torch.configs.pipelines`) price analytically; the port
-does not build those two models yet (``build_model`` refuses them).
+MTP), the Mamba/attention hybrid Jamba, with its experts or in the
+expert-free one-period form of :func:`without_experts`, the image model
+``pixtral-12b`` and the encoder-decoder ``whisper-small``.
 """
 
 from __future__ import annotations

@@ -13,9 +13,10 @@ Cache kinds per block:
   slstm            : h,c,n,m        (repeat, B, D)
   cross-attn (enc-dec): k,v over encoder states, built at prefill.
 
-The port decodes dense-attention (GQA and MLA) and Mamba/hybrid
-stacks; the other kinds are built here so that the trees match the
-reference's for every config.
+Attention caches and the Mamba and xLSTM states are written in place by
+prefill and decode; the prefill of an encoder-decoder model replaces the
+cross K/V with the encoder's at the frames it was given (see
+``Model.prefill``).
 """
 
 from __future__ import annotations

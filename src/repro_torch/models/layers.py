@@ -1,14 +1,15 @@
-"""Building blocks of the decoder-only models, as ``init_<layer>`` /
+"""Building blocks of the model zoo, as ``init_<layer>`` /
 ``<layer>(params, cfg, x, ...)`` pairs over plain parameter dicts.
 
-The parts of the reference's ``repro/models/layers.py`` that its
-decoder-only families run: RMSNorm, RoPE, GQA self-attention (with
-``qkv_bias``, the structural sliding window and the KV cache of prefill
-and decode), DeepSeek's MLA (the expanded form for scoring and prefill,
-the absorbed form over the latent cache for decode), the SwiGLU / GELU
-MLP, the top-k MoE with static capacity and its switch-style aux loss,
-the Mamba block (chunked selective scan with carried state), and the
-xLSTM mLSTM (chunkwise) and sLSTM (sequential) cells. Parameter
+The counterpart of the reference's ``repro/models/layers.py``: RMSNorm,
+RoPE and the encoder's sinusoidal positions, GQA attention (self- or
+cross-attention, with ``qkv_bias``, the structural sliding window and
+the KV cache of prefill and decode), DeepSeek's MLA (the expanded form
+for scoring and prefill, the absorbed form over the latent cache for
+decode), the SwiGLU / GELU MLP, the top-k MoE with static capacity and
+its switch-style aux loss, the Mamba block (chunked selective scan with
+carried state), and the xLSTM mLSTM (chunkwise) and sLSTM (sequential)
+cells with their carried state. Parameter
 names, shapes and layouts are the reference's, so a JAX parameter tree
 converts one to one (:mod:`repro_torch.convert`). Norms, attention and
 the selective scan go through :mod:`repro_torch.kernels.ops`; the MoE's
@@ -74,6 +75,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) f32: sin of each position times the d/2 frequencies,
+    then cos (the encoder's absolute positions)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    exps = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    ang = pos * (1.0 / (10000.0 ** exps))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +157,11 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
+def init_cross_attention(gen: torch.Generator, cfg: ArchConfig,
+                         device: torch.device) -> Params:
+    return init_attention(gen, cfg, device)
+
+
 def _kv_heads(cfg: ArchConfig, hl: int, rank: int) -> slice:
     """The KV heads that the ``hl`` query heads of model rank ``rank``
     attend with, when every rank computes all KV heads."""
@@ -186,13 +201,17 @@ def _write_prompt(cfg: ArchConfig, ck: torch.Tensor, cv: torch.Tensor,
 def attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
               positions: torch.Tensor, kind: str = "causal",
               cache: Optional[Params] = None,
-              cache_pos: Optional[int] = None, par: Local = LOCAL
+              cache_pos: Optional[int] = None, par: Local = LOCAL,
+              kv_x: Optional[torch.Tensor] = None, use_rope: bool = True
               ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Self-attention over x (B,S,d). Returns (output, cache or None).
+    """Self-attention over x (B,S,d), or cross-attention from x over
+    ``kv_x`` (B,Sk,d): no RoPE and no window on cross-attention; without
+    ``use_rope`` self-attention takes no RoPE either. Returns (output,
+    cache or None).
 
     ``kind`` describes the mask structurally ("causal" | "full") so no
-    S^2 mask is materialized; the config's sliding window applies to the
-    causal kind. With ``cache`` (dict k, v of (B,Smax,KV,hd)):
+    S^2 mask is materialized; the config's sliding window applies to
+    self-attention. With ``cache`` (dict k, v of (B,Smax,KV,hd)):
 
     * ``cache_pos`` None (prefill): the fresh k/v are written at slot 0,
       or, for a sliding-window cache shorter than the prompt, the last
@@ -230,16 +249,19 @@ def attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
         # a replicated KV weight that this rank uses in part
         return par.to_model(t) if kv_whole and name in KV_WEIGHTS else t
 
+    src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhk->bshk", x, w("wq"))
-    k = torch.einsum("bsd,dhk->bshk", x, w("wk"))
-    v = torch.einsum("bsd,dhk->bshk", x, w("wv"))
+    k = torch.einsum("bsd,dhk->bshk", src, w("wk"))
+    v = torch.einsum("bsd,dhk->bshk", src, w("wv"))
     if "bq" in params:
         q, k, v = q + w("bq"), k + w("bk"), v + w("bv")
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_rope and kv_x is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     heads = _kv_heads(cfg, hl, par.model_rank) if kv_whole else slice(None)
 
-    window, valid_len = cfg.sliding_window, None
+    window = cfg.sliding_window if kv_x is None else 0
+    valid_len = None
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         lo, n, smax = par.cache_slots(ck.shape[1])
@@ -662,13 +684,19 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
-def mlstm_block(params: Params, cfg: ArchConfig,
-                x: torch.Tensor) -> torch.Tensor:
+def mlstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                state: Optional[Params] = None) -> torch.Tensor:
     """mLSTM matrix-memory cell, chunkwise parallel, with the reference's
     log-space stabilizer (see ``repro/models/layers.py:mlstm_block``):
     weights exp(F_t - F_s + i~_s) are divided by exp(m_t) with
     m_t = F_t + G_t, G_t = max(m_prev, cummax_{s<=t}(i~_s - F_s)); the
-    carried (C, n, m) triple makes the recursion exact across chunks.
+    carried (C, n, m) triple makes the recursion exact across chunks and
+    decode steps (a step is one chunk of length 1).
+
+    With ``state`` (dict C: (B,H,dh,dh), n: (B,H,dh), m: (B,H), f32) the
+    cell continues from it and writes the final triple into it in place,
+    as :func:`mamba_block` does; without, it starts from zeros and m =
+    -1e30, the initial state of ``kvcache.init_cache``.
     """
     b, s, d = x.shape
     h = cfg.num_heads
@@ -696,9 +724,14 @@ def mlstm_block(params: Params, cfg: ArchConfig,
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=x.device))
 
-    C = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
-    n = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-    m_prev = torch.full((b, h), -1e30, dtype=torch.float32, device=x.device)
+    if state is not None:
+        C, n, m_prev = (state[k].float() for k in ("C", "n", "m"))
+    else:
+        C = torch.zeros((b, h, dh, dh), dtype=torch.float32,
+                        device=x.device)
+        n = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
+        m_prev = torch.full((b, h), -1e30, dtype=torch.float32,
+                            device=x.device)
     ys = []
     for c0 in range(0, s, chunk):
         qq, kk, vv = q[:, c0:c0 + chunk], k[:, c0:c0 + chunk], \
@@ -733,6 +766,9 @@ def mlstm_block(params: Params, cfg: ArchConfig,
             "blh,blhd,blhe->bhde", w_end, vv, kk)
         n = n * cf[:, :, None] + torch.einsum("blh,blhd->bhd", w_end, kk)
         m_prev = Fc[:, -1] + G_L
+    if state is not None:
+        for key, t in (("C", C), ("n", n), ("m", m_prev)):
+            state[key].copy_(t)
     y = torch.cat(ys, dim=1)                               # (B,S,H,dh)
     # per-head group norm
     var = y.square().mean(dim=-1, keepdim=True)
@@ -756,19 +792,26 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig,
     }
 
 
-def slstm_block(params: Params, cfg: ArchConfig,
-                x: torch.Tensor) -> torch.Tensor:
+def slstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
+                state: Optional[Params] = None) -> torch.Tensor:
     """sLSTM scalar-memory cell with exponential gating and the
-    stabilizer state m; a true recurrence through h, stepped in order."""
+    stabilizer state m; a true recurrence through h, stepped in order.
+
+    With ``state`` (dict h, c, n, m: (B,D) f32) the cell continues from
+    it and writes the final four into it in place; without, it starts
+    from zeros and m = -1e9, as ``kvcache.init_cache``'s state."""
     b, s, d = x.shape
     cd = cfg.cdtype
     pre = torch.einsum("bsd,de->bse", x, params["w_x"].to(cd)) + \
         params["bias"].to(cd)
     r_h = params["r_h"].to(cd).float()   # h is f32: the product is f32
-    h = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-    c = torch.zeros_like(h)
-    n = torch.zeros_like(h)
-    m = torch.full((b, d), -1e9, dtype=torch.float32, device=x.device)
+    if state is not None:
+        h, c, n, m = (state[k].float() for k in ("h", "c", "n", "m"))
+    else:
+        h = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+        c = torch.zeros_like(h)
+        n = torch.zeros_like(h)
+        m = torch.full((b, d), -1e9, dtype=torch.float32, device=x.device)
     hs = []
     for t in range(s):
         gates = pre[:, t].float() + h @ r_h
@@ -783,5 +826,8 @@ def slstm_block(params: Params, cfg: ArchConfig,
         h = o_t * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
+    if state is not None:
+        for key, t in (("h", h), ("c", c), ("n", n), ("m", m)):
+            state[key].copy_(t)
     y = torch.stack(hs, dim=1).to(cd)
     return torch.einsum("bsd,de->bse", y, params["proj"].to(cd))

@@ -1,10 +1,12 @@
-"""Model assembly for the decoder-only families: init, the scoring
-forward and the decode path, driven by ``ArchConfig``.
+"""Model assembly for all six families: init, the scoring forward and
+the decode path, driven by ``ArchConfig``.
 
 The counterpart of the reference's ``repro/models/model.py`` for the
 dense-attention, MoE, MLA (with DeepSeek's multi-token prediction),
-hybrid (Mamba + attention) and xLSTM families. Parameters keep the
-reference's tree:
+hybrid (Mamba + attention), xLSTM, encoder-decoder (whisper: an encoder
+over stub frame features, cross-attention in every decoder layer) and
+image (pixtral: stub patch embeddings projected and prepended to the
+text) families. Parameters keep the reference's tree:
 ``segments`` is a tuple over segments of a tuple over the pattern's
 blocks, each a dict whose tensors carry a leading ``repeat`` axis; the
 forward walks that axis with a Python loop where the reference scans.
@@ -16,15 +18,20 @@ Entry points:
   Model.init(generator)                       -> params
   Model.forward(params, batch)                -> (logits (B,S,V) f32, aux)
                                                  aux: the MoE routers' loss
-                                                 plus the MTP loss
+                                                 plus the MTP loss; S the
+                                                 text positions
   Model.loss(params, batch)                   -> scalar: next-token CE + aux
   Model.grad_sq_norm(grads)                   -> the clip's squared norm
   Model.prefill(params, batch, smax)          -> (last logits (B,1,V), cache)
   Model.decode_step(params, token, pos, cache) -> (logits (B,1,V), cache)
 
-Dense-attention, MLA, MoE and Mamba/hybrid stacks decode; an xLSTM
-stack's recurrent-state decode arrives with its own slice, the
-encoder-decoder and image models with theirs. With ``cfg.remat`` each
+A batch holds ``tokens`` (B,S), and ``frames`` (B,F,128) for an
+encoder-decoder config or ``image_feats`` (B,N,1024) for an image
+config. Every family decodes: attention blocks through their KV cache,
+Mamba and xLSTM blocks through their carried state, whisper's decoder
+through the cross cache its prefill fills with the encoder's K/V at the
+F frames given, pixtral's with positions that count the image prefix
+(a step's ``pos`` is ``N`` plus the text position). With ``cfg.remat`` each
 layer of a training forward is a ``torch.utils.checkpoint`` (the
 reference's ``jax.checkpoint`` of its scan body): only the layer
 boundaries are kept, and the backward runs each layer's forward again.
@@ -44,6 +51,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig, Block, Segment
 from repro_torch.models.kvcache import init_cache
@@ -51,15 +59,8 @@ from repro_torch.train.tree import sq_norm
 
 Params = Dict[str, Any]
 MTP_BLOCK = Block("attn", "dense")   # DeepSeek's MTP module is one layer
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    """The port builds every decoder-only family; encoder-decoder and
-    image models arrive with their slice."""
-    if cfg.is_encoder_decoder or cfg.num_image_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and image models arrive with "
-            f"their family slice")
+AUDIO_FEAT_DIM = 128     # stub mel/conv frontend feature width
+IMAGE_FEAT_DIM = 1024    # stub ViT patch-embedding width
 
 
 def _cross_entropy(logits: torch.Tensor,
@@ -86,7 +87,7 @@ def _index(tree, i: int):
 # ---------------------------------------------------------------------------
 
 def _init_block(gen: torch.Generator, cfg: ArchConfig, block: Block,
-                device: torch.device) -> Params:
+                device: torch.device, cross_attn: bool = False) -> Params:
     p: Params = {"norm1": L.init_rmsnorm(cfg, device)}
     if block.kind == "attn":
         p["core"] = L.init_mla(gen, cfg, device) if cfg.use_mla \
@@ -97,6 +98,9 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, block: Block,
         p["core"] = L.init_mlstm(gen, cfg, device)
     elif block.kind == "slstm":
         p["core"] = L.init_slstm(gen, cfg, device)
+    if cross_attn and block.kind == "attn":
+        p["norm_cross"] = L.init_rmsnorm(cfg, device)
+        p["cross"] = L.init_cross_attention(gen, cfg, device)
     if block.ffn == "dense":
         p["norm2"] = L.init_rmsnorm(cfg, device)
         p["ffn"] = L.init_mlp(gen, cfg, device)
@@ -109,10 +113,13 @@ def _init_block(gen: torch.Generator, cfg: ArchConfig, block: Block,
 def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
                  positions: torch.Tensor, mask_kind: Optional[str],
                  cache: Optional[Params] = None,
-                 cache_pos: Optional[int] = None, par: L.Local = L.LOCAL
+                 cache_pos: Optional[int] = None, par: L.Local = L.LOCAL,
+                 enc_out: Optional[torch.Tensor] = None,
+                 cross: Optional[Params] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One block; returns (x, the MoE router's aux loss or None). An
-    attention or Mamba block with ``cache`` writes it in place."""
+    """One block; returns (x, the MoE router's aux loss or None). A block
+    with ``cache`` writes it in place; a decoder block of an
+    encoder-decoder model adds its cross-attention (:func:`_cross`)."""
     aux = None
     h = L.rmsnorm(p["norm1"], cfg, x)
     if block.kind == "attn" and cfg.use_mla:
@@ -125,10 +132,12 @@ def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
     elif block.kind == "mamba":
         out = L.mamba_block(p["core"], cfg, h, cache)
     elif block.kind == "mlstm":
-        out = L.mlstm_block(p["core"], cfg, h)
+        out = L.mlstm_block(p["core"], cfg, h, cache)
     else:
-        out = L.slstm_block(p["core"], cfg, h)
+        out = L.slstm_block(p["core"], cfg, h, cache)
     x = x + out
+    if "cross" in p:
+        x = x + _cross(p, cfg, x, positions, enc_out, cross)
     if block.ffn == "dense":
         h = L.rmsnorm(p["norm2"], cfg, x)
         x = x + L.mlp(p["ffn"], cfg, h, par)
@@ -139,11 +148,39 @@ def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
     return x, aux
 
 
+def _cross(p: Params, cfg: ArchConfig, x: torch.Tensor,
+           positions: torch.Tensor, enc_out: Optional[torch.Tensor],
+           cross: Optional[Params]) -> torch.Tensor:
+    """The cross-attention branch of a decoder block (before the residual
+    add). With ``enc_out`` (B,F,d), a forward or prefill: attention over
+    the encoder's states, no RoPE, no mask; a prefill's ``cross`` (this
+    layer's views of the cross cache, F frames) takes the encoder's K/V,
+    with no bias, as the reference's. Without it, a decode step: the
+    query (no bias, no RoPE) attends over every frame of ``cross``
+    through the flash kernel ("full"), the reference's route."""
+    cd = cfg.cdtype
+    w = p["cross"]
+    h = L.rmsnorm(p["norm_cross"], cfg, x)
+    if enc_out is not None:
+        out, _ = L.attention(w, cfg, h, positions, kind="full", kv_x=enc_out,
+                             use_rope=False)
+        if cross is not None:
+            for key in ("k", "v"):
+                cross[key].copy_(torch.einsum(
+                    "bsd,dhk->bshk", enc_out, w["w" + key].to(cd)))
+        return out
+    q = torch.einsum("bsd,dhk->bshk", h, w["wq"].to(cd))
+    o = ops.attention(q, cross["k"].to(cd), cross["v"].to(cd), None, cd,
+                      kind="full")
+    return torch.einsum("bshk,hkd->bsd", o, w["wo"].to(cd))
+
+
 def _init_segment(gen: torch.Generator, cfg: ArchConfig, seg: Segment,
-                  device: torch.device) -> Tuple[Params, ...]:
+                  device: torch.device,
+                  cross_attn: bool = False) -> Tuple[Params, ...]:
     out = []
     for block in seg.blocks:
-        layers = [_init_block(gen, cfg, block, device)
+        layers = [_init_block(gen, cfg, block, device, cross_attn)
                   for _ in range(seg.repeat)]
         out.append(_stack(layers))
     return tuple(out)
@@ -167,7 +204,8 @@ def _run_segment(params_stack, cfg: ArchConfig, seg: Segment,
                  x: torch.Tensor, positions: torch.Tensor,
                  mask_kind: Optional[str], cache_stack=None,
                  cache_pos: Optional[int] = None, par: L.Local = L.LOCAL,
-                 specs=None
+                 specs=None, enc_out: Optional[torch.Tensor] = None,
+                 cross_stack=None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Python loop over the repeat axis (the reference scans it). Layer r
     of block bi gets the views ``cache_stack[bi][...][r]``. Returns (x,
@@ -176,14 +214,21 @@ def _run_segment(params_stack, cfg: ArchConfig, seg: Segment,
     checkpoint, as the reference checkpoints its scan body. Under a mesh
     ``specs`` holds each block's per-layer placements, by which
     ``par.layer`` gathers a layer's weights (inside the checkpoint, so
-    that the backward gathers them again)."""
+    that the backward gathers them again). An encoder-decoder segment
+    takes the encoder's states ``enc_out`` and its slice of the cross
+    cache ``cross_stack``, one slot a repeat for its one attention
+    block."""
+    if cross_stack is not None and \
+            sum(b.kind == "attn" for b in seg.blocks) != 1:
+        raise ValueError(f"{cfg.name}: an encoder-decoder pattern has "
+                         f"exactly one attention block")
     remat = cfg.remat and cache_stack is None and torch.is_grad_enabled()
     run = functools.partial(checkpoint, _run_repeat, use_reentrant=False) \
         if remat else _run_repeat
     aux = None
     for r in range(seg.repeat):
         x, a = run(params_stack, cfg, seg, r, x, positions, mask_kind,
-                   cache_stack, cache_pos, par, specs)
+                   cache_stack, cache_pos, par, specs, enc_out, cross_stack)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -193,29 +238,22 @@ def _run_repeat(params_stack, cfg: ArchConfig, seg: Segment, r: int,
                 x: torch.Tensor, positions: torch.Tensor,
                 mask_kind: Optional[str], cache_stack,
                 cache_pos: Optional[int], par: L.Local = L.LOCAL,
-                specs=None
+                specs=None, enc_out: Optional[torch.Tensor] = None,
+                cross_stack=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The pattern's blocks at repeat ``r``: (x, their aux sum or None)."""
     aux = None
+    cross = None if cross_stack is None else _index(cross_stack, r)
     for bi, block in enumerate(seg.blocks):
         cache = None if cache_stack is None else _index(cache_stack[bi], r)
         p = _index(params_stack[bi], r)
         if specs is not None:
             p = par.layer(p, specs[bi])
         x, a = _apply_block(p, cfg, block, x, positions, mask_kind, cache,
-                            cache_pos, par)
+                            cache_pos, par, enc_out, cross)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
-
-
-def _check_decodes(cfg: ArchConfig) -> None:
-    for seg in cfg.segments:
-        for blk in seg.blocks:
-            if blk.kind not in ("attn", "mamba"):
-                raise NotImplementedError(
-                    f"{cfg.name}: decoding {blk.kind} blocks (recurrent "
-                    f"state) arrives with the xLSTM decode slice")
 
 
 # ---------------------------------------------------------------------------
@@ -232,9 +270,6 @@ class Model:
     par = L.LOCAL
     seg_specs = None
 
-    def __post_init__(self):
-        _check_supported(self.cfg)
-
     def init(self, generator: torch.Generator) -> Params:
         """Random parameters in the reference's shapes and dtypes, drawn
         on the model's device from ``generator`` (which must live there).
@@ -247,13 +282,27 @@ class Model:
                                   generator=generator, device=dev)
                       * 0.02).to(cfg.pdtype),
             "final_norm": L.init_rmsnorm(cfg, dev),
-            "segments": tuple(_init_segment(generator, cfg, seg, dev)
+            "segments": tuple(_init_segment(generator, cfg, seg, dev,
+                                            cfg.is_encoder_decoder)
                               for seg in cfg.segments),
         }
         if not cfg.tie_embeddings:
             p["unembed"] = (torch.randn((cfg.d_model, cfg.vocab_size),
                                         generator=generator, device=dev)
                             * 0.02).to(cfg.pdtype)
+        if cfg.is_encoder_decoder:
+            p["encoder"] = {
+                "in_proj": (torch.randn((AUDIO_FEAT_DIM, cfg.d_model),
+                                        generator=generator, device=dev)
+                            * 0.05).to(cfg.pdtype),
+                "segments": tuple(_init_segment(generator, cfg, seg, dev)
+                                  for seg in cfg.encoder_segments),
+                "final_norm": L.init_rmsnorm(cfg, dev),
+            }
+        if cfg.num_image_tokens:
+            p["img_proj"] = (torch.randn((IMAGE_FEAT_DIM, cfg.d_model),
+                                         generator=generator, device=dev)
+                             * 0.05).to(cfg.pdtype)
         if cfg.mtp_depth:
             p["mtp"] = {
                 "proj": (torch.randn((2 * cfg.d_model, cfg.d_model),
@@ -264,9 +313,37 @@ class Model:
             }
         return p
 
-    def _embed_inputs(self, params: Params,
-                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return params["embed"].to(self.cfg.cdtype)[batch["tokens"]]
+    def _embed_tokens(self, params: Params,
+                      tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"].to(self.cfg.cdtype)[tokens]
+
+    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]
+                      ) -> Tuple[torch.Tensor, int]:
+        """The tokens' embeddings, after the projected image prefix of an
+        image config given ``batch["image_feats"]``: (x, the number of
+        prefix positions)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, batch["tokens"])
+        if not (cfg.num_image_tokens and "image_feats" in batch):
+            return x, 0
+        img = torch.einsum("bnf,fd->bnd", batch["image_feats"].to(cfg.cdtype),
+                           params["img_proj"].to(cfg.cdtype))
+        return torch.cat([img, x], dim=1), img.shape[1]
+
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over stub frame features (B,F,128): the
+        projection, sinusoidal positions, the encoder stack (full
+        attention, RoPE on its self-attention, as the reference's) and
+        its final norm."""
+        cfg = self.cfg
+        enc, cd = params["encoder"], cfg.cdtype
+        x = torch.einsum("bfe,ed->bfd", frames.to(cd), enc["in_proj"].to(cd))
+        x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       x.device).to(cd)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for seg, ps in zip(cfg.encoder_segments, enc["segments"]):
+            x, _ = _run_segment(ps, cfg, seg, x, positions, "full")
+        return L.rmsnorm(enc["final_norm"], cfg, x)
 
     def _head(self, params: Params, x: torch.Tensor,
               norm: Optional[Params] = None) -> torch.Tensor:
@@ -283,19 +360,23 @@ class Model:
 
     def _layers(self, params: Params, x: torch.Tensor, kind: str,
                 positions: torch.Tensor, state=None,
-                cache_pos: Optional[int] = None
+                cache_pos: Optional[int] = None,
+                enc_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Every segment over x, with the cache of ``state`` if given:
-        (x, the MoE blocks' aux sum)."""
+        """Every segment over x, with the cache of ``state`` if given and
+        the encoder's states ``enc_out``: (x, the MoE blocks' aux
+        sum)."""
         cfg = self.cfg
         par = self.par if state is None else self._cache_par(state)
+        cross = None if state is None else state[1]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for si, (seg, ps) in enumerate(zip(cfg.segments,
                                            params["segments"])):
             x, a = _run_segment(
                 ps, cfg, seg, x, positions, kind,
                 None if state is None else state[0][si], cache_pos, par,
-                None if self.seg_specs is None else self.seg_specs[si])
+                None if self.seg_specs is None else self.seg_specs[si],
+                enc_out, None if cross is None else cross[si])
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -306,14 +387,21 @@ class Model:
 
     def forward(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Scoring forward over ``batch["tokens"]`` (B,S) int. Returns
-        (logits (B,S,V) f32, aux): aux sums the MoE routers' losses and,
-        for a config with MTP, the MTP loss unless ``batch["enable_mtp"]
-        is False``; it is 0 for the other families."""
+        """Scoring forward over ``batch["tokens"]`` (B,S) int, with the
+        batch's frames or image features. Returns (logits (B,S,V) f32,
+        aux): the logits of the text positions (the head runs on those
+        alone), aux the MoE routers' losses and, for a config with MTP,
+        the MTP loss unless ``batch["enable_mtp"] is False``; it is 0 for
+        the other families."""
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
+        x, n_prefix = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, aux = self._layers(params, x, "causal", positions)
+        enc_out = self._encode(params, batch["frames"]) \
+            if cfg.is_encoder_decoder else None
+        x, aux = self._layers(params, x, "causal", positions,
+                              enc_out=enc_out)
+        if n_prefix:
+            x = x[:, n_prefix:].contiguous()
         logits = self._head(params, x)
         if cfg.mtp_depth and batch.get("enable_mtp", True) is not False:
             aux = aux + self._mtp_loss(params, x, batch["tokens"])
@@ -373,33 +461,54 @@ class Model:
 
     def prefill(self, params: Params, batch: Dict[str, torch.Tensor],
                 smax: int) -> Tuple[torch.Tensor, Any]:
-        """Process the prompt ``batch["tokens"]`` (B,S) into a fresh cache
-        of ``smax`` slots. Returns (last-position logits (B,1,V) f32,
-        (cache, None))."""
+        """Process the prompt ``batch["tokens"]`` (B,S), after an image
+        config's prefix, into a fresh cache of ``smax`` slots (the
+        prefix takes slots too). Returns (last-position logits (B,1,V)
+        f32, (cache, cross)): ``cross`` holds, a decoder layer, the
+        encoder's K/V at the F frames of ``batch["frames"]``, else
+        None."""
         tokens = batch["tokens"]
-        return self._prefill(params, tokens, self.init_cache(
+        return self._prefill(params, batch, self.init_cache(
             tokens.shape[0], smax, tokens.device))
 
-    def _prefill(self, params: Params, tokens: torch.Tensor, state):
-        _check_decodes(self.cfg)
-        x = self._embed_inputs(params, {"tokens": tokens})
+    def _prefill(self, params: Params, batch: Dict[str, torch.Tensor],
+                 state):
+        cfg = self.cfg
+        x, _ = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        x, _ = self._layers(params, x, "causal", positions, state)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out = self._encode(params, batch["frames"])
+            state = (state[0], _cross_at(state[1], enc_out.shape[1])) + \
+                tuple(state[2:])
+        x, _ = self._layers(params, x, "causal", positions, state,
+                            enc_out=enc_out)
         # the kernels take contiguous rows: the last position's is a copy
         return self._head(params, x[:, -1:].contiguous()), state
 
     def decode_step(self, params: Params, token: torch.Tensor, pos: int,
                     cache_state) -> Tuple[torch.Tensor, Any]:
         """One decode step. token: (B,1) int; pos: the token's position
-        (0-based) as a host int. Returns (logits (B,1,V) f32, cache
-        state); the cache is updated in place and returned."""
-        _check_decodes(self.cfg)
+        (0-based, the image prefix counted) as a host int. Returns
+        (logits (B,1,V) f32, cache state); the cache is updated in place
+        and returned."""
         pos = int(pos)
-        x = self._embed_inputs(params, {"tokens": token})
+        x = self._embed_tokens(params, token)
         positions = torch.full((1, 1), pos, device=x.device)
         x, _ = self._layers(params, x, "decode", positions, cache_state,
                             pos)
         return self._head(params, x), cache_state
+
+
+def _cross_at(cross, frames: int):
+    """The cross cache of a prefill over ``frames`` encoder frames. The
+    reference's prefill replaces the buffer of ``encoder_max_frames``
+    with the encoder's K/V, so that decode attends over exactly the F
+    frames given: a buffer of another length is replaced by one of F
+    (every slot then written by the prefill), one of F is kept."""
+    return tuple({k: t if t.shape[2] == frames else
+                  t.new_empty(t.shape[:2] + (frames,) + t.shape[3:])
+                  for k, t in seg.items()} for seg in cross)
 
 
 def build_model(cfg: ArchConfig,

@@ -57,9 +57,10 @@ global gradient norm.
 Every collective is counted (:class:`CollectiveStats`: kind, group
 size, bytes of the output), for the roofline's collective term.
 
-MLA (DeepSeek), Mamba (Jamba) and the xLSTM cells are not sharded yet:
-on a mesh of more than one rank their configs raise
-``NotImplementedError`` (ROADMAP A11b).
+MLA (DeepSeek), Mamba (Jamba), the xLSTM cells, and the encoder-decoder
+(whisper) and image (pixtral) models are not sharded yet: on a mesh of
+more than one rank their configs raise ``NotImplementedError`` (ROADMAP
+A11b), before any weight is placed.
 """
 
 from __future__ import annotations
@@ -451,6 +452,11 @@ def _init_scale(path: Tuple, shape: Tuple[int, ...], cfg: ArchConfig
 
 def _supported(cfg: ArchConfig) -> None:
     """Raises for a family this module does not shard yet."""
+    if cfg.is_encoder_decoder or cfg.num_image_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: sharding the encoder-decoder and image models "
+            f"(cross-attention, the encoder, img_proj) arrives with ROADMAP "
+            f"A11b")
     if cfg.use_mla or cfg.mtp_depth:
         raise NotImplementedError(
             f"{cfg.name}: sharding MLA and MTP arrives with ROADMAP A11b")
@@ -541,12 +547,11 @@ class ShardedModel(Model):
         return walk(self.full, self.specs, ())
 
     # ------------------------------------------ the vocabulary over model
-    def _embed_inputs(self, params: Params,
-                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def _embed_tokens(self, params: Params,
+                      tokens: torch.Tensor) -> torch.Tensor:
         """A masked lookup in this rank's rows of the vocabulary, made
         whole by an all-reduce over ``model``."""
         par, spec = self.par, self.specs["embed"]
-        tokens = batch["tokens"]
         w = par.weight(params["embed"], spec).to(self.cfg.cdtype)
         if not self.vocab_tp:
             return w[tokens]
@@ -667,7 +672,7 @@ class ShardedModel(Model):
         tokens = batch["tokens"]
         rows = tokens.shape[0] * (self.par.data_size
                                   if self.batch_over_data else 1)
-        return self._prefill(params, tokens, self.init_cache(
+        return self._prefill(params, batch, self.init_cache(
             rows, smax, shard_seq, tokens.device))
 
 

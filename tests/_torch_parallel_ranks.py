@@ -34,7 +34,8 @@ from repro_torch.models.parallel import (  # noqa: E402
 from repro_torch.train import AdamW, make_train_step  # noqa: E402
 from repro_torch.train.tree import leaves  # noqa: E402
 
-RAISES = ("deepseek-v3-671b", "jamba-1.5-large-398b", "xlstm-125m")
+RAISES = ("deepseek-v3-671b", "jamba-1.5-large-398b", "xlstm-125m",
+          "whisper-small", "pixtral-12b")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

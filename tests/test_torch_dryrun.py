@@ -49,7 +49,7 @@ OK = [("llama3.2-1b", s, "single") for s in
     [("granite-moe-1b-a400m", "train_4k", "multi")]
 SKIPPED = [("deepseek-v3-671b", "decode_32k", "single", "A11b"),
            ("xlstm-125m", "train_4k", "single", "A11b"),
-           ("whisper-small", "prefill_32k", "single", "A7"),
+           ("whisper-small", "prefill_32k", "single", "A11b"),
            ("qwen2-72b", "long_500k", "single", "sliding-window")]
 MESH = {"single": (("data", "model"), (16, 16)),
         "multi": (("pod", "data", "model"), (2, 16, 16))}

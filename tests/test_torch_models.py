@@ -26,6 +26,7 @@ from repro_torch.configs import get_arch, get_smoke  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.device import resolve_device, torch_dtype  # noqa: E402
 from repro_torch.models import Block, Segment, build_model  # noqa: E402
+from repro_torch.models import parallel  # noqa: E402
 from repro_torch.models.kvcache import init_cache  # noqa: E402
 
 ARCHS = ["llama3.2-1b", "llama3.2-1b-sw", "xlstm-125m"]
@@ -117,9 +118,22 @@ def test_params_from_numpy_keeps_bfloat16_bits():
     dict(encoder_segments=(Segment((Block("attn", "dense"),), 1),)),
 ], ids=["vlm", "encoder-decoder"])
 def test_families_of_later_slices_raise(change):
+    """Image and encoder-decoder configs, once refused, build and score
+    on one rank (their parity with the reference:
+    tests/test_torch_encdec.py); a mesh still refuses them (A11b)."""
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **change)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, "cpu")
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.long)}
+    if cfg.num_image_tokens:
+        batch["image_feats"] = torch.ones((2, 4, 1024))
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.ones((2, 6, 128))
+    logits, _ = model.forward(params, batch)
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(NotImplementedError, match="A11b"):
+        parallel._supported(cfg)
 
 
 @pytest.mark.parametrize("change", [

@@ -20,7 +20,8 @@ the port's model bar, f32 atol 1e-4 / rtol 1e-4
 (tests/test_torch_families.py); greedy tokens equal; the loss, every
 leaf's gradient and the global gradient norm at the train tests' 5e-4
 (atol and rtol; tests/test_torch_train.py). DeepSeek (MLA), Jamba
-(Mamba) and xLSTM raise ``NotImplementedError`` naming ROADMAP A11b.
+(Mamba), xLSTM, whisper (encoder-decoder) and pixtral (image) raise
+``NotImplementedError`` naming ROADMAP A11b.
 """
 
 import dataclasses
@@ -48,7 +49,8 @@ JOIN_S = 120
 MESHES = ((1, 2), (1, 4), (2, 2))
 ARCHS = ("llama3.2-1b", "qwen2-72b", "granite-34b", "granite-moe-1b-a400m")
 CASES = ARCHS + ("granite-moe-1b-a400m/groups2", "llama3.2-1b-sw/long")
-RAISES = ("deepseek-v3-671b", "jamba-1.5-large-398b", "xlstm-125m")
+RAISES = ("deepseek-v3-671b", "jamba-1.5-large-398b", "xlstm-125m",
+          "whisper-small", "pixtral-12b")
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "_torch_parallel_ranks.py")
 BATCH, SEQ, PROMPT, SMAX, STEPS = 4, 16, 8, 32, 6

@@ -482,7 +482,9 @@ def test_the_analyzer_finds_nothing_in_the_copies(tmp_path):
               "core/estimator.py", "core/planner.py", "core/profiler.py",
               "core/hardware.py", "configs/pipelines.py", "sim/engine.py",
               "sim/queueing.py", "sim/result.py", "sim/torch_backend.py",
-              "workload/slo_classes.py"]
+              "workload/slo_classes.py", "workload/generator.py",
+              "workload/traces.py", "baselines/coarse_grained.py",
+              "baselines/ds2.py"]
     for rel in copies:
         dst = tmp_path / "repro" / rel
         dst.parent.mkdir(parents=True, exist_ok=True)
