@@ -179,7 +179,30 @@ Phases, in order; any failure exits non-zero:
    prefill and the steps exact, every step's logits against the port's
    forward over the same tokens and features, the greedy tokens equal,
    the prefill and step times, tokens/s, a traced step's busy share and
-   the peak memory, with the card's name and power limit.
+   the peak memory, with the card's name and power limit;
+13. train the hybrid: the expert-free Jamba-1.5-Large at published
+   width cut to its period's blocks [3:5] (one Mamba layer with its
+   dense FFN, the attention layer: 2,836,250,624 parameters, f32, remat,
+   AdamW(lr=1e-3)), as phase 10: (a) one train step on Jamba's smoke
+   config (drop-free, its scan in two chunks) on the card against the
+   CPU; (b) B 1 x 512, the gradients through the kernels against the
+   plain versions on the card; (c) the main path on ``batches(cfg, 1,
+   4096)`` (train_4k's length, its batch cut to 1): one warm-up and 8
+   timed steps, each step's launches exact (rmsnorm 9, flash forward 2
+   and backward 1, the scan's forward 32 and backward 16), ms a step,
+   tokens/s, peak memory, a traced step's busy share and top kernels,
+   the losses finite and falling; phase 2 holds the scan's backward
+   kernel (``csrc/mamba_scan_bwd.cu``) against its plain reverse
+   recurrence at the training chunk and edge shapes (f32 5e-4, bf16 3e-2
+   of each output's largest entry; two calls bit-equal) and times it;
+   phases 3-9 and 12 must launch no backward kernel;
+14. the examples on the card, each as its own process (``python -m
+   repro_torch.examples.<name>``): ``serve_real_models`` at its default,
+   published width on ``h100-1`` (its exit code, its plan, every live
+   query answered, the closed loop's scale-up, nothing released; its
+   measured p50/p99/miss beside the Estimator's) and ``train_arch --arch
+   jamba-1.5-large-398b --steps 100`` (it learns and round-trips its
+   checkpoint), with each one's wall time.
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -192,6 +215,7 @@ import dataclasses
 import gc
 import json
 import operator
+import os
 import re
 import subprocess
 import sys
@@ -245,6 +269,7 @@ from repro_torch.models.model import AUDIO_FEAT_DIM, IMAGE_FEAT_DIM  # noqa: E40
 from repro_torch.models.config import dense_segments  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.train import AdamW, make_train_step  # noqa: E402
+from repro_torch.train.trainer import value_and_grad  # noqa: E402
 from repro_torch.train.data import batches  # noqa: E402
 from repro_torch.train.tree import leaves as tree_leaves  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -319,7 +344,7 @@ COUNTERS = {"rmsnorm": rms_mod.counter, "flash_attention": fa_mod.counter,
 # the port's kernels, by the function names a profiler trace shows
 PORT_KERNELS = ("rmsnorm_kernel", "rmsnorm_row_kernel", "flash_fwd_kernel",
                 "decode_", "mamba_scan_kernel", "mamba_step_kernel",
-                "flash_bwd_")
+                "flash_bwd_", "mamba_scan_bwd")
 # phase 11: sharded serving over NCCL on four cards: qwen2-72b cut to
 # phase 8's depth and granite-moe whole, each against its one-card run,
 # on these meshes; granite-34b cut to phase 8's depth on (1, 4), whose
@@ -345,6 +370,19 @@ GRAD_SEQ = 512                  # the kernels-vs-plain gradient check
 # its flash VJP against the oracle's autodiff, tests/test_kernels.py:213)
 BWD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-4),
            torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+SMOKE_TRAIN_SEQ = 64            # the smoke step against the CPU
+# phase 13: the expert-free Jamba (configs.without_experts) at published
+# width cut in depth to its period's blocks [3:5], one Mamba layer (its
+# MoE FFN made dense) and the attention layer: 2,836,250,624 parameters,
+# 45.38 GB of f32 parameters, gradients and two AdamW moments (the whole
+# period's 142.1 GB does not fit one card); train_4k's length with its
+# batch cut to 1: 16 scan chunks of 256 a Mamba layer
+HYBRID_TRAIN_BLOCKS = (3, 5)
+HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 1, 4096
+HYBRID_SMOKE_SEQ = 128          # the smoke step's scan in two chunks of 64
+# phase 14: the examples, each a process of its own
+EXAMPLE_TRAIN_ARGS = ("--arch", HYBRID, "--steps", "100")
+EXAMPLE_TIMEOUT_S = 420
 # phase 12: (arch, batch, text prompt, cache slots, greedy steps) at
 # published width; whisper takes encoder_max_frames (30 s) of stub
 # frames, pixtral its 1024 stub patch embeddings before the prompt
@@ -411,6 +449,11 @@ def log(msg: str) -> None:
 
 def counts() -> dict:
     return {name: c.count for name, c in COUNTERS.items()}
+
+
+def bwd_counts() -> tuple:
+    """Launches of the two backward kernels so far."""
+    return fa_mod.bwd_counter.count, ms_mod.bwd_counter.count
 
 
 def reset_counts() -> None:
@@ -829,6 +872,114 @@ def check_mamba(gen: torch.Generator) -> None:
     torch.testing.assert_close(h2, h, **STATE_TOL)
     log(f"  mamba    two chained halves of L=512 vs one call: "
         f"max_abs_err={err:.3e}  ok")
+
+
+# the scan's backward: (label, b, L, D, N, A's scale): the hybrid's
+# training chunk, then L 1, L off a segment of 256 / N steps, N 8 and 64,
+# D off a CTA of 64 channels, and a dt A far below exp's range
+MAMBA_BWD_CASES = (
+    ("training chunk", 1, 256, 16384, 16, 1.0),
+    ("L=1", 3, 1, 16384, 16, 1.0),
+    ("L off a segment", 2, 37, 4096, 16, 1.0),
+    ("N=8", 2, 300, 4096, 8, 1.0),
+    ("N=64", 2, 37, 1024, 64, 1.0),
+    ("D off a CTA", 2, 70, 190, 16, 1.0),
+    ("dt A << 0", 2, 64, 4096, 16, 1000.0),
+)
+
+def scan_bwd_inputs(gen, b, length, d, n, dtype, a_scale=1.0) -> list:
+    """dt, x, b, c, a, h0 as :func:`scan_inputs` (A times ``a_scale``),
+    and the cotangents dy in ``dtype`` and dh in f32."""
+    args = scan_inputs(gen, b, length, d, n, dtype)
+    args[4] = args[4] * a_scale
+    return args + [rand(gen, (b, length, d), dtype),
+                   rand(gen, (b, d, n), torch.float32)]
+
+
+def check_mamba_bwd(gen: torch.Generator) -> None:
+    """The scan's backward kernel against its plain reverse recurrence on
+    the same inputs, f32 and bf16, within BWD_TOL's rtol of each output's
+    largest entry (an entry near zero carries the absolute error of the
+    sums that reach it), one counted launch a call; at the training chunk
+    two calls bit-equal."""
+    for dtype in (torch.float32, torch.bfloat16):
+        bar = BWD_TOL[dtype]["rtol"]
+        for name, b, length, d, n, a_scale in MAMBA_BWD_CASES:
+            args = scan_bwd_inputs(gen, b, length, d, n, dtype, a_scale)
+            before = ms_mod.bwd_counter.count
+            got = ms_mod._launch_bwd(*args)
+            torch.cuda.synchronize()
+            if ms_mod.bwd_counter.count != before + 1:
+                raise RuntimeError("scan backward: the call did not count "
+                                   "one launch")
+            exp = ref.mamba_scan_bwd_ref(*args)
+            errs = leaf_errors(got, exp)
+            if not max(errs) <= bar or not all(
+                    bool(torch.isfinite(g.float()).all()) for g in got):
+                raise RuntimeError(
+                    f"mamba_scan bwd {name} {dtype}: relative errors "
+                    f"ddt/dx/db/dc/da/dh0 {errs} (bar {bar})")
+            again = ""
+            if name == MAMBA_BWD_CASES[0][0]:
+                if not all(torch.equal(g, h) for g, h in zip(
+                        got, ms_mod._launch_bwd(*args))):
+                    raise RuntimeError(f"mamba_scan bwd {name} {dtype}: two "
+                                       f"calls differ")
+                again = "; a second call bit-equal"
+            log(f"  mamba bwd {name:16s} B={b} L={length} D={d} N={n} "
+                f"{str(dtype)[6:]}: ddt/dx/db/dc/da/dh0 within "
+                f"{', '.join(f'{e:.2e}' for e in errs)} of their largest "
+                f"entries (bar {bar}){again}  ok")
+            del args, got, exp
+
+
+def scan_bwd_work(b, length, d, n, dtype) -> tuple:
+    """(bytes, least ms of the exponentials) of one backward call: dt, x,
+    dy read and ddt, dx written once, b, c read and db, dc written once
+    in ``dtype``; a and da, h0, dh and dh0 in f32; B L D N exponentials
+    (every a_t), 16 a clock per SM."""
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = (5 * b * length * d + 4 * b * length * n) * esz \
+        + (2 * d * n + 3 * b * d * n) * 4
+    return nbytes, b * length * d * n / ex2_rate() * 1e3
+
+
+def time_mamba_bwd(gen: torch.Generator) -> dict:
+    """The scan backward's record at the hybrid's training chunk (B 1, L
+    256, D 16384, N 16), f32: the kernel against its plain reverse
+    recurrence in turns, its bound, its device time a launch; the same
+    in bf16 beside it. No single PyTorch call computes it."""
+    name, b, length, d, n, _ = MAMBA_BWD_CASES[0]
+    record = None
+    for dtype in (torch.float32, torch.bfloat16):
+        args = scan_bwd_inputs(gen, b, length, d, n, dtype)
+        errs = [float((g.float() - e.float()).abs().max()) for g, e in zip(
+            ms_mod._launch_bwd(*args), ref.mamba_scan_bwd_ref(*args))]
+        ms = time_in_turns((lambda: ms_mod._launch_bwd(*args),
+                            lambda: ref.mamba_scan_bwd_ref(*args)),
+                           (50, 3), rounds=3)
+        nbytes, ex2_ms = scan_bwd_work(b, length, d, n, dtype)
+        bytes_ms = nbytes / H100_HBM_BW * 1e3
+        log(f"  mamba bwd at the {name} B={b} L={length} D={d} N={n} "
+            f"{str(dtype)[6:]}: kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} "
+            f"ms, bound {max(bytes_ms, ex2_ms):.6f} ms (bytes "
+            f"{bytes_ms:.6f}, ex2 {ex2_ms:.6f}: "
+            f"{'bytes' if bytes_ms >= ex2_ms else 'operations'}); "
+            f"max_abs_err {max(errs):.3e}")
+        if dtype == torch.float32:
+            record = {
+                "name": "mamba_scan_bwd", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+                "replaces": "src/repro/kernels/ops.py:101",
+                "launches": 0, "max_abs_err": max(errs), "ms": ms[0],
+                "plain_ms": ms[1], "bound_ms": max(bytes_ms, ex2_ms),
+                "bound_by": "bytes" if bytes_ms >= ex2_ms else "operations",
+                "library_ms": None}
+            report_trace(f"mamba bwd at the {name}",
+                         cuda_events(lambda: ms_mod._launch_bwd(*args),
+                                     calls=10), ms[0], calls=10)
+        del args
+    return record
 
 
 def kernel_record(name, source, replaces, kernel_fn, plain_fn, library_fn,
@@ -3478,7 +3629,9 @@ class RecordingAdamW:
 
 TRAIN_COUNTERS = {"rmsnorm": rms_mod.counter,
                   "flash_attention": fa_mod.counter,
-                  "flash_attention_bwd": fa_mod.bwd_counter}
+                  "flash_attention_bwd": fa_mod.bwd_counter,
+                  "mamba_scan": ms_mod.counter,
+                  "mamba_scan_bwd": ms_mod.bwd_counter}
 
 
 def train_counts(reset: bool = False) -> dict:
@@ -3489,14 +3642,18 @@ def train_counts(reset: bool = False) -> dict:
 
 
 def launches_per_train_step(cfg, seq: int) -> dict:
-    """Launches of one remat training step of a dense model: the
-    forward's, each layer's norms and flash again when the backward runs
-    the layer's checkpoint (the final norm is outside them), and one
-    flash backward per attention layer (65 / 32 / 16 for llama3.2-1b)."""
+    """Launches of one remat training step: the forward's, each layer's
+    norms, flash and scans again when the backward runs the layer's
+    checkpoint (the final norm is outside them), and one flash backward
+    per attention layer and one scan backward per Mamba layer and chunk
+    (65 / 32 / 16 / 0 / 0 for llama3.2-1b; 9 / 2 / 1 / 32 / 16 for
+    phase 13's two Jamba blocks at 4096 tokens)."""
     fwd = launches_per_forward(cfg, seq)
     return {"rmsnorm": 2 * fwd["rmsnorm"] - 1,
             "flash_attention": 2 * fwd["flash_attention"],
-            "flash_attention_bwd": fwd["flash_attention"]}
+            "flash_attention_bwd": fwd["flash_attention"],
+            "mamba_scan": 2 * fwd["mamba_scan"],
+            "mamba_scan_bwd": fwd["mamba_scan"]}
 
 
 def batch_on(batch: dict, device) -> dict:
@@ -3527,13 +3684,12 @@ def check_leaves(label: str, got: list, exp: list, rel: float) -> float:
 STEP_REL = 5e-4
 
 
-def smoke_step_against_cpu() -> None:
-    """Phase 10 (a): one step of make_train_step with AdamW on the
-    llama3.2-1b smoke config (remat on) on the card against the same
+def smoke_step_against_cpu(cfg, seq: int) -> None:
+    """Phase 10 / 13 (a): one step of make_train_step with AdamW on a
+    smoke config (remat on), B 2 x ``seq``, on the card against the same
     step on the CPU: loss, every leaf's gradient, every first moment."""
-    cfg = dataclasses.replace(get_smoke(TRAIN_ARCH), remat=True)
     params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
-    batch = next(batches(cfg, 2, 64, seed=2))
+    batch = next(batches(cfg, 2, seq, seed=2))
     out = {}
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, dev)
@@ -3549,7 +3705,7 @@ def smoke_step_against_cpu() -> None:
                     [t.cpu() for t in tree_leaves(state.mu)], launched)
         if dev == "cpu" and any(launched.values()):
             raise RuntimeError(f"the CPU step launched kernels {launched}")
-    want = launches_per_train_step(cfg, 64)
+    want = launches_per_train_step(cfg, seq)
     if out["cuda"][3] != want:
         raise RuntimeError(f"smoke step launches {out['cuda'][3]} != {want}")
     (lc, gc_, mc, _), (lg, gg, mg, _) = out["cpu"], out["cuda"]
@@ -3564,69 +3720,71 @@ def smoke_step_against_cpu() -> None:
 
 
 def plain_on_the_card():
-    """Point the model's norm and flash calls at the plain versions on
-    the card (autograd of plain PyTorch), for a comparison only; returns
-    the function that restores them."""
-    saved = kernel_ops.rmsnorm, kernel_ops.flash_attention
+    """Point the model's norm, flash and scan calls at the plain versions
+    on the card (autograd of plain PyTorch), for a comparison only;
+    returns the function that restores them."""
+    saved = (kernel_ops.rmsnorm, kernel_ops.flash_attention,
+             kernel_ops.mamba_scan)
     kernel_ops.rmsnorm = ref.rmsnorm_ref
     kernel_ops.flash_attention = \
         lambda q, k, v, causal=True, window=0: ref.flash_attention_ref(
             q, k, v, causal=causal, window=window)
+    kernel_ops.mamba_scan = ref.mamba_scan_ref
 
     def restore():
-        kernel_ops.rmsnorm, kernel_ops.flash_attention = saved
+        (kernel_ops.rmsnorm, kernel_ops.flash_attention,
+         kernel_ops.mamba_scan) = saved
     return restore
 
 
-def grads_against_plain(cfg) -> None:
-    """Phase 10 (b): at full width, B 2 x GRAD_SEQ, one step's gradients
-    through the kernels against the same step's through the plain
-    versions on the card (no kernel launched), per leaf within
+def grads_against_plain(cfg, batch_size: int) -> None:
+    """Phase 10 / 13 (b): at full width, B ``batch_size`` x GRAD_SEQ, the
+    gradient of Model.loss for every leaf (make_train_step's own
+    ``value_and_grad``) through the kernels against the same through
+    the plain versions on the card (no kernel launched), per leaf within
     STEP_REL of the leaf's largest entry."""
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(1))
-    batch = batch_on(next(batches(cfg, TRAIN_BATCH, GRAD_SEQ, seed=1)),
+    batch = batch_on(next(batches(cfg, batch_size, GRAD_SEQ, seed=1)),
                      "cuda")
     results = []
     for plain in (False, True):
         restore = plain_on_the_card() if plain else None
         try:
-            opt = RecordingAdamW(AdamW(lr=TRAIN_LR))
             train_counts(reset=True)
-            # a copy each time: the optimizer writes the tree in place
-            p = _tree_to(params, "cuda", copy=True)
-            _, _, m = make_train_step(model, opt)(p, opt.init(p), batch)
+            loss, grads = value_and_grad(model, params, batch)
             torch.cuda.synchronize()
-            results.append((float(m["loss"]), opt.grads, train_counts()))
-            del p
+            results.append((float(loss), grads, train_counts()))
+            del grads
         finally:
             if restore:
                 restore()
     (lk, gk, ck), (lp, gp, cp) = results
     if ck != launches_per_train_step(cfg, GRAD_SEQ) or any(cp.values()):
         raise RuntimeError(f"launches: kernels {ck}, plain {cp}")
-    worst = check_leaves(f"B {TRAIN_BATCH} x {GRAD_SEQ}, kernels vs plain",
+    worst = check_leaves(f"B {batch_size} x {GRAD_SEQ}, kernels vs plain",
                          gk, gp, STEP_REL)
     errs = leaf_errors(gk, gp)
     if not abs(lk - lp) <= 1e-5 * abs(lp):
         raise RuntimeError(f"loss with kernels {lk} vs plain {lp}")
-    log(f"  (b) B={TRAIN_BATCH} x {GRAD_SEQ}, one step's gradients through "
+    log(f"  (b) B={batch_size} x {GRAD_SEQ}, one step's gradients through "
         f"the kernels ({ck}) vs the plain versions on the card (no launch):"
         f" loss {lk:.6f} vs {lp:.6f}; {len(gk)} leaves, worst "
         f"{worst:.3e} of the leaf's largest entry (bar {STEP_REL}), median "
         f"{float(np.median(errs)):.3e}")
-    del gk, gp, params, model
+    del gk, gp, params, model, results
 
 
-def train_full_width() -> dict:
-    """Phase 10 (c), the main path of this slice: llama3.2-1b at
-    published width trained by make_train_step (AdamW, remat) on
-    batches(cfg, TRAIN_BATCH, TRAIN_SEQ): one warm-up step, TRAIN_STEPS
-    timed steps each with its launches checked exactly, then one traced
-    step. Returns the launches of the steps."""
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), remat=True)
-    smoke_step_against_cpu()
-    grads_against_plain(cfg)
+def train_full_width(cfg, smoke_cfg, batch_size: int, seq: int,
+                     smoke_seq: int = SMOKE_TRAIN_SEQ) -> dict:
+    """Phases 10 and 13: (a) and (b) for ``smoke_cfg`` and ``cfg``, then
+    (c), the main path of the phase: ``cfg`` at published width trained
+    by make_train_step (AdamW, remat) on batches(cfg, batch_size, seq):
+    one warm-up step, TRAIN_STEPS timed steps each with its launches
+    checked exactly, then one traced step. Returns the launches of the
+    steps."""
+    smoke_step_against_cpu(smoke_cfg, smoke_seq)
+    grads_against_plain(cfg, batch_size)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3638,8 +3796,8 @@ def train_full_width() -> dict:
     torch.cuda.synchronize()
     n = model_line(cfg, params, time.perf_counter() - t0)
     step = make_train_step(model, opt)
-    data = batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    want = launches_per_train_step(cfg, TRAIN_SEQ)
+    data = batches(cfg, batch_size, seq, seed=0)
+    want = launches_per_train_step(cfg, seq)
     total = dict.fromkeys(TRAIN_COUNTERS, 0)
     losses, step_s = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -3659,17 +3817,16 @@ def train_full_width() -> dict:
             total[k] += got[k]
         losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated() / 1e9
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch_size * seq
     ms = float(np.mean(step_s)) * 1e3
-    log(f"  (c) {TRAIN_STEPS} timed steps after 1 warm-up, B={TRAIN_BATCH} x "
-        f"{TRAIN_SEQ} tokens (train_4k's length, its batch of 256 cut to "
-        f"{TRAIN_BATCH}), AdamW(lr={TRAIN_LR}), remat: {ms:.1f} ms a step "
+    log(f"  (c) {TRAIN_STEPS} timed steps after 1 warm-up, B={batch_size} x "
+        f"{seq} tokens, AdamW(lr={TRAIN_LR}), remat: {ms:.1f} ms a step "
         f"(min {min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}), "
         f"{tokens / (ms / 1e3):.1f} tokens/s, "
         f"{6 * n * tokens / (ms / 1e3) / 1e12:.1f} TFLOP/s of 6 N T; "
         f"peak device memory {peak:.2f} GB "
         f"(torch.cuda.max_memory_allocated); launches a step {want}, "
-        f"exact in every step")
+        f"exact in every step ({nvidia_smi()})")
     batch = batch_on(next(data), "cuda")
     train_counts(reset=True)
     report_trace("one traced training step",
@@ -4080,6 +4237,85 @@ def families_of_the_slice() -> dict:
     return total
 
 
+# --------------------------------------------------------------- phase 13
+
+def hybrid_train_cut():
+    """The expert-free Jamba at published width, its period cut to blocks
+    HYBRID_TRAIN_BLOCKS, remat on as the dry-run sets it for training."""
+    cfg = without_experts(get_arch(HYBRID))
+    seg = cfg.segments[0]
+    lo, hi = HYBRID_TRAIN_BLOCKS
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}-blocks{lo}:{hi}", remat=True,
+        segments=(dataclasses.replace(seg, blocks=seg.blocks[lo:hi]),))
+
+
+def train_the_hybrid() -> dict:
+    """Phase 13: phase 10's three parts for the hybrid. Returns the
+    launches of the main path's steps."""
+    smoke = dataclasses.replace(drop_free(get_smoke(HYBRID)), remat=True)
+    return train_full_width(hybrid_train_cut(), smoke, HYBRID_TRAIN_BATCH,
+                            HYBRID_TRAIN_SEQ, smoke_seq=HYBRID_SMOKE_SEQ)
+
+
+# --------------------------------------------------------------- phase 14
+
+def run_example(name: str, *args: str) -> tuple:
+    """``python -m repro_torch.examples.<name> args`` from the repository
+    root, its output captured; raises on a nonzero exit. Returns (its
+    standard output, its wall time in s)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=EXAMPLE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"    | {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    return proc.stdout, wall
+
+
+def examples_on_the_card() -> None:
+    """Phase 14: the serving example at its default (published width on
+    the card) and the training example on the hybrid's smoke config.
+    The serving example exits nonzero if the plan is infeasible or a live
+    query goes unanswered; here its served count, the closed loop's
+    releases and scale-up are checked from its output."""
+    out, wall = run_example("serve_real_models")
+    live = gamma_trace(PLAN_QPS, 1.0, PLAN_LIVE_S, seed=1).size
+    served = re.search(r"^served (\d+) queries:$", out, re.M)
+    measured = re.search(r"measured  p50=\s*([\d.]+)ms  p99=\s*([\d.]+)ms"
+                         r"  miss=([\d.]+)", out)
+    est = re.search(r"estimator p50=\s*([\d.]+)ms  p99=\s*([\d.]+)ms", out)
+    loop = re.search(r"served (\d+) queries, miss=([\d.]+), "
+                     r"released=(\d+)", out)
+    ups = re.findall(r"^  t=\s*[\d.]+s  up ", out, re.M)
+    if "h100-1" not in out or not served or int(served.group(1)) != live \
+            or not (measured and est and loop):
+        raise RuntimeError(f"serve_real_models: no plan on h100-1 or not "
+                           f"every one of the {live} live queries served")
+    if int(loop.group(3)) or not ups:
+        raise RuntimeError(f"serve_real_models: the closed loop released "
+                           f"{loop.group(3)} queries, scale-ups {len(ups)}")
+    log(f"  serve_real_models ({wall:.1f} s of wall time): {live} of {live} "
+        f"live queries served on the plan, measured p50 "
+        f"{measured.group(1)} ms p99 {measured.group(2)} ms miss "
+        f"{measured.group(3)} beside the Estimator's p50 {est.group(1)} ms "
+        f"p99 {est.group(2)} ms; closed loop {loop.group(1)} served, miss "
+        f"{loop.group(2)}, released 0, {len(ups)} scale-up events")
+    out, wall = run_example("train_arch", *EXAMPLE_TRAIN_ARGS)
+    learned = re.search(r"loss: first10=([\d.]+)  last10=([\d.]+)", out)
+    if not learned or "checkpoint round-trip OK" not in out:
+        raise RuntimeError("train_arch: no loss line or no round trip")
+    log(f"  train_arch {' '.join(EXAMPLE_TRAIN_ARGS)} ({wall:.1f} s of wall "
+        f"time): loss first10 {learned.group(1)} -> last10 "
+        f"{learned.group(2)}, checkpoint round-trip OK")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; this script runs the "
@@ -4111,15 +4347,17 @@ def main() -> int:
     check_decode(gen)
     check_mamba(gen)
     check_flash_bwd(gen)
+    check_mamba_bwd(gen)
     records = time_kernels(gen)
     bwd_record = time_flash_bwd(gen)     # its launches come from phase 10
+    scan_bwd_record = time_mamba_bwd(gen)    # ... and from phase 13
     time_launch_path(gen)
     time_decode_launch_path(gen)
     sweep_decode_splits(gen)
     time_family_shapes(gen)
 
-    # phases 3-9 serve, prefill and decode: none may launch the backward
-    launches_before_training = fa_mod.bwd_counter.count
+    # phases 3-9 serve, prefill and decode: none may launch a backward
+    launches_before_training = bwd_counts()
     log("[3] forward and decode against the CPU path; full-width stages, "
         "profile")
     check_forward_against_cpu()
@@ -4199,15 +4437,18 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
     log(f"[9] the planner's device sweep ({nvidia_smi()})")
     records.extend(planner_sweep())
-    if fa_mod.bwd_counter.count != launches_before_training:
-        raise RuntimeError("a served path launched the flash backward")
+    if bwd_counts() != launches_before_training:
+        raise RuntimeError("a served path launched a backward kernel")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[10] train full-width {TRAIN_ARCH} on one card "
         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before; "
         f"{nvidia_smi()})")
-    trained = train_full_width()
-    records.append(bwd_record)
+    trained = train_full_width(
+        dataclasses.replace(get_arch(TRAIN_ARCH), remat=True),
+        dataclasses.replace(get_smoke(TRAIN_ARCH), remat=True),
+        TRAIN_BATCH, TRAIN_SEQ)
+    records.extend([bwd_record, scan_bwd_record])
     for r in records:
         if r["name"] in trained:
             r["launches"] += trained[r["name"]]
@@ -4227,10 +4468,31 @@ def main() -> int:
     log(f"[12] xlstm-125m, whisper-small and pixtral-12b at published "
         f"width ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
         f"before; {nvidia_smi()})")
+    before_decoding = bwd_counts()
     for name, n in families_of_the_slice().items():
         for r in records:
             if r["name"] == name:
                 r["launches"] += n
+    if bwd_counts() != before_decoding:
+        raise RuntimeError("phase 12 launched a backward kernel")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = hybrid_train_cut()
+    log(f"[13] train the expert-free Jamba-1.5-Large at published width, "
+        f"blocks {list(HYBRID_TRAIN_BLOCKS)} of its period "
+        f"({', '.join(b.kind for b in cut.segments[0].blocks)}), on one "
+        f"card ({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        f"before; {nvidia_smi()})")
+    for name, n in train_the_hybrid().items():
+        for r in records:
+            if r["name"] == name:
+                r["launches"] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[14] the examples on the card, each its own process "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in this "
+        f"one; {nvidia_smi()})")
+    examples_on_the_card()
     if not all(r["launches"] > 0 for r in records):
         raise RuntimeError(f"a kernel was not launched: "
                            f"{[(r['name'], r['launches']) for r in records]}")

@@ -66,6 +66,12 @@ SIGNATURES = {
     # (dtype, batch, len, d, n, int *grid, int *ctas_per_sm) -> cudaError_t
     "mamba_scan_plan": ((_I, _I, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_I)), _I),
+    # (dt, x, b, c, a, h0, dy, dh, ddt, dx, db, dc, da, dh0, work, dtype,
+    #  batch, len, d, n, stream) -> cudaError_t
+    "mamba_scan_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    # (batch, len, d, n, long long *floats) -> cudaError_t
+    "mamba_scan_bwd_workspace": ((_I, _I, _I, _I, ctypes.POINTER(_L)), _I),
     # (ready, k, luts, lut_stride, eff, timeout, pools, pool_cap, lanes,
     #  out, batches, n_batches, base_last, arrivals, rpc, stream)
     #  -> cudaError_t

@@ -5,11 +5,11 @@ tensor goes to the plain version. There is no switch and no fallback.
 The TPU's block-divisibility gates on attention have no counterpart: the
 CUDA kernels mask ragged edges themselves.
 
-Gradients: ``rmsnorm`` and flash attention (``kind`` "causal" or
-"full") are differentiable on both devices, through the same routes
-with or without grad: the flash backward is a CUDA kernel, the norm's a
-closed form in torch. Decode attention and the scan are differentiable
-on the CPU only; on CUDA under grad they raise.
+Gradients: ``rmsnorm``, flash attention (``kind`` "causal" or "full")
+and the scan are differentiable on both devices, through the same
+routes with or without grad: the flash and scan backwards are CUDA
+kernels, the norm's a closed form in torch. Decode attention is
+differentiable on the CPU only; on CUDA under grad it raises.
 """
 
 from __future__ import annotations

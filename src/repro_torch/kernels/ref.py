@@ -197,3 +197,47 @@ def mamba_scan_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         h = a_bar * h + (dt_t * xf[:, t])[..., None] * bf[:, t, None, :]
         ys.append((h * cf[:, t, None, :]).sum(-1))          # (B,D)
     return torch.stack(ys, dim=1).to(x.dtype), h.to(h0.dtype)
+
+
+def mamba_scan_bwd_ref(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
+                       c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor,
+                       dy: torch.Tensor, dh_last: torch.Tensor
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Plain version of the selective scan's backward kernel: the reverse
+    recurrence of :func:`mamba_scan_ref`, not autodiff of its loop. The
+    states h_0..h_L are rebuilt forwards from ``h0``; then, from
+    ``r = dh_last``, each step t from the last down takes the total
+    cotangent of its state ``g_t = dy_t C_t + r`` and
+
+      dC_t = sum_d dy_t h_t             dB_t = sum_d g_t (dt_t x_t)
+      d(dt_t x_t) = sum_n g_t B_t       dA  += g_t h_{t-1} a_t dt_t
+      ddt_t = d(dt_t x_t) x_t + sum_n g_t h_{t-1} a_t A
+      dx_t = d(dt_t x_t) dt_t           r = a_t g_t
+
+    with ``a_t = exp(dt_t A)``; ``dh0`` is the last ``r``. dy: (B,L,D),
+    dh_last: (B,D,N). Returns (ddt, dx, db, dc, da, dh0), each in its
+    input's dtype."""
+    dtf, xf, bf, cf = dt.float(), x.float(), b.float(), c.float()
+    af, dyf = a.float(), dy.float()
+    hs = [h0.float()]
+    for t in range(dt.shape[1]):
+        a_bar = torch.exp(dtf[:, t, :, None] * af)
+        hs.append(a_bar * hs[-1]
+                  + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :])
+    ddt, dx = torch.empty_like(dtf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(af)
+    r = dh_last.float()
+    for t in reversed(range(dt.shape[1])):
+        a_bar = torch.exp(dtf[:, t, :, None] * af)             # (B,D,N)
+        g = dyf[:, t, :, None] * cf[:, t, None, :] + r
+        dc[:, t] = (dyf[:, t, :, None] * hs[t + 1]).sum(1)
+        db[:, t] = (g * (dtf[:, t] * xf[:, t])[..., None]).sum(1)
+        dbx = (g * bf[:, t, None, :]).sum(-1)                  # (B,D)
+        ga = g * hs[t] * a_bar
+        ddt[:, t] = dbx * xf[:, t] + (ga * af).sum(-1)
+        dx[:, t] = dbx * dtf[:, t]
+        da += (ga * dtf[:, t, :, None]).sum(0)
+        r = a_bar * g
+    return (ddt.to(dt.dtype), dx.to(x.dtype), db.to(b.dtype),
+            dc.to(c.dtype), da.to(a.dtype), r.to(h0.dtype))

@@ -26,8 +26,11 @@ if TYPE_CHECKING:      # the model imports repro_torch.train.tree
     from repro_torch.models.model import Model
 
 
-def _value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor,
-                                                           list]:
+def value_and_grad(model: Model, params, batch) -> Tuple[torch.Tensor,
+                                                          list]:
+    """``Model.loss`` and its gradient for every leaf of ``params``, in
+    the order of ``leaves(params)``: the step's gradient, before the
+    optimizer."""
     flat = leaves(params)
     for p in flat:
         if not p.requires_grad:
@@ -55,7 +58,7 @@ def make_train_step(model: Model, opt: AdamW, microbatches: int = 1,
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
-            loss, grads = _value_and_grad(model, params, batch)
+            loss, grads = value_and_grad(model, params, batch)
             params, opt_state = opt.update(params, opt_state,
                                            unflatten(params, grads),
                                            sq_norm=model.grad_sq_norm)
@@ -72,7 +75,7 @@ def make_train_step(model: Model, opt: AdamW, microbatches: int = 1,
             mbatch = {k: x.reshape((microbatches, x.shape[0] // microbatches)
                                    + tuple(x.shape[1:]))[i]
                       for k, x in batch.items()}
-            loss, grads = _value_and_grad(model, params, mbatch)
+            loss, grads = value_and_grad(model, params, mbatch)
             for a, g in zip(acc, grads):
                 a.add_(g.to(adt))
             loss_sum = loss_sum + loss

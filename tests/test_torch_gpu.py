@@ -306,35 +306,46 @@ def _flat(tree):
     return [tree]
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "llama3.2-1b-sw"])
+@pytest.mark.parametrize("arch,seq", [("llama3.2-1b", 96),
+                                      ("llama3.2-1b-sw", 96),
+                                      # the hybrid: two scan chunks of 64
+                                      ("jamba-1.5-large-398b", 128)])
 @pytest.mark.parametrize("remat", [False, True])
-def test_loss_backward_reaches_every_leaf_through_the_kernels(gen, arch,
+def test_loss_backward_reaches_every_leaf_through_the_kernels(gen, arch, seq,
                                                               remat):
-    """One loss.backward() on a smoke llama on the card: every leaf gets
-    a finite, nonzero gradient (the kernels carry gradients), the
-    launches are the step's, and the gradients match the CPU's."""
-    cfg = dataclasses.replace(get_smoke(arch), remat=remat)
+    """One loss.backward() on a smoke model on the card (the llamas, and
+    the hybrid's expert-free smoke Jamba): every leaf gets a finite,
+    nonzero gradient (the kernels carry gradients), the launches are the
+    step's, and the gradients match the CPU's."""
+    cfg = get_smoke(arch)
+    if cfg.family == "hybrid":
+        cfg = without_experts(cfg)
+    cfg = dataclasses.replace(cfg, remat=remat)
     cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     params = cpu.init(torch.Generator().manual_seed(0))
     card_params = _to(params, "cuda")
-    tok = torch.randint(0, cfg.vocab_size, (2, 96),
+    tok = torch.randint(0, cfg.vocab_size, (2, seq),
                         generator=torch.Generator().manual_seed(1))
+    blocks = [b for s in cfg.segments for b in s.blocks
+              for _ in range(s.repeat)]
+    attn = sum(b.kind == "attn" for b in blocks)
+    scans = sum(b.kind == "mamba" for b in blocks) * (seq // cfg.ssm_chunk)
+    norms = 2 * len(blocks) + 1
+    counters = (rms_mod.counter, fa_mod.counter, fa_mod.bwd_counter,
+                ms_mod.counter, ms_mod.bwd_counter)
     grads = []
     for model, p, t in ((card, card_params, tok.cuda()), (cpu, params, tok)):
         flat = _flat(p)
         for leaf in flat:
             leaf.requires_grad_(True)
-        counts = (rms_mod.counter.count, fa_mod.counter.count,
-                  fa_mod.bwd_counter.count)
+        counts = [c.count for c in counters]
         model.loss(p, {"tokens": t}).backward()
         if model is card:
             torch.cuda.synchronize()
-            layers = cfg.num_layers
-            assert (rms_mod.counter.count - counts[0],
-                    fa_mod.counter.count - counts[1],
-                    fa_mod.bwd_counter.count - counts[2]) == \
-                (2 * layers + 1 + remat * 2 * layers,
-                 layers * (1 + remat), layers)
+            # remat runs each layer's forward again in the backward
+            assert [c.count - n for c, n in zip(counters, counts)] == \
+                [norms + remat * (norms - 1), attn * (1 + remat), attn,
+                 scans * (1 + remat), scans]
         grads.append([leaf.grad for leaf in flat])
     for g, e in zip(*grads):
         assert g is not None and bool(torch.isfinite(g).all())
@@ -344,6 +355,10 @@ def test_loss_backward_reaches_every_leaf_through_the_kernels(gen, arch,
 
 
 def test_decode_and_scan_refuse_grad_on_the_card(gen):
+    """Decode attention refuses grad: it has no backward (a decode step
+    is not trained). The scan no longer refuses: under grad it launches
+    its forward and its backward kernel and gives the plain version's
+    gradient."""
     q = _rand(gen, (1, 1, 4, 64), torch.float32).requires_grad_(True)
     kc = _rand(gen, (1, 16, 4, 64), torch.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -354,10 +369,19 @@ def test_decode_and_scan_refuse_grad_on_the_card(gen):
     bc = _rand(gen, (1, 4, 16), torch.float32)
     a, h0 = -torch.ones(64, 16, device="cuda"), torch.zeros(
         1, 64, 16, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ms_mod.mamba_scan(dt, dt, bc, bc, a, h0)
+    counts = (ms_mod.counter.count, ms_mod.bwd_counter.count)
+    y, _ = ms_mod.mamba_scan(dt, dt, bc, bc, a, h0)
+    (got,) = torch.autograd.grad(y.sum(), dt)
+    torch.cuda.synchronize()
+    assert (ms_mod.counter.count, ms_mod.bwd_counter.count) == \
+        (counts[0] + 1, counts[1] + 1)
+    leaf = dt.detach().clone().requires_grad_(True)
+    ye, _ = ref.mamba_scan_ref(leaf, leaf, bc, bc, a, h0)
+    (exp,) = torch.autograd.grad(ye.sum(), leaf)
+    torch.testing.assert_close(got, exp, atol=5e-4, rtol=5e-4)
     with torch.no_grad():
         ms_mod.mamba_scan(dt, dt, bc, bc, a, h0)
+    assert ms_mod.bwd_counter.count == counts[1] + 1
 
 
 @pytest.mark.parametrize("b,smax,h,kv,d,dv,vl,window", [
@@ -560,6 +584,86 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(gen):
         ms_mod.mamba_scan(dt, x.bfloat16(), b, c, a, h0)
     with pytest.raises(ValueError, match="disagree"):
         ms_mod.mamba_scan(dt, x, b, c, a[:32], h0)
+
+
+# the backward: the hybrid's training chunk (B 1, L 256, D 16384, N 16),
+# then L 1, L off a segment of 256 / N steps, every N, D off a CTA of 64
+# channels, batch rows, a dt A far below exp's range
+SCAN_BWD_CASES = [
+    (1, 256, 16384, 16, 1.0),
+    (3, 1, 192, 16, 1.0),
+    (2, 37, 192, 16, 1.0),
+    (2, 300, 192, 8, 1.0),
+    (1, 70, 192, 32, 1.0),
+    (2, 37, 128, 64, 1.0),
+    (2, 64, 190, 16, 1.0),
+    (1, 33, 200, 64, 1.0),
+    (2, 50, 192, 16, 1000.0),
+]
+BWD_REL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+
+
+def _scan_bwd_inputs(gen, b, length, d, n, dtype, a_scale=1.0):
+    args = _scan_inputs(gen, b, length, d, n, dtype)
+    args[4] = args[4] * a_scale
+    return args + [_rand(gen, (b, length, d), dtype),
+                   _rand(gen, (b, d, n), torch.float32)]
+
+
+def _assert_rel(got, exp, rel):
+    for g, e in zip(got, exp):
+        assert g.dtype == e.dtype and g.shape == e.shape
+        scale = max(float(e.float().abs().max()), 1e-30)
+        err = float((g.float() - e.float()).abs().max())
+        assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("b,length,d,n,a_scale", SCAN_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_backward_kernel_matches_plain(gen, b, length, d, n,
+                                                  a_scale, dtype):
+    """Through MambaScan: one forward and one backward launch, and ddt,
+    dx, db, dc, da, dh0 within the backward's bar of the plain reverse
+    recurrence (f32 5e-4, bf16 3e-2 of each output's largest entry)."""
+    args = _scan_bwd_inputs(gen, b, length, d, n, dtype, a_scale)
+    leaves = [t.clone().requires_grad_(True) for t in args[:6]]
+    counts = (ms_mod.counter.count, ms_mod.bwd_counter.count)
+    y, h = ms_mod.mamba_scan(*leaves)
+    got = torch.autograd.grad((y, h), leaves, (args[6], args[7]))
+    torch.cuda.synchronize()
+    assert (ms_mod.counter.count, ms_mod.bwd_counter.count) == \
+        (counts[0] + 1, counts[1] + 1)
+    exp = ref.mamba_scan_bwd_ref(*args)
+    _assert_rel(got, exp, BWD_REL[dtype])
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_backward_kernel_is_deterministic(gen, dtype):
+    """No atomics and a fixed order of every sum: two backward calls at
+    the training chunk give bit-equal gradients."""
+    args = _scan_bwd_inputs(gen, 1, 256, 16384, 16, dtype)
+    first = ms_mod._launch_bwd(*args)
+    second = ms_mod._launch_bwd(*args)
+    torch.cuda.synchronize()
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+def test_mamba_scan_backward_rejects_what_it_does_not_take(gen):
+    args = _scan_bwd_inputs(gen, 1, 8, 64, 16, torch.float32)
+    with pytest.raises(ValueError, match="do not match"):
+        ms_mod._launch_bwd(*args[:6], args[6][:, :4], args[7])
+    with pytest.raises(ValueError, match="do not match"):
+        ms_mod._launch_bwd(*args[:7], args[7][..., :8])
+    with pytest.raises(TypeError, match="float32 state"):
+        ms_mod._launch_bwd(*args[:5], args[5].bfloat16(), *args[6:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ms_mod._launch_bwd(args[0].transpose(1, 2).contiguous().transpose(
+            1, 2), *args[1:])
+    odd = _scan_bwd_inputs(gen, 1, 8, 64, 12, torch.float32)
+    with pytest.raises(ValueError, match="state size N"):
+        ms_mod._launch_bwd(*odd)
 
 
 def test_hybrid_on_the_card_matches_the_cpu(gen):

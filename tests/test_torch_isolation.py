@@ -59,7 +59,10 @@ def test_port_imports_with_jax_unavailable():
             "repro_torch.configs.pipelines, repro_torch.models.sharding, "
             "repro_torch.models.parallel, repro_torch.launch.mesh, "
             "repro_torch.launch.shapes, repro_torch.launch.dryrun, "
-            "repro_torch.roofline.analysis\n"
+            "repro_torch.roofline.analysis, repro_torch.examples.quickstart, "
+            "repro_torch.examples.autoscale_spike, "
+            "repro_torch.examples.serve_real_models, "
+            "repro_torch.examples.train_arch\n"
             "from repro_torch.core import Planner, Estimator\n"
             "from repro_torch.serving import LiveControlLoop, "
             "LiveClusterSim, AsyncIngress, ProcessStage\n")

@@ -12,7 +12,8 @@ model parameters come from the JAX package's ``init`` through
 - RMSNorm gradients f32 1e-5, bf16 3e-2 (the kernel tolerance in bf16);
 - the loss and every gradient leaf 1e-5 relative to the leaf's largest
   entry: the frameworks sum in other orders, and an entry near zero
-  carries absolute, not relative, error;
+  carries absolute, not relative, error; Jamba's leaves 3e-5: the
+  reference's own two scans differ by more than 5e-6 on that config;
 - AdamW 1e-6: the same f32 operations in the same order, one rounding
   of the bf16 moments apart at most.
 """
@@ -52,7 +53,18 @@ FWD_TOL = dict(atol=3e-5, rtol=3e-5)
 GRAD_TOL = dict(atol=5e-4, rtol=5e-4)
 LEAF_REL = 1e-5
 OPT_TOL = dict(atol=1e-6, rtol=1e-6)
-LOSS_ARCHES = ["llama3.2-1b", "llama3.2-1b-sw", "deepseek-v3-671b"]
+LOSS_ARCHES = ["llama3.2-1b", "llama3.2-1b-sw", "deepseek-v3-671b",
+               "jamba-1.5-large-398b"]
+# a length where each config's structure bites: the -sw window of 64 at
+# 80, Jamba's scan in two chunks of its ssm_chunk 64 at 128
+LOSS_SEQ = {"llama3.2-1b-sw": 80, "jamba-1.5-large-398b": 128}
+# Jamba's leaves: the reference's own two scans, its sequential oracle and
+# the associative scan of its XLA path, give gradients more than 5e-6 of
+# the largest entry apart on this config (the dt path's sums over N
+# cancel; tests/test_torch_mamba_train.py::
+# test_jamba_gradients_sit_between_the_reference_scans), so the port's
+# sequential scan is held to 3e-5
+LEAF_REL_ARCH = {"jamba-1.5-large-398b": 3e-5}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -256,8 +268,10 @@ def test_rmsnorm_gradient_matches_autodiff_of_the_plain_version():
                                 t[None]),
 ], ids=["decode_attention", "mamba_scan"])
 def test_plain_decode_and_scan_stay_differentiable_on_the_cpu(call):
-    """On the CPU the plain versions carry gradients; on CUDA the kernels
-    refuse under grad (tests/test_torch_gpu.py)."""
+    """On the CPU the plain versions carry gradients (the scan's through
+    MambaScan's plain backward); on CUDA decode attention refuses under
+    grad and the scan launches its backward kernel
+    (tests/test_torch_gpu.py)."""
     t = torch.randn(8, 8, generator=torch.Generator().manual_seed(0))
     t.requires_grad_(True)
     out = call(t)
@@ -324,9 +338,10 @@ def _assert_leaves_close(got, jtree, rel=LEAF_REL):
 def test_loss_and_every_gradient_match_the_reference(built, arch, mask):
     """Model.loss and its gradient for every leaf; deepseek's aux holds
     its routers' loss and the MTP loss; the -sw config's window 64 bites
-    at 80 tokens."""
+    at 80 tokens; Jamba's Mamba layers carry the scan's state and its
+    gradient across two chunks."""
     jmodel, jparams, model, nparams = built(arch)
-    seq = 80 if arch.endswith("-sw") else 24
+    seq = LOSS_SEQ.get(arch, 24)
     batch = _batch(model.cfg, 7, 2, seq, mask)
     jloss, jgrads = jax.value_and_grad(jmodel.loss)(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -334,7 +349,7 @@ def test_loss_and_every_gradient_match_the_reference(built, arch, mask):
     loss, grads = _port_loss_and_grads(model, params, _to_torch(batch))
     np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5,
                                rtol=1e-5)
-    _assert_leaves_close(grads, jgrads)
+    _assert_leaves_close(grads, jgrads, LEAF_REL_ARCH.get(arch, LEAF_REL))
     if model.cfg.mtp_depth:
         # the aux carries the MTP loss: its leaves get gradient
         mtp = [g for (k, _), g in zip(flatten_with_path(params), grads)
@@ -342,7 +357,8 @@ def test_loss_and_every_gradient_match_the_reference(built, arch, mask):
         assert mtp and all(float(g.abs().max()) > 0 for g in mtp)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v3-671b",
+                                  "jamba-1.5-large-398b"])
 def test_remat_gives_the_same_loss_and_gradients(built, arch):
     _, _, model, nparams = built(arch)
     batch = _to_torch(_batch(model.cfg, 8, 2, 24, mask=False))
