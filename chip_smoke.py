@@ -126,8 +126,10 @@ Phases, in order; any failure exits non-zero:
    with scale-up and scale-down events, and its latency rows against the
    plain assembly; the select against its plain version and
    np.partition on rows with ties, +inf and FAR_FUTURE tails, one value,
-   a shared segment (k < n) and all values equal, at p 0, 50, 99 and
-   100; then, with every counter zeroed before and read after, (b) the
+   a shared segment (k < n) and all values equal, and on both of its
+   paths (rows at the cluster's capacity -1, at it and +1, odd k, one
+   lane, NaN), at p 0, 50, 99 and 100, two calls bit-equal; then, with
+   every counter zeroed before and read after, (b) the
    1200-candidate sink sweep on an hour of bursty image-processing
    traffic with numpy and with torch (cold, warm), equal with ``==``,
    its wall times and the warm run's split (inputs, fill, select, copy
@@ -138,7 +140,9 @@ Phases, in order; any failure exits non-zero:
    plans on the four motifs, numpy against torch with the grid's
    thresholds as they are and with every grid sent to the card; then
    each kernel's device time and its plain version's at the sweep's
-   shape, the select's beside ``torch.kthvalue``, and (d) one fill,
+   shape, the select's beside ``torch.kthvalue`` with its path, cluster
+   size, resident clusters and bytes read, its launches by path, and
+   (d) one fill,
    numpy against the kernel forced on, at 4096, 32768 and 262144
    queries;
 10. train llama3.2-1b at published width on one card (16L x 2048, f32,
@@ -3154,27 +3158,76 @@ def select_rows() -> dict:
     }
 
 
+def select_cases() -> dict:
+    """Phase 9a's rows for the select's two paths: name -> (rows,
+    shared segment). The cluster's capacity -1, at it and +1 (the stream
+    path), odd k with a segment (every second row starts 8-byte
+    aligned), one lane, NaN."""
+    rng = np.random.default_rng(33)
+    empty = np.empty(0)
+    cases = {}
+    for offset in (-1, 0, 1):
+        m = 5001
+        rows = rng.gamma(2.0, 0.05, (3, sim_select.CLUSTER_CAP + offset - m))
+        rows[1, -3000:] = 1e18
+        rows[2] = np.round(rows[2], 3)
+        cases[f"capacity {offset:+d}"] = (rows, rng.gamma(2.0, 0.05, m) + 0.2)
+    cases["odd k"] = (rng.gamma(2.0, 0.05, (7, 107487)),
+                      rng.gamma(2.0, 0.05, 11))
+    cases["lanes 1"] = (rng.gamma(2.0, 0.05, (1, 20001)), empty)
+    rows = rng.gamma(2.0, 0.05, (4, 3001))
+    rows[0, ::97] = np.nan
+    rows[1, -40:] = np.nan
+    rows[3, :] = np.nan
+    cases["NaN"] = (rows, empty)
+    return cases
+
+
 def check_selects() -> None:
     """Phase 9a: the select kernel against its plain version on the card
-    and np.partition, with ``==``: three orders of each row, at every p
-    of SELECT_P."""
-    for name, (row, seg) in select_rows().items():
-        rows = np.stack([row, row[::-1].copy(), np.sort(row)])
+    and np.partition (NaN last), with ``==``, at every p of SELECT_P:
+    three orders of each of select_rows(), and select_cases(). Each call
+    is one launch down the path that k + m picks, and a second call is
+    bit-equal."""
+    cases = {name: (np.stack([row, row[::-1].copy(), np.sort(row)]), seg)
+             for name, (row, seg) in select_rows().items()}
+    cases.update(select_cases())
+    for name, (rows, seg) in cases.items():
         rows_d, seg_d = (torch.from_numpy(a).cuda() for a in (rows, seg))
-        n = row.size + seg.size
+        lanes, n = rows.shape[0], rows.shape[1] + seg.size
+        path = sim_select.path(n)
+        plan = sim_select.plan(rows.shape[1], seg.size, lanes)
+        if plan["path"] != path:
+            raise RuntimeError(f"sim_select: the wrapper's path {path} is "
+                               f"not the kernel's {plan}")
         for p in SELECT_P:
             prev, nxt, _ = torch_backend._quantile_params(n, p)
+            before = (sim_select.counter.count,
+                      sim_select.path_counters[path].count)
             got = sim_select.select(rows_d, seg_d, prev, nxt)
+            again = sim_select.select(rows_d, seg_d, prev, nxt)
+            if (sim_select.counter.count - before[0],
+                    sim_select.path_counters[path].count - before[1]) != \
+                    (2, 2):
+                raise RuntimeError(f"sim_select: not one {path} launch a "
+                                   f"call: {name}")
             plain = sim_select.select_ref(rows_d, seg_d, prev, nxt)
             part = np.partition(np.concatenate(
-                [rows, np.broadcast_to(seg, (3, seg.size))], 1),
+                [rows, np.broadcast_to(seg, (lanes, seg.size))], 1),
                 (prev, nxt) if nxt > prev else (prev,), axis=1)
-            if not (torch.equal(got, plain) and np.array_equal(
-                    got.cpu().numpy(), part[:, [prev, nxt]])):
+            if not (torch.equal(got.view(torch.int64),
+                                again.view(torch.int64))
+                    and torch.equal(got.isnan(), plain.isnan())
+                    and torch.equal(got.nan_to_num(), plain.nan_to_num())
+                    and np.array_equal(got.cpu().numpy(),
+                                       part[:, [prev, nxt]],
+                                       equal_nan=True)):
                 raise RuntimeError(f"sim_select differs: {name}, p {p}")
-        log(f"  select, {name}: k={row.size}, segment {seg.size}, p "
-            f"{', '.join(f'{p:g}' for p in SELECT_P)}: equal (==) to the "
-            f"plain version and np.partition")
+        log(f"  select, {name}: {lanes} x k={rows.shape[1]}, segment "
+            f"{seg.size}, {path} path ({plan['cluster']} CTA(s) a "
+            f"candidate, {plan['smem']} B of dynamic shared memory each), "
+            f"p {', '.join(f'{p:g}' for p in SELECT_P)}: equal (==) to "
+            f"the plain version and np.partition, two calls bit-equal")
 
 
 def check_fills() -> None:
@@ -3510,9 +3563,11 @@ def select_record(inputs, launches: int) -> dict:
     """The select's record at the sweep's shape: its device time (CUDA
     events, one launch at a time, best of 3), its plain version's (one
     warm call) and ``torch.kthvalue``'s along dim 1, once for each rank
-    (best of 3), all three equal, and the bound: the rows read once."""
+    (best of 3), all three equal, and the bound: the rows read once.
+    Logs the launch's path, its cluster and the bytes it reads."""
     rows, seg, r0, r1 = inputs
-    lanes = rows.shape[0]
+    lanes, k = rows.shape
+    plan = sim_select.plan(k, seg.numel(), lanes)
     got = sim_select.select(rows, seg, r0, r1)
     t_ms = [event_ms(lambda: sim_select.select(rows, seg, r0, r1))
             for _ in range(3)]
@@ -3533,10 +3588,21 @@ def select_record(inputs, launches: int) -> dict:
     nbytes = 8 * (rows.numel() + seg.numel() + 2 * lanes)
     bytes_ms = nbytes / H100_HBM_BW * 1e3
     ms = min(t_ms)
-    log(f"  sim_select at the sweep's shape ({lanes} rows x {rows.shape[1]}"
-        f" + {seg.numel()} shared, ranks {r0}, {r1}): kernel {ms:.3f} ms "
-        f"({ms * 1e3:.1f} us of device time; launches "
-        f"{', '.join(f'{t:.3f}' for t in t_ms)} ms), plain version (sort) "
+    if plan["path"] == "cluster":
+        how = (f"cluster path: clusters of {plan['cluster']} CTAs a "
+               f"candidate, {plan['smem']} B of dynamic shared memory a "
+               f"CTA, {plan['resident']} clusters resident at once "
+               f"(cudaOccupancyMaxActiveClusters); the rows read from "
+               f"device memory once, {8 * rows.numel() / 1e9:.3f} GB")
+    else:
+        how = (f"stream path: a CTA a candidate, {plan['resident']} "
+               f"resident; the rows read from device memory once a pass")
+    log(f"  sim_select at the sweep's shape ({lanes} rows x {k} + "
+        f"{seg.numel()} shared, ranks {r0}, {r1}): {how}; kernel "
+        f"{ms:.3f} ms ({ms * 1e3:.1f} us of device time; launches "
+        f"{', '.join(f'{t:.3f}' for t in t_ms)} ms), "
+        f"{nbytes / ms / 1e6:.0f} GB/s of the bound's bytes, "
+        f"{bytes_ms / ms:.1%} of the bound; plain version (sort) "
         f"{plain_ms:.3f} ms, torch.kthvalue twice {lib_ms:.3f} ms, all "
         f"equal; bound {bytes_ms:.6f} ms (bytes: {nbytes / 1e9:.3f} GB "
         f"read once)")
@@ -3594,6 +3660,8 @@ def planner_sweep() -> list:
     reset_counts()
     sim_fill.counter.reset()
     sim_select.counter.reset()
+    for c in sim_select.path_counters.values():
+        c.reset()
     log("[9b] the reference's 1200-candidate sweep, numpy and torch")
     inputs = device_sweep()
     log("[9c] plan identity, every motif, Planner and BeamPlanner")
@@ -3603,6 +3671,12 @@ def planner_sweep() -> list:
         raise RuntimeError(f"the sweep launched sim_fill {fills} times, "
                            f"sim_select {selects} times and the model "
                            f"kernels {counts()}")
+    paths = {p: c.count for p, c in sim_select.path_counters.items()}
+    if sum(paths.values()) != selects:
+        raise RuntimeError(f"sim_select's launches by path {paths} do not "
+                           f"add up to its {selects}")
+    log(f"  sim_select's {selects} launches of 9b-9c by path: "
+        f"{', '.join(f'{p} {n}' for p, n in paths.items())}")
     records = [fill_record(inputs["sim_fill"], fills),
                select_record(inputs["sim_select"], selects)]
     log("[9d] one fill, numpy against the kernel")

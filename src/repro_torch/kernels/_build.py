@@ -83,6 +83,10 @@ SIGNATURES = {
                           _P, _P, _P, _P), _I),
     # (rows, k, seg, m, lanes, r0, r1, out, stream) -> cudaError_t
     "sim_select": ((_P, _L, _P, _L, _I, _L, _L, _P, _P), _I),
+    # (k, m, lanes, int *path, int *cluster, int *smem, int *resident)
+    #  -> cudaError_t
+    "sim_select_plan": ((_L, _L, _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+                         ctypes.POINTER(_I), ctypes.POINTER(_I)), _I),
     "repro_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

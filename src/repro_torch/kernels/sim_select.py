@@ -7,17 +7,49 @@ of each candidate's latencies and ``part[prev], part[nxt]``. A tensor on
 the CPU takes the plain version; a CUDA tensor launches the kernel or
 raises. The two values of each candidate are members of its multiset,
 so the host's lerp of them is ``np.percentile`` bit for bit.
+
+The kernel takes one of two paths, by ``k + m`` (the row and the shared
+segment): up to :data:`CLUSTER_CAP` a cluster of :data:`CLUSTER` CTAs a
+candidate reads the row from device memory once into its distributed
+shared memory; a larger row streams from device memory a pass.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
 
 counter = _build.LaunchCounter()
+# launches by path, beside ``counter``
+path_counters = {"cluster": _build.LaunchCounter(),
+                 "stream": _build.LaunchCounter()}
 
 F64 = torch.float64
+CLUSTER = 16                 # csrc kCluster: CTAs a candidate
+CLUSTER_CAP = CLUSTER * 8 * 3072     # csrc kClusterCap: keys a cluster holds
+
+
+def path(n: int) -> str:
+    """The kernel's path for ``n = k + m`` keys a candidate."""
+    return "cluster" if n <= CLUSTER_CAP else "stream"
+
+
+def plan(k: int, m: int, lanes: int) -> dict:
+    """The launch the kernel makes for (lanes, k) rows and a segment of m,
+    as the CUDA source reports it: the path, its CTAs a candidate, their
+    dynamic shared memory (bytes), and how many clusters (cluster path)
+    or CTAs (stream path) of it the current card holds at once."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = _build.entry("sim_select_plan")(k, m, lanes,
+                                         *map(ctypes.byref, vals))
+    if rc:
+        _build.check(rc, "sim_select_plan")
+    code, cluster, smem, resident = (v.value for v in vals)
+    return {"path": "cluster" if code == 1 else "stream",
+            "cluster": cluster, "smem": smem, "resident": resident}
 
 
 def select(rows: torch.Tensor, seg: torch.Tensor, r0: int,
@@ -59,6 +91,7 @@ def _launch(rows, seg, r0, r1):
     if rc:
         _build.check(rc, "sim_select")
     counter.add()
+    path_counters[path(n)].add()
     return out
 
 

@@ -1461,6 +1461,83 @@ def test_sim_select_at_the_sweeps_shape(gen):
         assert np.array_equal(got.cpu().numpy(), part[:, [prev, nxt]])
 
 
+def _select_case(name):
+    """Rows that take each branch of the select's two paths: the cluster's
+    capacity -1, at it and +1 (the stream path), odd k (every second row
+    starts 8-byte aligned), one lane, NaN."""
+    from repro_torch.kernels import sim_select
+
+    rng = np.random.default_rng(33)
+    empty = np.empty(0)
+    if name.startswith("capacity"):
+        m = 5001
+        k = sim_select.CLUSTER_CAP + int(name[len("capacity"):]) - m
+        rows = rng.gamma(2.0, 0.05, (3, k))
+        rows[1, -3000:] = 1e18
+        rows[2] = np.round(rows[2], 3)
+        return rows, rng.gamma(2.0, 0.05, m) + 0.2
+    if name == "odd k":
+        return rng.gamma(2.0, 0.05, (7, 107487)), rng.gamma(2.0, 0.05, 11)
+    if name == "lanes 1":
+        return rng.gamma(2.0, 0.05, (1, 20001)), empty
+    rows = rng.gamma(2.0, 0.05, (4, 3001))
+    rows[0, ::97] = np.nan
+    rows[1, -40:] = np.nan
+    rows[3, :] = np.nan
+    return rows, empty
+
+
+@pytest.mark.parametrize("name", ["capacity-1", "capacity+0", "capacity+1",
+                                  "odd k", "lanes 1", "nan"])
+@pytest.mark.parametrize("p", [0.0, 50.0, 99.0, 100.0])
+def test_sim_select_paths_equal_plain_and_partition(gen, name, p):
+    """Each row equals the plain version and np.partition (NaN last), in
+    one launch down the path that k + m picks, and a second call is bit
+    equal."""
+    from repro_torch.kernels import sim_select
+    from repro_torch.sim.torch_backend import _quantile_params
+
+    rows, seg = _select_case(name)
+    n = rows.shape[1] + seg.size
+    prev, nxt, _ = _quantile_params(n, p)
+    rows_d = torch.from_numpy(rows).cuda()
+    seg_d = torch.from_numpy(seg).cuda()
+    path = sim_select.path(n)
+    assert path == ("stream" if name == "capacity+1" else "cluster")
+    assert sim_select.plan(rows.shape[1], seg.size, rows.shape[0])["path"] \
+        == path
+    before = sim_select.counter.count
+    by_path = sim_select.path_counters[path].count
+    got = sim_select.select(rows_d, seg_d, prev, nxt)
+    torch.cuda.synchronize()
+    assert sim_select.counter.count == before + 1
+    assert sim_select.path_counters[path].count == by_path + 1
+    again = sim_select.select(rows_d, seg_d, prev, nxt)
+    assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+    plain = sim_select.select_ref(rows_d, seg_d, prev, nxt)
+    assert torch.equal(got.isnan(), plain.isnan())
+    assert torch.equal(got.nan_to_num(), plain.nan_to_num())
+    full = np.concatenate([rows, np.broadcast_to(seg, (rows.shape[0],
+                                                      seg.size))], 1)
+    part = np.partition(full, (prev, nxt) if nxt > prev else (prev,),
+                        axis=1)[:, [prev, nxt]]
+    assert np.array_equal(got.cpu().numpy(), part, equal_nan=True)
+
+
+def test_sim_select_cluster_fits_the_card(gen):
+    """At the sweep's shape the select takes clusters of 16 CTAs that the
+    card can hold at once (the non-portable size is allowed)."""
+    from repro_torch.kernels import sim_select
+
+    got = sim_select.plan(107487, 0, 1200)
+    assert got["path"] == "cluster" and got["cluster"] == sim_select.CLUSTER
+    assert got["resident"] >= 1
+    big = sim_select.plan(sim_select.CLUSTER_CAP, 0, 1200)
+    assert big["path"] == "cluster" and big["resident"] >= 1
+    assert sim_select.plan(sim_select.CLUSTER_CAP + 1, 0, 1200)["path"] == \
+        "stream"
+
+
 def test_sim_grid_makes_two_launches_a_chunk(gen, monkeypatch):
     """A grid cut into three chunks launches the fill and the select
     three times each, and scores what the plain versions score on the

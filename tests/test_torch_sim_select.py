@@ -3,13 +3,21 @@
 ``csrc/sim_select.cu`` cannot run here, so its arithmetic is emulated
 in numpy, digit by digit: the order-preserving key map, the 8-bit MSB
 radix passes with the two ranks sharing a histogram until their bins
-part, and the copy of the survivors once they fit (``cap``). The
-emulation, the kernel's plain version (``sim_select.select_ref``) and
-the fill's latency rows are held to the reference's numpy with ``==``,
-and ``grid_stage_percentiles`` (plain versions) to the reference's
+part. The cluster path's emulation splits the row and the segment into
+the warps' regions of the cluster's CTAs, starts below the prefix that
+the cluster's least and greatest keys share, sums the CTAs' histograms,
+compacts each warp's survivors and gathers them into CTA 0 once they
+are few; it reads each row from device memory once. The stream path's
+emulation copies the survivors once they fit (``cap``). The emulations,
+the kernel's plain version (``sim_select.select_ref``) and the fill's
+latency rows are held to the reference's numpy with ``==``, and
+``grid_stage_percentiles`` (plain versions) to the reference's
 ``repro.sim.jax_backend.grid_stage_percentiles``, queries that skip the
 stage included.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,6 +34,10 @@ SIGN = np.uint64(1 << 63)
 ALL = np.uint64((1 << 64) - 1)
 BITS, BINS, DIGITS = 8, 256, 8
 KERNEL_CAP = 8192
+# the cluster path's sizes (csrc/sim_select.cu)
+CLUSTER, WARPS, REGION_CAP, GATHER = 16, 8, 3072, 1024
+WIDE_BITS = 11          # the cluster path's first digit
+CLUSTER_CAP = CLUSTER * WARPS * REGION_CAP
 
 
 # ----------------------------------------------------------- the emulation
@@ -46,10 +58,10 @@ def key_values(keys: np.ndarray) -> np.ndarray:
 
 
 def find_bin(hist: np.ndarray, rank: int) -> tuple:
-    """Warp 0's search: lane l sums bins 8l .. 8l + 7, an inclusive scan
-    over the lanes, the lane whose range holds ``rank`` walks its bins.
-    Returns (bin, count of the bins before it)."""
-    per = BINS // 32
+    """Warp 0's search: lane l sums the l-th len(hist) / 32 bins, an
+    inclusive scan over the lanes, the lane whose range holds ``rank``
+    walks its bins. Returns (bin, count of the bins before it)."""
+    per = hist.size // 32
     sums = hist.reshape(32, per).sum(1)
     inc = np.cumsum(sums)
     exc = inc - sums
@@ -105,6 +117,109 @@ def radix_select(row: np.ndarray, seg: np.ndarray, r0: int, r1: int,
     return float(vals[0]), float(vals[1]), global_passes
 
 
+def _mask(rem: int) -> np.uint64:
+    """The key bits above the lowest ``rem``."""
+    return np.uint64(0) if rem == 64 else ALL << np.uint64(rem)
+
+
+def cluster_select(row: np.ndarray, seg: np.ndarray, r0: int, r1: int,
+                   cluster: int = CLUSTER, warps: int = WARPS,
+                   gather: int = GATHER) -> tuple:
+    """The cluster path over one row and the segment: the values of
+    ranks r0 <= r1, and the passes over the cluster's shared memory
+    before and after the gather into CTA 0, whose warp 0 finishes alone
+    (the row is read from device memory once, by the copy). The first
+    pass counts a digit of WIDE_BITS; the kernel finds its bin in two
+    steps (a group of 32 bins, then the bin), which is this search."""
+    keys_all = order_keys(np.concatenate([row, seg]))
+    n = keys_all.size
+    region = -(-n // (cluster * warps))
+    lists = [keys_all[g * region:(g + 1) * region]
+             for g in range(cluster * warps)]
+    cta = [g // warps for g in range(cluster * warps)]
+    lo = min(int(ks.min()) for ks in lists if ks.size)
+    hi = max(int(ks.max()) for ks in lists if ks.size)
+    rem = (lo ^ hi).bit_length()
+    prefix = [np.uint64(lo) & _mask(rem)] * 2
+    rank = [r0, r1]
+    split, local = False, False
+    passes = [0, 0]                       # cluster-wide, CTA 0 alone
+    while rem > 0:
+        first = passes == [0, 0]          # counts all, compacts none
+        bins = 1 << WIDE_BITS if first else BINS
+        hmask = _mask(rem)
+        width = min(WIDE_BITS if first else BITS, rem)
+        shift = rem - width
+        dmask = np.uint64((1 << width) - 1)
+        hists = np.zeros((1 if local else cluster, 2 * bins), np.int64)
+        sets = [[], []]                   # each rank's survivors
+        for g, keys in enumerate(lists):
+            top = keys & hmask
+            digit = ((keys >> np.uint64(shift)) & dmask).astype(np.int64)
+            in0 = top == prefix[0]
+            in1 = (top == prefix[1]) & ~in0 if split else \
+                np.zeros_like(in0)
+            h = hists[0 if local else cta[g]]
+            h[:bins] += np.bincount(digit[in0], minlength=bins)
+            h[bins:] += np.bincount(digit[in1], minlength=bins)
+            sets[0].append(keys[in0])
+            sets[1].append(keys[in1])
+            lists[g] = keys[in0 | in1]    # compacted in place, in order
+        passes[local] += 1
+        ends = [np.concatenate(sets[i]) for i in (0, 1 if split else 0)]
+        tot = hists.sum(0)
+        h0, h1 = tot[:bins], tot[bins:] if split else tot[:bins]
+        b0, below0 = find_bin(h0, rank[0])
+        b1, below1 = find_bin(h1, rank[1])
+        # a rank's value is known where its survivors are one key
+        # repeated, or, CTA 0 alone, where it is its bin's least or
+        # greatest key; ~0 (NaN) is left to the prefixes
+        found = [None, None]
+        for r, (e, b, below) in enumerate(((ends[0], b0, below0),
+                                           (ends[1], b1, below1))):
+            if not first and e.min() == e.max():
+                found[r] = e.min()
+            elif local:
+                inbin = e[((e >> np.uint64(shift)) & dmask) == b]
+                if rank[r] - below == 0 or inbin.min() == inbin.max():
+                    found[r] = inbin.min()
+                elif rank[r] - below == inbin.size - 1:
+                    found[r] = inbin.max()
+            if found[r] is not None and found[r] == ALL:
+                found[r] = None
+        if found[0] is not None and found[1] is not None:
+            prefix = found
+            break
+        p1 = prefix[1] if split else prefix[0]
+        prefix = [prefix[0] | (np.uint64(b0) << np.uint64(shift)),
+                  p1 | (np.uint64(b1) << np.uint64(shift))]
+        rank = [rank[0] - below0, rank[1] - below1]
+        left = h0[b0] + (h1[b1] if split else (h0[b1] if b1 != b0 else 0))
+        split = split or b1 != b0
+        rem = shift
+        if not local and rem > 0 and left <= gather:
+            gmask = _mask(rem)
+            got = np.concatenate([ks[((ks & gmask) == prefix[0]) |
+                                     ((ks & gmask) == prefix[1])]
+                                  for ks in lists])
+            assert got.size == left
+            lists = [got]                 # warp 0 of CTA 0 alone
+            local = True
+    vals = key_values(np.array(prefix, dtype=np.uint64))
+    return float(vals[0]), float(vals[1]), tuple(passes)
+
+
+def kernel_select(row: np.ndarray, seg: np.ndarray, r0: int,
+                  r1: int) -> tuple:
+    """The kernel's choice of path by k + m: the values of ranks r0 <=
+    r1, the path, and its reads of the row from device memory."""
+    if row.size + seg.size <= CLUSTER_CAP:
+        a, b, _ = cluster_select(row, seg, r0, r1)
+        return a, b, "cluster", 1
+    a, b, reads = radix_select(row, seg, r0, r1)
+    return a, b, "stream", reads
+
+
 def partition_pair(row: np.ndarray, seg: np.ndarray, r0: int,
                    r1: int) -> tuple:
     """The reference's selection: ``np.partition(lat, kth)`` read at the
@@ -142,6 +257,28 @@ def test_radix_select_emulation_equals_partition(values, p, n_seg):
         assert (a, b) == want, (cap, prev, nxt)
 
 
+# (cluster, gather): one CTA, two, the kernel's 16; a gather of one key,
+# of a few, the kernel's
+_CLUSTER_SHAPES = [(1, 1), (2, 4), (16, 1), (16, GATHER)]
+
+
+@settings(max_examples=60, deadline=None)
+@given(_values, st.floats(min_value=0.0, max_value=100.0),
+       st.integers(min_value=0, max_value=40))
+def test_cluster_emulation_equals_partition(values, p, n_seg):
+    """The cluster path: regions of the row and the segment over the
+    CTAs' warps, summed histograms, compaction, the gather."""
+    n_seg = min(n_seg, len(values) - 1)
+    vals = np.asarray(values, dtype=np.float64) + 0.0    # no -0.0
+    row, seg = vals[n_seg:], vals[:n_seg]
+    prev, nxt, _ = tb._quantile_params(vals.size, p)
+    want = partition_pair(row, seg, prev, nxt)
+    for cluster, gather in _CLUSTER_SHAPES:
+        a, b, _ = cluster_select(row, seg, prev, nxt, cluster, WARPS, gather)
+        assert all(_same(x, y) for x, y in zip((a, b), want)), \
+            (cluster, gather, prev, nxt)
+
+
 def _edge_rows():
     rng = np.random.default_rng(11)
     lat = rng.gamma(2.0, 0.05, 5000)
@@ -169,15 +306,114 @@ def test_radix_select_edge_rows(name, p):
 
 
 def test_survivors_leave_device_memory_after_a_few_passes():
-    """On spread latencies the passes over the row stop once the
-    survivors fit the kernel's shared buffer: the top digit, the next,
-    the one that narrows them, and the copy."""
+    """At the sweep's 107,487 latencies a row fits the cluster's shared
+    memory: the kernel reads it from device memory once, and every
+    radix pass runs from shared memory."""
     rng = np.random.default_rng(3)
     row = rng.gamma(2.0, 0.05, 107487)
     prev, nxt, _ = tb._quantile_params(row.size, 99.0)
-    a, b, passes = radix_select(row, np.empty(0), prev, nxt)
+    a, b, path, reads = kernel_select(row, np.empty(0), prev, nxt)
     assert (a, b) == partition_pair(row, np.empty(0), prev, nxt)
-    assert passes <= 4
+    assert path == "cluster" and reads == 1
+
+
+@pytest.mark.parametrize("name", list(_edge_rows()))
+@pytest.mark.parametrize("p", [0.0, 50.0, 99.0, 100.0])
+def test_cluster_select_edge_rows(name, p):
+    row, seg = _edge_rows()[name]
+    prev, nxt, _ = tb._quantile_params(row.size + seg.size, p)
+    want = partition_pair(row, seg, prev, nxt)
+    for cluster, gather in _CLUSTER_SHAPES:
+        a, b, passes = cluster_select(row, seg, prev, nxt, cluster, WARPS,
+                                      gather)
+        assert (a, b) == want, (cluster, gather)
+        assert sum(passes) <= DIGITS
+
+
+def _sweep_row(dist: str) -> np.ndarray:
+    rng = np.random.default_rng(29)
+    n = 107487
+    if dist == "gamma":
+        return rng.gamma(2.0, 0.05, n)
+    if dist == "lognormal":
+        return rng.lognormal(-2.5, 0.8, n)
+    if dist == "ties":
+        return np.round(rng.gamma(2.0, 0.05, n), 2)
+    if dist == "FAR_FUTURE tail":
+        return np.concatenate([rng.gamma(2.0, 0.05, n - 1500),
+                               np.full(1500, FAR)])
+    return np.concatenate([rng.gamma(2.0, 0.05, n - 2000),
+                           np.full(2000, np.inf)])
+
+
+@pytest.mark.parametrize("dist", ["gamma", "lognormal", "ties",
+                                  "FAR_FUTURE tail", "inf tail"])
+@pytest.mark.parametrize("p", [50.0, 99.0])
+def test_sweep_rows_are_read_once(dist, p):
+    """Rows of the sweep's length take the cluster path whatever their
+    spread or ties: one read, a few passes over the cluster's shared
+    memory (a run of equal keys ends the passes), the rest in CTA 0."""
+    row = _sweep_row(dist)
+    prev, nxt, _ = tb._quantile_params(row.size, p)
+    a, b, path, reads = kernel_select(row, np.empty(0), prev, nxt)
+    assert (a, b) == partition_pair(row, np.empty(0), prev, nxt)
+    assert path == "cluster" and reads == 1
+    _, _, passes = cluster_select(row, np.empty(0), prev, nxt)
+    assert passes[0] <= 3 and sum(passes) <= 6, passes
+
+
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_rows_at_the_cluster_capacity(offset):
+    """k + m at the cluster's capacity -1, at it and +1: the segment
+    spans CTAs, k is no multiple of the cluster size; the last size
+    streams from device memory."""
+    rng = np.random.default_rng(31)
+    m = 5001
+    k = CLUSTER_CAP + offset - m
+    assert k % CLUSTER
+    row = rng.gamma(2.0, 0.05, k)
+    row[-3000:] = FAR
+    seg = rng.gamma(2.0, 0.05, m) + 0.2
+    for p in (50.0, 99.0, 100.0):
+        prev, nxt, _ = tb._quantile_params(k + m, p)
+        a, b, path, reads = kernel_select(row, seg, prev, nxt)
+        assert (a, b) == partition_pair(row, seg, prev, nxt), p
+        assert path == ("cluster" if offset <= 0 else "stream")
+        assert path == sim_select.path(k + m)
+        assert (reads == 1) if offset <= 0 else (2 <= reads <= DIGITS)
+
+
+@pytest.mark.parametrize("k,m", [(1, 0), (1, 300), (37, 2000), (4097, 0),
+                                 (255, 1025)])
+def test_cluster_select_splits_the_segment_across_ctas(k, m):
+    """Short rows and long segments: a warp's region may hold the row's
+    end and the segment's start, or the segment alone, or nothing."""
+    rng = np.random.default_rng(k + m)
+    row = rng.gamma(2.0, 0.05, k)
+    seg = np.round(rng.gamma(2.0, 0.05, m), 3)
+    for p in (0.0, 50.0, 99.0, 100.0):
+        prev, nxt, _ = tb._quantile_params(k + m, p)
+        want = partition_pair(row, seg, prev, nxt)
+        for cluster, gather in _CLUSTER_SHAPES:
+            assert cluster_select(row, seg, prev, nxt, cluster, WARPS,
+                                  gather)[:2] == want, (p, cluster, gather)
+
+
+def test_cluster_sizes_match_the_cuda_source():
+    """The emulation's and the wrapper's sizes are the kernel's."""
+    text = (Path(sim_select.__file__).parent / "csrc" /
+            "sim_select.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    assert (const("kCluster"), const("kWarps"), const("kRegionCap"),
+            const("kGather"), const("kWideBits")) == (
+                CLUSTER, WARPS, REGION_CAP, GATHER, WIDE_BITS)
+    assert (sim_select.CLUSTER, sim_select.CLUSTER_CAP) == (CLUSTER,
+                                                            CLUSTER_CAP)
+    assert sim_select.path(CLUSTER_CAP) == "cluster"
+    assert sim_select.path(CLUSTER_CAP + 1) == "stream"
 
 
 def test_order_keys_order_as_numpy_sorts():
@@ -211,6 +447,18 @@ def test_plain_select_puts_nan_last_as_numpy():
     assert all(_same(float(g), w) for g, w in zip(got, want))
     assert all(_same(g, w) for g, w in zip(
         radix_select(row, np.empty(0), 3, 4)[:2], want))
+
+
+def test_cluster_select_puts_nan_last_as_numpy():
+    rng = np.random.default_rng(5)
+    row = np.concatenate([rng.gamma(2.0, 0.05, 400), np.full(9, np.nan),
+                          [np.inf, 0.25, 0.25]])
+    for r0, r1 in ((3, 4), (400, 411), (402, 403), (411, 411)):
+        want = partition_pair(row, np.empty(0), r0, r1)
+        for cluster, gather in _CLUSTER_SHAPES:
+            got = cluster_select(row, np.empty(0), r0, r1, cluster, WARPS,
+                                 gather)[:2]
+            assert all(_same(g, w) for g, w in zip(got, want)), (r0, r1)
 
 
 # ---------------------------------------------------- latency rows, grids
