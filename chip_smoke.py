@@ -879,8 +879,9 @@ def check_mamba(gen: torch.Generator) -> None:
 
 
 # the scan's backward: (label, b, L, D, N, A's scale): the hybrid's
-# training chunk, then L 1, L off a segment of 256 / N steps, N 8 and 64,
-# D off a CTA of 64 channels, and a dt A far below exp's range
+# training chunk, then L 1, L off a segment of 16 steps, N 8 and 64, D off
+# a CTA of 64 channels, a dt A far below exp's range, eight rows of the
+# chunk, N 64 at its width, and D off a CTA of 32 channels (N 64)
 MAMBA_BWD_CASES = (
     ("training chunk", 1, 256, 16384, 16, 1.0),
     ("L=1", 3, 1, 16384, 16, 1.0),
@@ -889,6 +890,9 @@ MAMBA_BWD_CASES = (
     ("N=64", 2, 37, 1024, 64, 1.0),
     ("D off a CTA", 2, 70, 190, 16, 1.0),
     ("dt A << 0", 2, 64, 4096, 16, 1000.0),
+    ("B=8", 8, 256, 16384, 16, 1.0),
+    ("N=64 D=16384", 1, 64, 16384, 64, 1.0),
+    ("D off a CTA N=64", 2, 33, 48, 64, 1.0),
 )
 
 def scan_bwd_inputs(gen, b, length, d, n, dtype, a_scale=1.0) -> list:
@@ -948,14 +952,35 @@ def scan_bwd_work(b, length, d, n, dtype) -> tuple:
     return nbytes, b * length * d * n / ex2_rate() * 1e3
 
 
+def scan_bwd_plan_line(b, length, d, n, dtype) -> None:
+    """The backward's grid, residency, exponentials and workspace at
+    these sizes."""
+    grid, per_sm = ms_mod.bwd_launch_plan(dtype, b, length, d, n)
+    seg = ms_mod.BWD_SEGMENT
+    segs = -(-length // seg)
+    log(f"  mamba bwd plan B={b} L={length} D={d} N={n} "
+        f"{str(dtype)[6:]}: grid {grid} CTAs of "
+        f"{ms_mod.BWD_THREADS[n]} threads, {per_sm} CTAs "
+        f"({per_sm * ms_mod.BWD_THREADS[n] // 32} warps) an SM "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor); "
+        f"{((segs - 1) * seg + length) / length:.4f} exponentials a "
+        f"(b, t, d, n) (pass 1 over {(segs - 1) * seg} steps, the replay "
+        f"over {length}); workspace "
+        f"{4 * ms_mod.bwd_workspace_floats(b, length, d, n)} bytes; one "
+        f"dB/dC partial a CTA a step")
+
+
 def time_mamba_bwd(gen: torch.Generator) -> dict:
     """The scan backward's record at the hybrid's training chunk (B 1, L
     256, D 16384, N 16), f32: the kernel against its plain reverse
-    recurrence in turns, its bound, its device time a launch; the same
-    in bf16 beside it. No single PyTorch call computes it."""
+    recurrence in turns, its bound, its device time a launch of each of
+    its kernels; the same in bf16 beside it, and the kernel at eight
+    rows of the chunk. No single PyTorch call computes it."""
     name, b, length, d, n, _ = MAMBA_BWD_CASES[0]
     record = None
+    spin = torch.cuda.Stream()   # the traces' prelude (cuda_events)
     for dtype in (torch.float32, torch.bfloat16):
+        scan_bwd_plan_line(b, length, d, n, dtype)
         args = scan_bwd_inputs(gen, b, length, d, n, dtype)
         errs = [float((g.float() - e.float()).abs().max()) for g, e in zip(
             ms_mod._launch_bwd(*args), ref.mamba_scan_bwd_ref(*args))]
@@ -979,10 +1004,25 @@ def time_mamba_bwd(gen: torch.Generator) -> dict:
                 "plain_ms": ms[1], "bound_ms": max(bytes_ms, ex2_ms),
                 "bound_by": "bytes" if bytes_ms >= ex2_ms else "operations",
                 "library_ms": None}
-            report_trace(f"mamba bwd at the {name}",
-                         cuda_events(lambda: ms_mod._launch_bwd(*args),
-                                     calls=10), ms[0], calls=10)
+        report_trace(f"mamba bwd at the {name} {str(dtype)[6:]}",
+                     cuda_events(lambda: ms_mod._launch_bwd(*args), calls=10,
+                                 prelude=spin), ms[0], calls=10)
         del args
+    # eight rows of the chunk: the kernel alone (its plain version is in
+    # check_mamba_bwd), f32
+    b8 = 8
+    scan_bwd_plan_line(b8, length, d, n, torch.float32)
+    args = scan_bwd_inputs(gen, b8, length, d, n, torch.float32)
+    ms8 = time_ms(lambda: ms_mod._launch_bwd(*args), iters=20, warmup=3)
+    nbytes, ex2_ms = scan_bwd_work(b8, length, d, n, torch.float32)
+    bytes_ms = nbytes / H100_HBM_BW * 1e3
+    log(f"  mamba bwd at B={b8} L={length} D={d} N={n} float32: kernel "
+        f"{ms8:.4f} ms ({ms8 / b8:.4f} ms a row, the training chunk's "
+        f"{record['ms']:.4f}), bound {max(bytes_ms, ex2_ms):.6f} ms")
+    report_trace(f"mamba bwd at B={b8}",
+                 cuda_events(lambda: ms_mod._launch_bwd(*args), calls=5,
+                             prelude=spin), ms8, calls=5)
+    del args
     return record
 
 

@@ -72,6 +72,9 @@ SIGNATURES = {
                         _P, _P, _I, _I, _I, _I, _I, _P), _I),
     # (batch, len, d, n, long long *floats) -> cudaError_t
     "mamba_scan_bwd_workspace": ((_I, _I, _I, _I, ctypes.POINTER(_L)), _I),
+    # (dtype, batch, len, d, n, int *grid, int *ctas_per_sm) -> cudaError_t
+    "mamba_scan_bwd_plan": ((_I, _I, _I, _I, _I, ctypes.POINTER(_I),
+                             ctypes.POINTER(_I)), _I),
     # (ready, k, luts, lut_stride, eff, timeout, pools, pool_cap, lanes,
     #  out, batches, n_batches, base_last, arrivals, rpc, stream)
     #  -> cudaError_t

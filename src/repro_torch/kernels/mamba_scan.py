@@ -14,6 +14,12 @@ With grad enabled and an input that requires it, the call is
 launches the backward kernel, which rebuilds the states from ``h0``.
 Otherwise the call launches the forward alone, as a served CUDA graph
 captures it.
+
+The backward takes a workspace of float32 from the allocator each call:
+the states entering its segments of 16 steps (a checkpoint a segment but
+the first and last, rebuilt forwards from ``h0`` with the forward's own
+arithmetic, so each is the state the forward carried), one dB/dC
+partial a CTA a step, and at batch > 1 dA's partial a batch row.
 """
 
 from __future__ import annotations
@@ -27,9 +33,13 @@ from repro_torch.kernels import _build, ref
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = (8, 16, 32, 64)     # N: one register array per thread
+# threads of a backward CTA by N (csrc/mamba_scan_bwd.cu, BwdShape): four
+# states a lane, 64 channels a CTA (32 at N 64); steps of its segments
+BWD_THREADS = {8: 128, 16: 256, 32: 512, 64: 512}
+BWD_SEGMENT = 16
 
 counter = _build.LaunchCounter()       # forward launches
-bwd_counter = _build.LaunchCounter()   # backward launches (3 kernels each)
+bwd_counter = _build.LaunchCounter()   # backward launches (2-3 kernels each)
 
 
 def mamba_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
@@ -151,11 +161,11 @@ def _launch_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"mamba_scan backward: dy {tuple(dy.shape)} and dh "
                          f"{tuple(dh.shape)} do not match the forward's "
                          f"y {tuple(dt.shape)} and h {tuple(h0.shape)}")
-    a32 = a.to(torch.float32).contiguous()
-    floats = ctypes.c_longlong(0)
-    _build.check(_build.entry("mamba_scan_bwd_workspace")(
-        bsz, length, d, n, ctypes.byref(floats)), "mamba_scan_bwd_workspace")
-    work = torch.empty(floats.value, dtype=torch.float32, device=dt.device)
+    # the kernel stages B, C and the entering states with 16-byte copies
+    b, c, h0, dh = (_aligned(t) for t in (b, c, h0, dh))
+    a32 = _aligned(a.to(torch.float32).contiguous())
+    work = torch.empty(bwd_workspace_floats(bsz, length, d, n),
+                       dtype=torch.float32, device=dt.device)
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     da, dh0 = torch.empty_like(a32), torch.empty_like(h0)
@@ -169,6 +179,32 @@ def _launch_bwd(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
         _build.check(rc, "mamba_scan backward")
     bwd_counter.add()
     return ddt, dx, db, dc, da.to(a.dtype), dh0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data is not 16-byte aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def bwd_workspace_floats(b: int, length: int, d: int, n: int) -> int:
+    """Floats of the workspace a backward call with these sizes takes."""
+    floats = ctypes.c_longlong(0)
+    _build.check(_build.entry("mamba_scan_bwd_workspace")(
+        b, length, d, n, ctypes.byref(floats)), "mamba_scan_bwd_workspace")
+    return floats.value
+
+
+def bwd_launch_plan(dtype: torch.dtype, b: int, length: int, d: int,
+                    n: int) -> Tuple[int, int]:
+    """(CTAs of the grid, CTAs one SM holds at once) of the backward's
+    main kernel for these sizes
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); a CTA is
+    ``BWD_THREADS[n]`` threads."""
+    grid, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.entry("mamba_scan_bwd_plan")(
+        KERNEL_DTYPES[dtype], b, length, d, n, ctypes.byref(grid),
+        ctypes.byref(per_sm)), "mamba_scan_bwd_plan")
+    return grid.value, per_sm.value
 
 
 def launch_plan(dtype: torch.dtype, b: int, length: int, d: int,

@@ -587,8 +587,9 @@ def test_mamba_scan_kernel_rejects_what_it_does_not_take(gen):
 
 
 # the backward: the hybrid's training chunk (B 1, L 256, D 16384, N 16),
-# then L 1, L off a segment of 256 / N steps, every N, D off a CTA of 64
-# channels, batch rows, a dt A far below exp's range
+# then L 1, L off a segment, every N, D off a CTA, batch rows, a dt A far
+# below exp's range; then eight rows of the chunk, N 64 at its width, and
+# D off a CTA of 64 channels (N 8, 16) and of 32 (N 64)
 SCAN_BWD_CASES = [
     (1, 256, 16384, 16, 1.0),
     (3, 1, 192, 16, 1.0),
@@ -599,6 +600,11 @@ SCAN_BWD_CASES = [
     (2, 64, 190, 16, 1.0),
     (1, 33, 200, 64, 1.0),
     (2, 50, 192, 16, 1000.0),
+    (8, 256, 16384, 16, 1.0),
+    (1, 64, 16384, 64, 1.0),
+    (2, 40, 100, 16, 1.0),
+    (2, 50, 72, 8, 1.0),
+    (2, 33, 48, 64, 1.0),
 ]
 BWD_REL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
 
@@ -648,6 +654,32 @@ def test_mamba_scan_backward_kernel_is_deterministic(gen, dtype):
     torch.cuda.synchronize()
     for a, c in zip(first, second):
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_backward_takes_rows_off_16_bytes(gen, dtype):
+    """dt, x, dy, b and c that start one element past a 16-byte boundary:
+    the rows take 4-byte copies (a bf16 pair off 4 bytes two plain
+    loads), b and c are copied aligned, and the gradients agree with the
+    plain version."""
+    args = _scan_bwd_inputs(gen, 2, 40, 256, 16, dtype)
+    for i in (0, 1, 2, 3, 6):
+        buf = torch.empty(args[i].numel() + 1, dtype=dtype, device="cuda")
+        args[i] = buf[1:].view(args[i].shape).copy_(args[i])
+        assert args[i].is_contiguous() and args[i].data_ptr() % 16
+    got = ms_mod._launch_bwd(*args)
+    _assert_rel(got, ref.mamba_scan_bwd_ref(*args), BWD_REL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_backward_launch_plan_fills_the_card(gen, dtype):
+    """At the training chunk the backward's main kernel holds at least 16
+    warps an SM (four lanes a channel), in one wave of 256 CTAs."""
+    grid, per_sm = ms_mod.bwd_launch_plan(dtype, 1, 256, 16384, 16)
+    assert grid == 16384 // 64
+    assert per_sm * ms_mod.BWD_THREADS[16] // 32 >= 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert grid <= per_sm * sms
 
 
 def test_mamba_scan_backward_rejects_what_it_does_not_take(gen):

@@ -1,5 +1,6 @@
-"""The port stands alone: ``src/repro_torch`` and ``chip_smoke.py``
-import neither JAX nor anything of the JAX package, import ``triton``
+"""The port stands alone: ``src/repro_torch``, ``chip_smoke.py`` and
+the port's measuring scripts under ``tools/`` import neither JAX nor
+anything of the JAX package, import ``triton``
 only inside functions, and ``chip_smoke.py`` refuses to report a result
 without a GPU or without the rest of the repository."""
 
@@ -16,7 +17,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 

@@ -9,9 +9,11 @@ against the JAX reference.
 - ``mamba_scan`` under grad (``MambaScan``) on the CPU: its gradients
   are the plain backward's, and two chained calls give one call's;
 - the backward kernel's arithmetic and reductions
-  (``csrc/mamba_scan_bwd.cu``) emulated in torch: its ex2.approx
-  exponentials, its checkpointed segments and the butterfly that sums
-  dB and dC over a warp's lanes;
+  (``csrc/mamba_scan_bwd.cu``) emulated in numpy: its ex2.approx
+  exponentials, its checkpointed segments of 16 steps, the four states a
+  lane in its lane's order, the shuffle trees over a channel's lanes and
+  the butterfly that sums dB and dC over a warp's channels, the warps in
+  order and the reduce over the CTAs;
 - the Mamba block's gradients against ``jax.grad`` of the reference's
   ``mamba_block`` over two chunks, and the Jamba smoke model's against
   ``jax.grad`` of the reference's model with either of its two scans.
@@ -191,113 +193,205 @@ def test_two_chained_calls_give_one_calls_gradients():
 # to twice that, as tests/test_torch_mamba.py does for the forward
 EX2_REL_ERR = 2.0 ** -21
 LANES = 32
+SEG = 16             # steps of a segment
+SUM_THREADS = 512    # threads of the dB/dC reduce, a row a CTA
 
 
-def _butterfly(vals):
-    """The kernel's ``butterfly`` and write-out of one step, over
-    (..., 32 lanes, V values): the stages for lane offsets 16 .. 1 while
-    more than one value is left, then, for V = 16, the add across bit 0.
-    Returns the (..., V) partial the warp writes, by value index."""
-    v = vals.copy()
+def _bwd_shape(n):
+    """(lanes a channel G, channels a warp W, channels a CTA, warps a
+    CTA) of the kernel's BwdShape: four states a lane, 16 N threads a CTA
+    up to 512."""
+    g = n // 4
+    threads = 16 * n if n <= 16 else 512
+    return g, LANES // g, threads // g, threads // LANES
+
+
+def _lane_order(n):
+    """The state each lane's position i holds, (32, 4): 4j + (i ^ m),
+    with j the lane's place in its channel's group and m from the lane
+    bits of the butterfly's state stages (offsets 16 and 8)."""
+    g, w = n // 4, LANES // (n // 4)
     lanes = np.arange(LANES)
-    m, o = v.shape[-1], 16
-    while m > 1 and o > 0:
-        h = m // 2
-        upper = ((lanes & o) != 0)[:, None]
-        send = np.where(upper, v[..., :h], v[..., h:m])
-        keep = np.where(upper, v[..., h:m], v[..., :h])
-        v[..., :h] = keep + send[..., lanes ^ o, :]
-        m, o = h, o // 2
-    out = np.zeros(vals.shape[:-2] + (vals.shape[-1],), np.float32)
-    if vals.shape[-1] < LANES:
-        v0 = v[..., 0] + v[..., lanes ^ 1, 0]
-        even = lanes[lanes % 2 == 0]
-        out[..., even >> 1] = v0[..., even]
-    else:
-        r = vals.shape[-1] // LANES
-        for j in range(r):
-            out[..., lanes * r + j] = v[..., j]
+    m = np.zeros(LANES, np.int64)
+    if w >= 2:
+        m |= ((lanes >> 4) & 1) << 1
+    if w >= 4:
+        m |= (lanes >> 3) & 1
+    return 4 * (lanes % g)[:, None] + (np.arange(4)[None, :] ^ m[:, None])
+
+
+def _butterfly(vals, n):
+    """The kernel's butterfly and write-out of one step over (..., 32
+    lanes, 8 positions), position 2i + k holding dB (k 0) or dC (k 1) of
+    the lane's state ``_lane_order(n)[lane, i]``: the stages at lane
+    offsets 16 and 8 add the partner's upper half to the lower half (the
+    states' order makes the halves match), the stage at 4 keeps dB on the
+    lower lanes and dC on the upper, the stage at 2 (N 8) adds. Returns
+    the (..., 2N) partial the warp leaves in shared memory, dB then dC."""
+    g, w = n // 4, LANES // (n // 4)
+    fly = int(np.log2(w))
+    v = vals.astype(np.float32).copy()
+    lanes = np.arange(LANES)
+    if fly >= 1:
+        v[..., :4] = v[..., :4] + v[..., lanes ^ 16, 4:8]
+    if fly >= 2:
+        v[..., :2] = v[..., :2] + v[..., lanes ^ 8, 2:4]
+    if fly >= 3:
+        up = (lanes & 4) != 0
+        keep = np.where(up, v[..., 1], v[..., 0])
+        send = np.where(up, v[..., 0], v[..., 1])
+        v[..., 0] = keep + send[..., lanes ^ 4]
+    if fly >= 4:
+        v[..., 0] = v[..., 0] + v[..., lanes ^ 2, 0]
+    order = _lane_order(n)
+    out = np.zeros(vals.shape[:-2] + (2 * n,), np.float32)
+    for lane in range(LANES):
+        ob = order[lane, 0]
+        if fly >= 3:
+            if fly == 3 or not lane & 2:
+                out[..., ((lane >> 2) & 1) * n + ob] = v[..., lane, 0]
+        else:
+            for e in range(8 >> min(fly, 2)):
+                out[..., (e & 1) * n + (ob ^ (e >> 1))] = v[..., lane, e]
     return out
 
 
+def _tree(v, axis):
+    """Sum over ``axis`` (a power of two long) as the shuffle stages
+    take it: the upper half onto the lower, then again."""
+    v = np.moveaxis(v, axis, 0)
+    while v.shape[0] > 1:
+        h = v.shape[0] // 2
+        v = v[:h] + v[h:]
+    return v[0]
+
+
 def _bwd_kernel_arithmetic(dt, x, b, c, a, h0, dy, dh, seed):
-    """``csrc/mamba_scan_bwd.cu`` in f32 numpy: channels padded to CTAs of
-    64 (the dead ones zero), the states rebuilt forwards from h0 with
-    a_t = exp2(dt A log2 e) each off by up to 2 EX2_REL_ERR, segments of
-    256 / N steps replayed from their entering state, each step's dB and
-    dC terms summed over a warp by the butterfly and the warps' partials
-    in warp order, ddt and dx from the channel's own sums, dA summed over
-    t in the thread and over the batch in order."""
+    """``csrc/mamba_scan_bwd.cu`` in f32 numpy. Channels padded to CTAs
+    (64, 32 at N 64) and steps to segments of 16, the pads zero; a_t =
+    exp2(dt A log2 e) each off by up to 2 EX2_REL_ERR (the same value in
+    pass 1 and in the replay, as the same instruction gives); pass 1 keeps
+    the state entering each segment, pass 2 replays each from it and
+    walks it back. A lane holds four states of a channel in its order:
+    ddt and dx sum them in that order, then over the channel's lanes by
+    the shuffle tree; dB and dC go through the butterfly, over the warps
+    in order, then the reduce's strided runs over the CTAs and its tree;
+    dA sums over t in the lane and over the batch in order."""
     rng = np.random.default_rng(seed)
     f = [t.float().numpy().astype(np.float32) for t in
          (dt, x, b, c, a, h0, dy, dh)]
     dtf, xf, bf, cf, af, h0f, dyf, dhf = f
     bsz, length, d = dtf.shape
     n = af.shape[1]
-    dp = -(-d // 64) * 64
-    pad = lambda t, axis: np.concatenate(  # noqa: E731
-        [t, np.zeros(t.shape[:axis] + (dp - d,) + t.shape[axis + 1:],
-                     np.float32)], axis=axis)
-    dtf, xf, dyf = (pad(t, 2) for t in (dtf, xf, dyf))
-    af, h0f, dhf = pad(af, 0), pad(h0f, 1), pad(dhf, 1)
+    g, w, cpc, warps = _bwd_shape(n)
+    ctas = -(-d // cpc)
+    dp = ctas * cpc
+    segs = -(-length // SEG)
+    lp = segs * SEG
+
+    def pad(t, axis, size):
+        shape = list(t.shape)
+        shape[axis] = size - t.shape[axis]
+        return np.concatenate([t, np.zeros(shape, np.float32)], axis=axis)
+
+    dtf, xf, dyf = (pad(pad(t, 2, dp), 1, lp) for t in (dtf, xf, dyf))
+    bf, cf = pad(bf, 1, lp), pad(cf, 1, lp)
+    af, h0f, dhf = pad(af, 0, dp), pad(h0f, 1, dp), pad(dhf, 1, dp)
     a2 = (af * np.float32(1.4426950408889634)).astype(np.float32)
     a_bar = np.exp2(dtf[..., None] * a2).astype(np.float32)
     a_bar *= 1 + (rng.random(a_bar.shape, dtype=np.float32) * 2 - 1) \
         * np.float32(EX2_REL_ERR)
-    k_seg = 256 // n
+    a_bar[:, length:] = 1        # the padded steps take no exponential
+    bx = dtf * xf
+
+    def step(h, t):
+        return a_bar[:, t] * h + bx[:, t, :, None] * bf[:, t, None, :]
+
     # pass 1: the state entering each segment
-    h = h0f.copy()
-    ckpt = []
-    for t in range(length):
-        if t % k_seg == 0:
-            ckpt.append(h.copy())
-        h = a_bar[:, t] * h + (dtf[:, t] * xf[:, t])[..., None] \
-            * bf[:, t, None, :]
-    # pass 2
+    ckpt, h = [h0f], h0f
+    for t in range((segs - 1) * SEG):
+        h = step(h, t)
+        if (t + 1) % SEG == 0:
+            ckpt.append(h)
+    # each channel's lanes: lane cw G + j of its warp, states in its order
+    order = _lane_order(n)                                  # (32, 4)
+    chan = np.arange(dp)
+    lane_of = ((chan % cpc) % w)[:, None] * g + np.arange(g)[None, :]
+    states = order[lane_of]                                 # (dp, G, 4)
+    warp_chan = np.arange(ctas * warps)[:, None] * w + np.arange(LANES) // g
     r, da = dhf.copy(), np.zeros((bsz, dp, n), np.float32)
     ddt, dx = np.zeros_like(dtf), np.zeros_like(xf)
-    db, dc = np.zeros_like(bf), np.zeros_like(cf)
-    for s in reversed(range(len(ckpt))):
-        t0, t1 = s * k_seg, min(length, (s + 1) * k_seg)
-        hs, h = [], ckpt[s].copy()
-        for t in range(t0, t1):
-            hs.append(h)
-            h = a_bar[:, t] * h + (dtf[:, t] * xf[:, t])[..., None] \
-                * bf[:, t, None, :]
-        for t in reversed(range(t0, t1)):
-            hp, bx = hs[t - t0], dtf[:, t] * xf[:, t]
-            ht = a_bar[:, t] * hp + bx[..., None] * bf[:, t, None, :]
-            g = dyf[:, t, :, None] * cf[:, t, None, :] + r
-            vals = np.concatenate([g * bx[..., None],
-                                   dyf[:, t, :, None] * ht], axis=-1)
-            parts = _butterfly(vals.reshape(bsz, dp // LANES, LANES, 2 * n))
-            sums = np.zeros((bsz, 2 * n), np.float32)
-            for w in range(dp // LANES):
-                sums += parts[:, w]
-            db[:, t], dc[:, t] = sums[:, :n], sums[:, n:]
-            dbx = (g * bf[:, t, None, :]).sum(-1)
-            ga = g * hp * a_bar[:, t]
-            ddt[:, t] = dbx * xf[:, t] + (ga * af).sum(-1)
-            dx[:, t] = dbx * dtf[:, t]
+    part = np.zeros((bsz, lp, ctas, 2 * n), np.float32)
+    for s in reversed(range(segs)):
+        hs = [ckpt[s]]
+        for t in range(s * SEG, (s + 1) * SEG):
+            hs.append(step(hs[-1], t))
+        for k in reversed(range(SEG)):
+            t = s * SEG + k
+            hp, ht = hs[k], hs[k + 1]
+            gt = dyf[:, t, :, None] * cf[:, t, None, :] + r
+            vb, vc = gt * bx[:, t, :, None], dyf[:, t, :, None] * ht
+            r = a_bar[:, t] * gt
+            ga = r * hp
             da += ga * dtf[:, t, :, None]
-            r = a_bar[:, t] * g
-    da_sum = np.zeros((dp, n), np.float32)
-    for i in range(bsz):
-        da_sum += da[i]
-    out = (ddt[..., :d], dx[..., :d], db, dc, da_sum[:d], r[:, :d])
+            # the lane's sums over its states, in its order
+            lg = gt[:, chan[:, None, None], states]          # (B, dp, G, 4)
+            lb = np.broadcast_to(bf[:, t][:, states], lg.shape)
+            lga = ga[:, chan[:, None, None], states]
+            la = af[chan[:, None, None], states]
+            dbx = np.zeros(lg.shape[:-1], np.float32)
+            dsum = np.zeros_like(dbx)
+            for i in range(4):
+                dbx = lg[..., i] * lb[..., i] + dbx
+                dsum = lga[..., i] * la[..., i] + dsum
+            ddt[:, t] = _tree(dbx * xf[:, t, :, None] + dsum, 2)
+            dx[:, t] = _tree(dbx * dtf[:, t, :, None], 2)
+            # dB and dC: the butterfly in each warp, the warps in order
+            pos = np.empty((bsz, ctas * warps, LANES, 8), np.float32)
+            pos[..., 0::2] = vb[:, warp_chan[:, :, None], order[None]]
+            pos[..., 1::2] = vc[:, warp_chan[:, :, None], order[None]]
+            sums = _butterfly(pos, n).reshape(bsz, ctas, warps, 2 * n)
+            acc = np.zeros((bsz, ctas, 2 * n), np.float32)
+            for wi in range(warps):
+                acc = acc + sums[:, :, wi]
+            part[:, t] = acc
+    # the reduce: a row's CTAs in strided runs, then a tree over the runs
+    runs = SUM_THREADS // (2 * n)
+    run = np.zeros((bsz, lp, runs, 2 * n), np.float32)
+    for q in range(runs):
+        for i in range(q, ctas, runs):
+            run[:, :, q] = run[:, :, q] + part[:, :, i]
+    sums = _tree(run, 2)[:, :length]
+    db, dc = sums[..., :n], sums[..., n:]
+    da_sum = da[0]
+    if bsz > 1:
+        da_sum = np.zeros((dp, n), np.float32)
+        for i in range(bsz):
+            da_sum = da_sum + da[i]
+    out = (ddt[:, :length, :d], dx[:, :length, :d], db, dc, da_sum[:d],
+           r[:, :d])
     return tuple(torch.from_numpy(np.ascontiguousarray(o)).to(t.dtype)
                  for o, t in zip(out, (dt, x, b, c, a, h0)))
 
 
 @pytest.mark.parametrize("vals", [16, 32, 64, 128])
 def test_butterfly_leaves_each_warp_sum_at_its_index(vals):
-    """The lane -> value index of the kernel's write-out: lane l writes
-    value l V/32 + j for V >= 32, and value l/2 from the even lanes for
-    V = 16; each written value is the sum over the 32 lanes."""
-    x = np.random.default_rng(35).standard_normal(
-        (3, LANES, vals)).astype(np.float32)
-    np.testing.assert_allclose(_butterfly(x), x.sum(axis=1), rtol=1e-5,
-                               atol=1e-5)
+    """The butterfly and write-out for N = vals / 2: each lane's dB and
+    dC terms placed in its state order, every written value is the sum
+    over the warp's channels of the value at its index (dB then dC),
+    and every index is written."""
+    n = vals // 2
+    g, w = n // 4, LANES // (n // 4)
+    terms = np.random.default_rng(35).standard_normal(
+        (3, w, 2, n)).astype(np.float32)                # (.., chan, k, n)
+    order = _lane_order(n)
+    lanes = np.arange(LANES)
+    pos = np.empty((3, LANES, 8), np.float32)
+    for k in range(2):
+        pos[..., k::2] = terms[:, (lanes // g)[:, None], k, order]
+    got = _butterfly(pos, n)
+    np.testing.assert_allclose(got, terms.sum(axis=1).reshape(3, vals),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("b,s,d,n,inputs", [
@@ -307,13 +401,17 @@ def test_butterfly_leaves_each_warp_sum_at_its_index(vals):
     (2, 70, 96, 8, "sweep"),
     (1, 19, 64, 64, "sweep"),
     (2, 1, 40, 32, "sweep"),
+    (2, 40, 72, 8, "sweep"),       # N 8: two lanes a channel, D off 64
+    (1, 33, 48, 64, "sweep"),      # N 64: 16 lanes a channel, D off 32
+    (3, 16, 130, 32, "sweep"),     # one whole segment, D off 64
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bwd_kernel_arithmetic_meets_the_bar(b, s, d, n, inputs, dtype):
-    """Why the kernel may take ex2.approx, replay checkpointed segments
-    and sum dB and dC by a butterfly then in warp order: with every a_t
-    off by twice its documented error, its gradients stay within the
-    card's bars of the plain reverse recurrence."""
+    """Why the kernel may take ex2.approx, replay checkpointed segments,
+    sum a channel's states over its lanes and dB and dC by a butterfly,
+    the warps in order and the CTAs in runs: with every a_t off by twice
+    its documented error, its gradients stay within the card's bars of
+    the plain reverse recurrence."""
     arrays = _inputs(36, b, s, d, n)
     if inputs == "hybrid":
         # layers.init_mamba: A = -exp(log(1..N)), dt = softplus(0.1 x - 2)
