@@ -361,7 +361,20 @@ PAR_MESHES = ((1, 4), (2, 2))
 PAR_FWD = (8, 32)               # the forward's batch x tokens
 PAR_STEPS, PAR_WHOLE_STEPS = 16, 32
 PAR_REL = 1e-4                  # max |dlogit| / max |logit|
-PAR_JOIN_S = 600
+PAR_JOIN_S = 900
+# phase 11 (f)-(i), the two models no card holds, over the same meshes:
+# (f) deepseek-v3-671b cut as phase 8 (b) cuts it (its first dense layer
+# and one MoE layer, MTP's module, f32) and (g) jamba-1.5-large-398b with
+# its experts, its period's blocks [3:5] (a Mamba layer with its MoE, the
+# attention layer with its dense FFN), f32, each against one card, with
+# rank 0's weights broadcast a leaf at a time; (h) deepseek-v3-671b at
+# the most layers four cards hold, bf16 (the dry-run's serving policy):
+# 3 dense + 9 MoE layers, 107,169,357,824 parameters, 54.44 GB of shards
+# a card; (i) one whole period of Jamba, its 4 MoE layers, f32:
+# 45,120,667,648 parameters, 45.12 GB of shards a card
+PAR_DEEPSEEK_CUT = (1, 1)       # dense, MoE layers
+PAR_HYBRID_BLOCKS = (3, 5)
+PAR_DEEPSEEK_WHOLE = (3, 9)
 # phase 10: llama3.2-1b trained at published width, f32 (the reference's
 # dtype), remat on as the dry-run sets it for every train shape
 # (src/repro/launch/shapes.py:124-127); train_4k's sequence length with
@@ -2993,6 +3006,17 @@ def family_stages() -> dict:
     return total
 
 
+def deepseek_cut(dense: int, moe: int):
+    """deepseek-v3-671b with ``dense`` dense layers and ``moe`` MoE
+    layers, widths, experts and MTP as published."""
+    full = get_arch(DEEPSEEK)
+    d, m = full.segments
+    return dataclasses.replace(
+        full, name=f"{full.name}-{dense}+{moe}L",
+        segments=(dataclasses.replace(d, repeat=dense),
+                  dataclasses.replace(m, repeat=moe)))
+
+
 def deepseek_two_layers() -> dict:
     """Phase 8 (b): deepseek-v3-671b cut to its first dense layer and one
     MoE layer, widths, experts and MTP unchanged. The forward with its
@@ -3001,11 +3025,7 @@ def deepseek_two_layers() -> dict:
     check (prefill through the flash kernel at D 192 / Dv 128, the
     absorbed decode). Returns its launches."""
     full = get_arch(DEEPSEEK)
-    dense, moe = full.segments
-    cfg = dataclasses.replace(
-        full, name=f"{full.name}-2L",
-        segments=(dataclasses.replace(dense, repeat=1),
-                  dataclasses.replace(moe, repeat=1)))
+    cfg = deepseek_cut(1, 1)
     log(f"  reduced: {full.num_layers} layers -> 2 (one dense, one MoE); "
         f"widths, 256 experts, top-8, shared expert and MTP as published")
     torch.cuda.reset_peak_memory_stats()
@@ -3990,17 +4010,65 @@ def _p11_rel(got: torch.Tensor, exp: torch.Tensor) -> float:
     return float((got - exp).abs().max() / exp.abs().max())
 
 
-def _p11_against_one_card(rank: int, cfg, meshes) -> dict:
-    """(a), (b): the same seeded weights, drawn on every card; rank 0
-    runs the plain model on its card, then every mesh of ``meshes``
-    runs the sharded one. Returns rank 0's errors and token agreement,
-    and this rank's launches over the sharded runs."""
+def _p11_dev(rank: int) -> torch.device:
+    return torch.device("cuda", rank)
+
+
+def _p11_draw(cfg, dev):
+    """The seeded full weights every part compares against one card."""
+    return build_model(cfg, dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+
+
+def _p11_scatter(model, cfg, rank: int, dev):
+    """This rank's shards of rank 0's seeded full weights, for a model
+    that one card holds but not one card and its shards: rank 0 draws
+    the tree and broadcasts it a leaf at a time (each rank keeps its
+    slice of the leaf, and the full leaf is dropped), so no card holds
+    the tree beside its shards."""
+    import torch.distributed as dist
+    from repro_torch.models.parallel import _map2
+    from repro_torch.models.sharding import execution_view, local_slices
+    names = model.mesh.mesh_dim_names
+    coords = dict(zip(names, model.mesh.get_coordinate()))
+    metas, specs = [], []
+    _map2(lambda leaf, spec: (metas.append(leaf), specs.append(spec)),
+          model.full, model.specs)
+    src = []
+    if rank == 0:
+        _map2(lambda leaf, spec: src.append(leaf),
+              execution_view(_p11_draw(cfg, dev)), model.specs)
+    local = []
+    for i, (meta, spec) in enumerate(zip(metas, specs)):
+        if rank == 0:
+            t, src[i] = src[i].contiguous(), None
+        else:
+            t = torch.empty(meta.shape, dtype=meta.dtype, device=dev)
+        dist.broadcast(t, 0)
+        # a copy: a slice's view would keep the whole leaf alive
+        local.append(t[local_slices(t.shape, spec, model.mesh,
+                                    coords)].clone(
+                                        memory_format=torch.contiguous_format))
+        del t
+    shards = iter(local)
+    return _map2(lambda leaf, spec: next(shards), model.full, model.specs)
+
+
+def _p11_against_one_card(rank: int, cfg, meshes,
+                          scatter: bool = False) -> dict:
+    """(a), (b), (e): the same seeded weights, drawn on every card; rank
+    0 runs the plain model on its card, then every mesh of ``meshes``
+    runs the sharded one. With ``scatter`` ((f), (g): a model whose full
+    tree and shards do not fit one card together) only rank 0 draws
+    them, and each mesh's shards come from :func:`_p11_scatter`. Returns
+    rank 0's errors and token agreement, and this rank's launches over
+    the sharded runs."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.parallel import (ShardedModel, shard_batch,
                                              shard_params)
-    dev = torch.device("cuda", rank)
-    full = build_model(cfg, dev).init(
-        torch.Generator(device=dev).manual_seed(0))
+    dev = _p11_dev(rank)
+    t_part = time.perf_counter()
+    full = _p11_draw(cfg, dev) if rank == 0 or not scatter else None
     rng = np.random.default_rng(11)
     fwd = torch.from_numpy(rng.integers(0, cfg.vocab_size, PAR_FWD)).to(dev)
     prompt = torch.from_numpy(rng.integers(
@@ -4012,13 +4080,21 @@ def _p11_against_one_card(rank: int, cfg, meshes) -> dict:
             ref_fwd, _ = plain.forward(full, {"tokens": fwd})
             ref_steps, ref_toks, _, _ = _p11_greedy(plain, full, prompt,
                                                     PAR_STEPS)
+        if scatter:
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
         torch.distributed.barrier()
         total = dict.fromkeys(COUNTERS, 0)
         for shape in meshes:
             mesh = make_mesh(*shape)
             model = ShardedModel(cfg, mesh, dev)
             par = model.par
-            local = shard_params(full, mesh)
+            local = _p11_scatter(model, cfg, rank, dev) if scatter else \
+                shard_params(full, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
             reset_counts()
             logits, _ = model.forward(local, shard_batch({"tokens": fwd},
                                                          mesh))
@@ -4034,28 +4110,39 @@ def _p11_against_one_card(rank: int, cfg, meshes) -> dict:
                     "steps_rel": _p11_rel(steps, ref_steps),
                     "tokens_equal": int((toks == ref_toks).sum()),
                     "tokens": toks.numel(),
+                    "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
                     "collectives": {f"{k}/{n}": c for (k, n), (c, _)
                                     in par.stats.by_kind.items()}}
             del local, model, steps, logits
             torch.distributed.barrier()
     out["launches"] = total
+    out["s"] = time.perf_counter() - t_part
     return out
 
 
-def _p11_whole(rank: int) -> dict:
-    """(c): qwen2-72b, 80 layers at full width, bf16 params and compute
-    (the dry-run's serving policy), on the (1, 4) mesh, each card's
-    shards drawn from its own seeded generator: prefill DECODE_BATCH x
-    PROMPT into SMAX slots (a cold call, then a timed one), then
-    PAR_WHOLE_STEPS greedy steps; launches checked per rank; one more
-    step traced on rank 0."""
+def _covered_ms(spans) -> float:
+    """The time, in ms, that the union of ``spans`` ((start, end) in
+    us) covers: kernels that overlap count once."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def _p11_whole(rank: int, cfg) -> dict:
+    """(c), (h), (i): ``cfg`` at full width on the (1, 4) mesh, each
+    card's shards drawn from its own seeded generator: prefill
+    DECODE_BATCH x PROMPT into SMAX slots (a cold call, then a timed
+    one), then PAR_WHOLE_STEPS greedy steps; launches checked per rank;
+    one more step traced on rank 0."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.shapes import SHAPES, dryrun_config
     from repro_torch.models.parallel import ShardedModel
-    dev = torch.device("cuda", rank)
-    cfg, _ = dryrun_config(get_arch("qwen2-72b"), SHAPES["prefill_32k"], 1)
+    dev = _p11_dev(rank)
+    t_part = time.perf_counter()
     mesh = make_mesh(1, PAR_CARDS)
     model = ShardedModel(cfg, mesh, dev)
     t0 = time.perf_counter()
@@ -4107,12 +4194,15 @@ def _p11_whole(rank: int) -> dict:
                 wall = (time.perf_counter() - t0) * 1e3
             kern = [e for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(e.self_device_time_total for e in kern) / 1e3
-            nccl = sum(e.self_device_time_total for e in kern
-                       if "nccl" in e.key.lower()) / 1e3
+            spans = [(e.time_range.start, e.time_range.end,
+                      "nccl" in e.name.lower()) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
             top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
             out["trace"] = {
-                "wall_ms": wall, "busy_ms": busy, "nccl_ms": nccl,
+                "wall_ms": wall,
+                "busy_ms": _covered_ms([(a, b) for a, b, n in spans
+                                        if not n]),
+                "nccl_ms": _covered_ms([(a, b) for a, b, n in spans if n]),
                 "kernels": sum(e.count for e in kern),
                 "top": [(e.key[:70], e.self_device_time_total / 1e3,
                          e.count) for e in top]}
@@ -4122,7 +4212,60 @@ def _p11_whole(rank: int) -> dict:
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     out["collectives"] = {f"{k}/{n}": [c, b] for (k, n), (c, b)
                           in model.par.stats.by_kind.items()}
+    out["s"] = time.perf_counter() - t_part
     return out
+
+
+def par_hybrid(lo: int = 0, hi: int = 8):
+    """jamba-1.5-large-398b, its experts kept, one period cut to blocks
+    [lo:hi]."""
+    full = get_arch(HYBRID)
+    seg = full.segments[0]
+    name = full.name if (lo, hi) == (0, 8) else f"{full.name}-blocks{lo}:{hi}"
+    return dataclasses.replace(
+        full, name=f"{name}-1p",
+        segments=(dataclasses.replace(seg, blocks=seg.blocks[lo:hi],
+                                      repeat=1),))
+
+
+def _p11_parts(rank: int) -> dict:
+    """The parts of phase 11 a rank runs, in order; a card's memory is
+    freed between them."""
+    from repro_torch.launch.shapes import SHAPES, dryrun_config
+
+    def cut(arch: str, layers: int):
+        full = get_arch(arch)
+        return dataclasses.replace(full, name=f"{full.name}-{layers}L",
+                                   segments=dense_segments(layers))
+
+    def serving(cfg):
+        return dryrun_config(cfg, SHAPES["prefill_32k"], 1)[0]
+
+    runs = {
+        "a": lambda: _p11_against_one_card(
+            rank, cut("qwen2-72b", PAR_CUT), PAR_MESHES),
+        "b": lambda: _p11_against_one_card(
+            rank, drop_free(get_arch("granite-moe-1b-a400m")),
+            PAR_MESHES[:1]),
+        "e": lambda: _p11_against_one_card(
+            rank, cut("granite-34b", PAR_SPLIT_CUT), PAR_MESHES[:1]),
+        "c": lambda: _p11_whole(rank, serving(get_arch("qwen2-72b"))),
+        "f": lambda: _p11_against_one_card(
+            rank, drop_free(deepseek_cut(*PAR_DEEPSEEK_CUT)), PAR_MESHES,
+            scatter=True),
+        "g": lambda: _p11_against_one_card(
+            rank, drop_free(par_hybrid(*PAR_HYBRID_BLOCKS)), PAR_MESHES,
+            scatter=True),
+        "h": lambda: _p11_whole(rank, serving(deepseek_cut(
+            *PAR_DEEPSEEK_WHOLE))),
+        "i": lambda: _p11_whole(rank, par_hybrid()),
+    }
+    res: dict = {}
+    for part, run in runs.items():
+        res[part] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
 
 
 def _p11_rank(rank: int, world: int, store: str, out_dir: str) -> None:
@@ -4139,25 +4282,8 @@ def _p11_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         world_size=world, timeout=datetime.timedelta(seconds=600),
         device_id=torch.device("cuda", rank))
     res: dict = {"rank": rank}
-
-    def cut(arch: str, layers: int):
-        full = get_arch(arch)
-        return dataclasses.replace(full, name=f"{full.name}-{layers}L",
-                                   segments=dense_segments(layers))
     try:
-        res["a"] = _p11_against_one_card(rank, cut("qwen2-72b", PAR_CUT),
-                                         PAR_MESHES)
-        gc.collect()
-        torch.cuda.empty_cache()
-        res["b"] = _p11_against_one_card(
-            rank, drop_free(get_arch("granite-moe-1b-a400m")), PAR_MESHES[:1])
-        gc.collect()
-        torch.cuda.empty_cache()
-        res["e"] = _p11_against_one_card(
-            rank, cut("granite-34b", PAR_SPLIT_CUT), PAR_MESHES[:1])
-        gc.collect()
-        torch.cuda.empty_cache()
-        res["c"] = _p11_whole(rank)
+        res.update(_p11_parts(rank))
     except Exception:  # noqa: BLE001 — reported to the parent
         res["error"] = traceback.format_exc()
     path = Path(out_dir) / f"rank{rank}.json"
@@ -4191,17 +4317,58 @@ def dryrun_peaks(world: int) -> dict:
     return {k: a["peak_bytes_per_device"] for k, a in arts.items()}
 
 
+def _p11_report_whole(part: str, label: str, rows: list,
+                      kernels: tuple) -> None:
+    """Log (c), (h) or (i): the served model's sizes, its prefill and
+    steps, memory, launches (each rank must launch every kernel of
+    ``kernels``), collectives and the traced step."""
+    x0 = rows[0]
+    log(f"  ({part}) {label}: {x0['params']} parameters, "
+        f"{x0['local_gb']:.2f} GB of shards a card (drawn in "
+        f"{x0['init_s']:.1f} s); prefill {DECODE_BATCH}x{PROMPT} into "
+        f"{SMAX} slots {x0['prefill_ms']:.3f} ms (the second call); "
+        f"{PAR_WHOLE_STEPS} greedy steps {x0['step_ms']:.3f} ms a step, "
+        f"{x0['tokens_per_s']:.1f} tokens/s; first row's tokens "
+        f"{x0['first_tokens']}; {x0['s']:.1f} s in all")
+    log(f"  ({part}) peak device memory a card "
+        f"(torch.cuda.max_memory_allocated): "
+        f"{[round(x['peak_gb'], 2) for x in rows]} GB")
+    for rank, x in enumerate(rows):
+        log(f"  ({part}) rank {rank} launches {x['launches']}")
+        if not all(x["launches"][k] > 0 for k in kernels):
+            raise RuntimeError(f"phase 11 ({part}): a rank launched no "
+                               f"kernel of the path: {x['launches']}")
+    log(f"  ({part}) collectives a rank [calls, bytes]: "
+        f"{x0['collectives']}")
+    t = x0["trace"]
+    log(f"  ({part}) one traced step on rank 0: {t['kernels']} kernels, "
+        f"device busy (the union of its non-NCCL kernels) "
+        f"{t['busy_ms']:.3f} of {t['wall_ms']:.3f} ms "
+        f"({t['busy_ms'] / t['wall_ms']:.1%}); NCCL kernels resident "
+        f"{t['nccl_ms']:.3f} ms ({t['nccl_ms'] / t['wall_ms']:.1%}: "
+        f"transfer and the wait for the slowest rank)")
+    for key, ms, n in t["top"]:
+        log(f"    {ms:8.3f} ms  x{n:<5d} {key}")
+
+
 def sharded_on_four_cards() -> dict:
     """Phase 11: PAR_CARDS ranks spawned, one a card (NCCL over a
-    FileStore under build/): (a) qwen2-72b cut to PAR_CUT layers, f32,
-    the same seeded weights unsharded on cuda:0 and split over each mesh
-    of PAR_MESHES: the forward's logits of PAR_FWD, then prefill
-    DECODE_BATCH x PROMPT and PAR_STEPS greedy steps into SMAX slots,
-    within PAR_REL (max |dlogit| / max |logit|) and every greedy token
-    equal; (b) granite-moe-1b-a400m whole on (1, 4), drop-free, the
-    same bar; (e) granite-34b cut to PAR_SPLIT_CUT layers on (1, 4),
-    the same bar, its decode over the sequence-split cache; (c) qwen2-72b whole (80 layers, bf16) on (1, 4); (d) the
-    dry-run's peak beside (c)'s. Returns the ranks' launches, summed."""
+    FileStore under build/), running its parts in order:
+    (a) qwen2-72b cut to PAR_CUT layers, f32, the same seeded weights
+    unsharded on cuda:0 and split over each mesh of PAR_MESHES: the
+    forward's logits of PAR_FWD, then prefill DECODE_BATCH x PROMPT and
+    PAR_STEPS greedy steps into SMAX slots, within PAR_REL (max |dlogit|
+    / max |logit|) and every greedy token equal; (b) granite-moe-1b-a400m
+    whole on (1, 4), drop-free, the same bar; (e) granite-34b cut to
+    PAR_SPLIT_CUT layers on (1, 4), the same bar, its decode over the
+    sequence-split cache; (c) qwen2-72b whole (80 layers, bf16) on (1,
+    4); (d) the dry-run's peak beside (c)'s; (f) deepseek-v3-671b and
+    (g) jamba-1.5-large-398b with its experts, cut, f32, drop-free, on
+    both meshes, the bar of (a); (h) deepseek-v3-671b at
+    PAR_DEEPSEEK_WHOLE layers, bf16, and (i) one whole period of Jamba,
+    f32, served on (1, 4) as (c) is. Every rank of (f)-(i) must launch
+    rmsnorm and flash attention, and of (g) and (i) the scan and decode
+    attention too. Returns the ranks' launches, summed."""
     import multiprocessing as mp
     out_dir = ROOT / "build" / "phase11"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -4244,22 +4411,30 @@ def sharded_on_four_cards() -> dict:
         raise RuntimeError(f"phase 11: exit codes "
                            f"{[p.exitcode for p in procs]}")
 
-    for part, label in (("a", f"qwen2-72b {PAR_CUT}L f32"),
-                        ("b", "granite-moe-1b-a400m whole, drop-free"),
-                        ("e", f"granite-34b {PAR_SPLIT_CUT}L f32, one KV "
-                              f"head: the sequence split over model")):
+    against = (("a", f"qwen2-72b {PAR_CUT}L f32"),
+               ("b", "granite-moe-1b-a400m whole, drop-free"),
+               ("e", f"granite-34b {PAR_SPLIT_CUT}L f32, one KV "
+                     f"head: the sequence split over model"),
+               ("f", f"deepseek-v3-671b {'+'.join(map(str, PAR_DEEPSEEK_CUT))}"
+                     f" dense+MoE layers with MTP, f32, drop-free"),
+               ("g", f"jamba-1.5-large-398b blocks "
+                     f"{list(PAR_HYBRID_BLOCKS)} with experts, f32, "
+                     f"drop-free"))
+    for part, label in against:
         for mesh, m in res[0][part]["meshes"].items():
             log(f"  ({part}) {label} on ({mesh.replace('x', ', ')}): "
                 f"forward {PAR_FWD[0]}x{PAR_FWD[1]} max|dlogit|/max|logit| "
                 f"{m['forward_rel']:.3e}; prefill {DECODE_BATCH}x{PROMPT} + "
                 f"{PAR_STEPS} steps {m['steps_rel']:.3e} (bar {PAR_REL:g}); "
                 f"greedy tokens equal {m['tokens_equal']} of {m['tokens']}; "
+                f"peak {m['peak_gb']:.2f} GB on rank 0; "
                 f"collectives a rank {m['collectives']}")
             if not (m["forward_rel"] <= PAR_REL and m["steps_rel"] <= PAR_REL
                     and m["tokens_equal"] == m["tokens"]):
                 raise RuntimeError(f"phase 11 ({part}) {mesh}: {m}")
         log(f"  ({part}) launches a rank over its sharded runs: "
-            f"{[x[part]['launches'] for x in res]}")
+            f"{[x[part]['launches'] for x in res]}; {res[0][part]['s']:.1f}"
+            f" s in all")
     # (e) decodes by the split-sequence flash (rank 0 holds the prompt's
     # first slots, so it attends at every step), never the decode kernel
     e0 = res[0]["e"]["launches"]
@@ -4267,40 +4442,35 @@ def sharded_on_four_cards() -> dict:
             e0["flash_attention"] < PAR_STEPS * PAR_SPLIT_CUT:
         raise RuntimeError(f"phase 11 (e) did not decode by the split "
                            f"sequence: {[x['e']['launches'] for x in res]}")
-    c = [x["c"] for x in res]
-    c0 = c[0]
-    log(f"  (c) qwen2-72b whole: 80 layers, {c0['params']} parameters "
-        f"bf16, {c0['local_gb']:.2f} GB of shards a card (drawn in "
-        f"{c0['init_s']:.1f} s); prefill {DECODE_BATCH}x{PROMPT} into "
-        f"{SMAX} slots {c0['prefill_ms']:.3f} ms (the second call); "
-        f"{PAR_WHOLE_STEPS} greedy steps {c0['step_ms']:.3f} ms a step, "
-        f"{c0['tokens_per_s']:.1f} tokens/s; first row's tokens "
-        f"{c0['first_tokens']}")
-    log(f"  (c) peak device memory a card (torch.cuda.max_memory_allocated):"
-        f" {[round(x['peak_gb'], 2) for x in c]} GB")
-    for rank, x in enumerate(c):
-        log(f"  (c) rank {rank} launches {x['launches']}")
-        if not all(x["launches"][k] > 0 for k in
-                   ("rmsnorm", "flash_attention", "decode_attention")):
-            raise RuntimeError(f"phase 11 (c): a rank launched no kernel of "
-                               f"the path: {x['launches']}")
-    log(f"  (c) collectives a rank [calls, bytes]: {c0['collectives']}")
-    t = c0["trace"]
-    log(f"  (c) one traced step on rank 0: {t['kernels']} kernels, device "
-        f"busy {t['busy_ms']:.3f} of {t['wall_ms']:.3f} ms "
-        f"({t['busy_ms'] / t['wall_ms']:.1%}), NCCL {t['nccl_ms']:.3f} ms "
-        f"({t['nccl_ms'] / t['wall_ms']:.1%})")
-    for key, ms, n in t["top"]:
-        log(f"    {ms:8.3f} ms  x{n:<5d} {key}")
+    need = {"f": ("rmsnorm", "flash_attention"),
+            "g": ("rmsnorm", "flash_attention", "mamba_scan",
+                  "decode_attention")}
+    for part, kernels in need.items():
+        for x in res:
+            if not all(x[part]["launches"][k] > 0 for k in kernels):
+                raise RuntimeError(f"phase 11 ({part}): a rank launched no "
+                                   f"kernel of the path: "
+                                   f"{x[part]['launches']}")
+    whole = (("c", "qwen2-72b whole: 80 layers, bf16",
+              ("rmsnorm", "flash_attention", "decode_attention")),
+             ("h", f"deepseek-v3-671b, {PAR_DEEPSEEK_WHOLE[0]} dense + "
+                   f"{PAR_DEEPSEEK_WHOLE[1]} MoE layers, bf16",
+              ("rmsnorm", "flash_attention")),
+             ("i", "jamba-1.5-large-398b, one whole period (7 Mamba + 1 "
+                   "attention layers, 4 MoE), f32",
+              ("rmsnorm", "flash_attention", "mamba_scan",
+               "decode_attention")))
+    for part, label, kernels in whole:
+        _p11_report_whole(part, label, [x[part] for x in res], kernels)
     peaks = dryrun_peaks(PAR_CARDS)
-    measured = max(x["peak_gb"] for x in c) * 1e9
+    measured = max(x["c"]["peak_gb"] for x in res) * 1e9
     for kind in ("prefill", "decode"):
         log(f"  (d) the dry-run of (c) on (1, {PAR_CARDS}), {kind}: peak "
             f"{peaks[kind] / 1e9:.2f} GB a device; (c) measured "
             f"{measured / 1e9:.2f} GB: ratio {peaks[kind] / measured:.3f}")
     total = dict.fromkeys(COUNTERS, 0)
     for x in res:
-        for part in ("a", "b", "e", "c"):
+        for part in "abecfghi":
             add_counts(total, x[part]["launches"])
     return total
 

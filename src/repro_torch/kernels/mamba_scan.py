@@ -29,10 +29,15 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = (8, 16, 32, 64)     # N: one register array per thread
+# the scan's arithmetic a (b, l, d, n) element, for the meta branch: the
+# forward's exp(dt a), the state's product and sum, dt x times B, and
+# C h's product and sum; the backward rebuilds the states (the
+# forward's 7) and runs the reverse recurrence and its four gradients
+FWD_OPS, BWD_OPS = 7, 21
 # threads of a backward CTA by N (csrc/mamba_scan_bwd.cu, BwdShape): four
 # states a lane, 64 channels a CTA (32 at N 64); steps of its segments
 BWD_THREADS = {8: 128, 16: 256, 32: 512, 64: 512}
@@ -47,14 +52,24 @@ def mamba_scan(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dt, x: (B,L,D); b, c: (B,L,N); a: (D,N); h0: (B,D,N) float32.
     Returns (y (B,L,D) in x's dtype, h_last (B,D,N) float32).
-    Differentiable in every input."""
-    if dt.device.type not in ("cpu", "cuda"):
+    Differentiable in every input. Inside :func:`meta.shapes_only`,
+    ``meta`` tensors take the meta branch."""
+    if dt.device.type not in ("cpu", "cuda") and not meta.takes(dt):
         raise ValueError(f"mamba_scan: unsupported device {dt.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (dt, x, b, c, a, h0)):
         return MambaScan.apply(dt, x, b, c, a, h0)
+    return _forward(dt, x, b, c, a, h0)
+
+
+def _forward(dt, x, b, c, a, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     if dt.is_cuda:
         return _launch(dt, x, b, c, a, h0)
+    if dt.is_meta:
+        y, h = torch.empty_like(x), torch.empty_like(h0)
+        meta.add(FWD_OPS * dt.numel() * a.shape[-1], dt, x, b, c, a, h0,
+                 y, h)
+        return y, h
     return ref.mamba_scan_ref(dt, x, b, c, a, h0)
 
 
@@ -64,8 +79,7 @@ class MambaScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dt, x, b, c, a, h0):
-        y, h = _launch(dt, x, b, c, a, h0) if dt.is_cuda else \
-            ref.mamba_scan_ref(dt, x, b, c, a, h0)
+        y, h = _forward(dt, x, b, c, a, h0)
         ctx.save_for_backward(dt, x, b, c, a, h0)
         return y, h
 
@@ -84,6 +98,11 @@ def mamba_scan_backward(dt: torch.Tensor, x: torch.Tensor, b: torch.Tensor,
     tensor takes the plain reverse recurrence."""
     if dt.is_cuda:
         return _launch_bwd(dt, x, b, c, a, h0, dy, dh)
+    if meta.takes(dt):
+        grads = tuple(torch.empty_like(t) for t in (dt, x, b, c, a, h0))
+        meta.add(BWD_OPS * dt.numel() * a.shape[-1], dt, x, b, c, a, h0,
+                 dy, dh, *grads)
+        return grads
     if dt.device.type == "cpu":
         return ref.mamba_scan_bwd_ref(dt, x, b, c, a, h0, dy, dh)
     raise ValueError(f"mamba_scan_backward: unsupported device {dt.device}")

@@ -18,8 +18,8 @@ Nothing is compiled, so ``compile_s`` is 0 and ``lower_s`` is the time
 of the traced step. The memory is what the step's tensors occupy at
 their peak (parameters, optimizer state, batch and cache resident, plus
 the step's live tensors), not an allocator's reserve. Architectures the
-port does not shard yet (MLA, Mamba, xLSTM, encoder-decoder, image:
-ROADMAP A11b) are recorded as ``"skipped"`` with the reason.
+port does not shard yet (xLSTM, encoder-decoder, image: ROADMAP A11b)
+are recorded as ``"skipped"`` with the reason.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-72b \\
@@ -157,9 +157,8 @@ def _skip_reason(cfg) -> str:
     if cfg.is_encoder_decoder or cfg.num_image_tokens:
         return ("encoder-decoder and image models are not sharded yet "
                 "(ROADMAP A11b)")
-    if cfg.use_mla or cfg.mtp_depth:
-        return "MLA and MTP are not sharded yet (ROADMAP A11b)"
-    kinds = {b.kind for s in cfg.segments for b in s.blocks} - {"attn"}
+    kinds = {b.kind for s in cfg.segments for b in s.blocks} - {"attn",
+                                                                 "mamba"}
     if kinds:
         return (f"{'/'.join(sorted(kinds))} blocks are not sharded yet "
                 f"(ROADMAP A11b)")

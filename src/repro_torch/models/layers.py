@@ -321,28 +321,30 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _mla_qc(params: Params, cfg: ArchConfig, x: torch.Tensor,
-            positions: torch.Tensor):
+            positions: torch.Tensor, par: Local = LOCAL):
     """MLA's shared projections: per-head q (no-RoPE part, RoPE'd part)
-    and the latent kv (c_kv, and the one RoPE'd key all heads share)."""
+    and the latent kv (c_kv, and the one RoPE'd key all heads share).
+    ``par.to_model`` goes on the three latents, which every model rank
+    computes whole and uses for its own heads."""
     cd = cfg.cdtype
     nope, kr = cfg.qk_nope_head_dim, cfg.kv_lora_rank
     q_lat = torch.einsum("bsd,dr->bsr", x, params["wq_a"].to(cd))
-    q_lat = _rms(q_lat, params["q_norm"].to(cd), cfg.norm_eps)
+    q_lat = par.to_model(_rms(q_lat, params["q_norm"].to(cd), cfg.norm_eps))
     q = torch.einsum("bsr,rhk->bshk", q_lat, params["wq_b"].to(cd))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
     kv = torch.einsum("bsd,dr->bsr", x, params["wkv_a"].to(cd))
     c_kv, k_rope = kv[..., :kr], kv[..., kr:]
-    c_kv = _rms(c_kv, params["kv_norm"].to(cd), cfg.norm_eps)
+    c_kv = par.to_model(_rms(c_kv, params["kv_norm"].to(cd), cfg.norm_eps))
     k_rope = apply_rope(k_rope[..., None, :], positions, cfg.rope_theta)
-    return q_nope, q_rope, c_kv, k_rope[..., 0, :]
+    return q_nope, q_rope, c_kv, par.to_model(k_rope[..., 0, :])
 
 
 def mla_attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, kind: str = "causal",
                   cache: Optional[Params] = None,
-                  cache_pos: Optional[int] = None
+                  cache_pos: Optional[int] = None, par: Local = LOCAL
                   ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Multi-head latent attention over x (B,S,d). Returns (output,
     cache or None).
@@ -361,10 +363,23 @@ def mla_attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
     into q, and scores, softmax and ``W_UV`` run over the latent cache's
     slots ``<= cache_pos``, never expanding per-head K/V. Plain torch,
     as the reference's is plain jnp. The cache is written in place, as
-    :func:`attention`'s is, and returned."""
+    :func:`attention`'s is, and returned.
+
+    Under a mesh the heads are this rank's when ``wq_b`` holds fewer
+    than ``cfg.num_heads`` (``wq_b``, ``wkv_b_k``, ``wkv_b_v`` over
+    heads); ``wq_a`` and ``wkv_a`` are replicated, so every rank
+    computes the whole latents and, in decode, attends with its heads
+    over its whole copy of the latent cache; ``wo``'s partial output is
+    all-reduced."""
     cd = cfg.cdtype
     scale = 1.0 / math.sqrt(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
-    q_nope, q_rope, c_kv, k_rope = _mla_qc(params, cfg, x, positions)
+    heads_tp = params["wq_b"].shape[1] < cfg.num_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qc(params, cfg, x, positions,
+                                           par if heads_tp else LOCAL)
+
+    def proj_out(out: torch.Tensor) -> torch.Tensor:
+        out = torch.einsum("bshv,hvd->bsd", out, params["wo"].to(cd))
+        return par.from_model(out) if heads_tp else out
 
     if cache is not None and cache_pos is not None:
         cc, cr = cache["c_kv"], cache["k_rope"]
@@ -382,10 +397,8 @@ def mla_attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
         scores = scores.masked_fill(~valid, float("-inf"))
         w = torch.softmax(scores.float(), dim=-1).to(cd)
         out_lat = torch.einsum("bhst,btr->bshr", w, ccf)
-        out = torch.einsum("bshr,rhv->bshv", out_lat,
-                           params["wkv_b_v"].to(cd))
-        return torch.einsum("bshv,hvd->bsd", out,
-                            params["wo"].to(cd)), cache
+        return proj_out(torch.einsum("bshr,rhv->bshv", out_lat,
+                                     params["wkv_b_v"].to(cd))), cache
 
     k_nope = torch.einsum("btr,rhn->bthn", c_kv, params["wkv_b_k"].to(cd))
     v = torch.einsum("btr,rhv->bthv", c_kv, params["wkv_b_v"].to(cd))
@@ -401,7 +414,7 @@ def mla_attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
                              f"length {s}")
         cache["c_kv"][:, :s] = c_kv.to(cache["c_kv"].dtype)
         cache["k_rope"][:, :s] = k_rope.to(cache["k_rope"].dtype)
-    return torch.einsum("bshv,hvd->bsd", out, params["wo"].to(cd)), cache
+    return proj_out(out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -597,7 +610,8 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig,
 
 
 def mamba_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
-                state: Optional[Params] = None) -> torch.Tensor:
+                state: Optional[Params] = None,
+                par: Local = LOCAL) -> torch.Tensor:
     """x: (B,S,D) -> (B,S,D). Chunk-streamed as the reference's
     ``mamba_block``: per chunk of ``min(cfg.ssm_chunk, S)`` tokens (one
     chunk when S is not a multiple), the in-projection, the depthwise
@@ -611,11 +625,23 @@ def mamba_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
     state into it in place: ``state``'s tensors are the layer's views of
     the segment's stacked ``(repeat, ...)`` cache, as with
     :func:`attention`. The reference returns a new state instead.
+
+    Under a mesh the channels are this rank's when ``in_proj`` holds
+    fewer than ``D_in`` of them (as ``(D, 2, D_in / model)``: the same
+    channels of x and of the gate z): ``in_proj`` is column-parallel,
+    the conv, dt, A, the skip and the carried state are the rank's
+    channels, ``w_bc`` is row-parallel and B, C made whole by an
+    all-reduce (every rank scans its channels with all of them), and
+    ``out_proj`` is row-parallel, its output all-reduced.
     """
     b, s, d = x.shape
-    d_in = d * cfg.mamba_expand
+    w_in = params["in_proj"].reshape(d, -1)      # [x | z] of the channels
+    d_in = w_in.shape[1] // 2
+    tp = d_in < d * cfg.mamba_expand
     st, dc = cfg.mamba_d_state, cfg.mamba_d_conv
     cd = cfg.cdtype
+    if tp:
+        x = par.to_model(x)
 
     if state is not None:
         tail = state["conv"].to(cd)
@@ -628,7 +654,7 @@ def mamba_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
     if s % chunk != 0:
         chunk = s        # one chunk for ragged lengths, as the reference
 
-    w_in = params["in_proj"].to(cd)
+    w_in = w_in.to(cd)
     conv_w = params["conv_w"].to(cd)
     w_bc = params["w_bc"].to(cd)
     w_dt = params["w_dt"].to(cd)
@@ -647,6 +673,8 @@ def mamba_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
         xc = sum(xpad[:, i:i + chunk] * conv_w[i] for i in range(dc))
         xc = F.silu(xc)
         bc = torch.einsum("ble,en->bln", xc, w_bc)
+        if tp:
+            bc = par.to_model(par.from_model(bc))
         b_c, c_c = bc.float().chunk(2, dim=-1)
         dt = F.softplus(xc * w_dt + b_dt).float()
         xcf = xc.float()
@@ -657,7 +685,8 @@ def mamba_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
     if state is not None:
         state["h"].copy_(h)
         state["conv"].copy_(tail)
-    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    return par.from_model(out) if tp else out
 
 
 # ---------------------------------------------------------------------------

@@ -125,12 +125,12 @@ def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
     if block.kind == "attn" and cfg.use_mla:
         out, _ = L.mla_attention(p["core"], cfg, h, positions,
                                  kind=mask_kind, cache=cache,
-                                 cache_pos=cache_pos)
+                                 cache_pos=cache_pos, par=par)
     elif block.kind == "attn":
         out, _ = L.attention(p["core"], cfg, h, positions, kind=mask_kind,
                              cache=cache, cache_pos=cache_pos, par=par)
     elif block.kind == "mamba":
-        out = L.mamba_block(p["core"], cfg, h, cache)
+        out = L.mamba_block(p["core"], cfg, h, cache, par)
     elif block.kind == "mlstm":
         out = L.mlstm_block(p["core"], cfg, h, cache)
     else:
@@ -414,15 +414,24 @@ class Model:
         cfg = self.cfg
         if tokens.shape[1] < 3:
             return torch.zeros((), dtype=torch.float32, device=h.device)
-        mtp = params["mtp"]
-        emb_next = params["embed"].to(cfg.cdtype)[tokens[:, 1:]]
+        mtp = self._mtp_params(params)
+        emb_next = self._embed_tokens(params, tokens[:, 1:])
         hcat = torch.cat([h[:, :-1], emb_next], dim=-1)
         x = torch.einsum("bsd,de->bse", hcat, mtp["proj"].to(cfg.cdtype))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x, _ = _apply_block(mtp["block"], cfg, MTP_BLOCK, x, positions,
-                            "causal")
+                            "causal", par=self.par)
         logits = self._head(params, x, norm=mtp["norm"])
-        return 0.1 * _cross_entropy(logits[:, :-1], tokens[:, 2:]).mean()
+        return 0.1 * self._batch_mean(
+            self._cross_entropy(logits[:, :-1], tokens[:, 2:]))
+
+    def _mtp_params(self, params: Params) -> Params:
+        """The MTP module's weights for use."""
+        return params["mtp"]
+
+    def _batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of per-token values over the batch."""
+        return x.mean()
 
     def _cross_entropy(self, logits: torch.Tensor,
                        targets: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Sharded execution of the dense and MoE families on a ``DeviceMesh``:
-FSDP over the data axes and tensor parallelism over ``model``.
+"""Sharded execution of the dense, MoE, MLA (with MTP) and hybrid
+(Mamba) families on a ``DeviceMesh``: FSDP over the data axes and
+tensor parallelism over ``model``.
 
 The reference gets sharded execution from GSPMD: it pins placements
 (:mod:`repro.models.sharding`) and XLA inserts the collectives. Here
@@ -29,12 +30,30 @@ attention) run unchanged on the local tensors; no DTensor reaches them.
   caller needs them whole); the loss is a vocab-parallel cross entropy.
   MoE experts go over ``model``: every rank computes the same dispatch
   from the replicated router, runs its local experts and combines, then
-  the output is all-reduced; the capacity rule is the reference's.
+  the output is all-reduced; the capacity rule is the reference's; a
+  shared expert is the MLP above.
+* **MLA** (DeepSeek): ``wq_b``, ``wkv_b_k`` and ``wkv_b_v`` hold the
+  rank's heads; ``wq_a``, ``wkv_a`` and the latent norms are
+  replicated, so every rank computes the whole latents, and f goes on
+  the latents (``c_q``, ``c_kv``, ``k_rope``), so that their weights'
+  gradients sum over every head; ``wo`` is row-parallel. The latent
+  cache is whole on every model rank
+  (:func:`~repro_torch.models.sharding.execution_cache_placements`):
+  the absorbed decode runs the rank's heads over it. **MTP** runs its
+  block as any layer, through the vocab-parallel head and cross
+  entropy, its mean taken over the global batch.
+* **Mamba** (Jamba): the rank's channels of ``D_in``: ``in_proj``
+  column-parallel (run as ``(D, 2, D_in)``, the same channels of x and
+  of the gate), the conv, dt, A, the skip and the carried state local,
+  ``w_bc`` row-parallel with B and C made whole (then f, since every
+  rank scans its channels with all of them), the scan on the local
+  channels, ``out_proj`` row-parallel.
 * **The layout** is :func:`~repro_torch.models.sharding.
   execution_placements`: the reference's placements, but a stacked
   dense FFN weight has its hidden dimension over ``model`` (the rule the
   reference documents) where the reference's ``param_pspec`` puts the
-  layer axis. A dimension that does not divide its axis is replicated.
+  layer axis, and a Mamba ``in_proj`` runs as ``(D, 2, D_in)``. A
+  dimension that does not divide its axis is replicated.
   KV heads that do not divide ``model`` (qwen2's 8 on 16,
   granite-34b's 1) leave ``wk``/``wv`` replicated: a rank computes every
   KV head and attends with the ones its query heads use; the cache then
@@ -51,16 +70,16 @@ take a :class:`Parallel` in place of the one-rank
 split from their weights' local shapes. This module holds what exists
 only across ranks: the collectives, FSDP's per-layer gather, the
 vocab-parallel embedding, head and cross entropy, the split-sequence
-decode, the MoE's rows over the data axes, each rank's init and the
-global gradient norm.
+decode, the MoE's rows over the data axes, MTP's weights and batch
+mean, each rank's init and the global gradient norm.
 
 Every collective is counted (:class:`CollectiveStats`: kind, group
 size, bytes of the output), for the roofline's collective term.
 
-MLA (DeepSeek), Mamba (Jamba), the xLSTM cells, and the encoder-decoder
-(whisper) and image (pixtral) models are not sharded yet: on a mesh of
-more than one rank their configs raise ``NotImplementedError`` (ROADMAP
-A11b), before any weight is placed.
+The xLSTM cells and the encoder-decoder (whisper) and image (pixtral)
+models are not sharded yet: on a mesh of more than one rank their
+configs raise ``NotImplementedError`` (ROADMAP A11b), before any weight
+is placed.
 """
 
 from __future__ import annotations
@@ -81,9 +100,10 @@ from repro_torch.models.model import Model, _cross_entropy
 from repro_torch.models.sharding import (
     MODEL,
     batch_placements,
-    cache_placements,
     entry_axes,
+    execution_cache_placements,
     execution_placements,
+    execution_view,
     local_shape,
     local_slices,
     mesh_axes,
@@ -409,10 +429,11 @@ def _layer_specs(tree):
 
 def shard_params(params, mesh, coords: Optional[Dict[str, int]] = None,
                  device=None):
-    """One rank's local shards of a full parameter tree (placed by
-    ``execution_placements``), as contiguous copies on ``device``
-    (default: each leaf's own). ``coords`` are the
-    rank's mesh coordinates ({axis: index}; default: this process's)."""
+    """One rank's local shards of a full parameter tree (of
+    ``execution_view(params)``, placed by ``execution_placements``), as
+    contiguous copies on ``device`` (default: each leaf's own).
+    ``coords`` are the rank's mesh coordinates ({axis: index}; default:
+    this process's)."""
     if coords is None:
         names, _ = mesh_axes(mesh)
         coords = dict(zip(names, mesh.get_coordinate()))
@@ -420,7 +441,7 @@ def shard_params(params, mesh, coords: Optional[Dict[str, int]] = None,
     return _map2(lambda leaf, spec: leaf[local_slices(
         leaf.shape, spec, mesh, coords)].to(device or leaf.device,
                                             copy=True).contiguous(),
-        params, specs)
+        execution_view(params), specs)
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh,
@@ -435,19 +456,30 @@ def shard_batch(batch: Dict[str, torch.Tensor], mesh,
             for k, v in batch.items()}
 
 
-# the init of the dense and MoE leaves, by the last key of their path:
-# N(0, 1) times the scale, as Model.init draws them
+# the init of the random leaves, by the last key of their path: N(0, 1)
+# times the scale, as Model.init draws them
 def _init_scale(path: Tuple, shape: Tuple[int, ...], cfg: ArchConfig
                 ) -> Optional[float]:
     key = path[-1]
-    if key in ("embed", "unembed"):
+    if key in ("embed", "unembed") or path[-2:] == ("mtp", "proj"):
         return 0.02
-    if key == "scale" or key in ("bq", "bk", "bv"):
-        return None                     # ones / zeros
+    if key in _FILLS:
+        return None
+    if key == "conv_w":
+        return 0.5
     if key == "wo":
-        return 1.0 / math.sqrt(cfg.num_heads * cfg.resolved_head_dim)
+        hd = cfg.v_head_dim if cfg.use_mla else cfg.resolved_head_dim
+        return 1.0 / math.sqrt(cfg.num_heads * hd)
     lead = 1 if path[0] == "segments" else 0
     return 1.0 / math.sqrt(max(shape[lead], 1))
+
+
+# the deterministic leaves, as Model.init makes them: a value, or a row
+# of the channels' (Mamba's A: log 1..N for every channel)
+_FILLS = {"scale": 1.0, "q_norm": 1.0, "kv_norm": 1.0, "bq": 0.0,
+          "bk": 0.0, "bv": 0.0, "w_dt": 0.1, "b_dt": -2.0, "d_skip": 1.0,
+          "a_log": lambda n: torch.log(torch.arange(1, n + 1,
+                                                    dtype=torch.float32))}
 
 
 def _supported(cfg: ArchConfig) -> None:
@@ -457,12 +489,9 @@ def _supported(cfg: ArchConfig) -> None:
             f"{cfg.name}: sharding the encoder-decoder and image models "
             f"(cross-attention, the encoder, img_proj) arrives with ROADMAP "
             f"A11b")
-    if cfg.use_mla or cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: sharding MLA and MTP arrives with ROADMAP A11b")
     for seg in cfg.segments:
         for blk in seg.blocks:
-            if blk.kind != "attn":
+            if blk.kind not in ("attn", "mamba"):
                 raise NotImplementedError(
                     f"{cfg.name}: sharding {blk.kind} blocks arrives with "
                     f"ROADMAP A11b")
@@ -499,8 +528,9 @@ class ShardedModel(Model):
         self.par = Parallel(mesh, batch_over_data)
         if self.par.world > 1:
             _supported(cfg)
-        self.full = Model(cfg, torch.device("meta")).init(None)
-        self.specs = execution_placements(self.full, mesh)
+        full = Model(cfg, torch.device("meta")).init(None)
+        self.full = execution_view(full)
+        self.specs = execution_placements(full, mesh)
         self.seg_specs = tuple(tuple(_layer_specs(b) for b in seg)
                                for seg in self.specs["segments"])
         emb = self.specs["embed"]
@@ -512,10 +542,10 @@ class ShardedModel(Model):
     # ------------------------------------------------------------ params
     def init_local(self, generator: Optional[torch.Generator]) -> Params:
         """This rank's shards drawn directly, as :meth:`Model.init` draws
-        the full leaves (N(0, 1) times the leaf's scale; norm scales 1,
-        biases 0), from ``generator`` (seed it by rank). No rank holds
-        the whole tree. On ``meta``, shapes only. The dense and MoE
-        families only, on any mesh."""
+        the full leaves (N(0, 1) times the leaf's scale), from
+        ``generator`` (seed it by rank); the deterministic leaves (norm
+        scales, biases, Mamba's dt, A and skip) are the full leaves'
+        rows. No rank holds the whole tree. On ``meta``, shapes only."""
         cfg, dev = self.cfg, self.device
         _supported(cfg)
 
@@ -525,7 +555,10 @@ class ShardedModel(Model):
             if dev.type == "meta":
                 return torch.empty(shape, dtype=full.dtype, device=dev)
             if scale is None:
-                fill = 1.0 if path[-1] == "scale" else 0.0
+                fill = _FILLS[path[-1]]
+                if callable(fill):
+                    row = fill(shape[-1]).to(dev, full.dtype)
+                    return row.expand(shape).contiguous()
                 return torch.full(shape, fill, dtype=full.dtype, device=dev)
             out = torch.empty(shape, dtype=full.dtype, device=dev)
             # a layer at a time: one layer's f32 draw is all the extra
@@ -601,6 +634,23 @@ class ShardedModel(Model):
         tgt = par.from_model(torch.where(ok, tgt, 0.0))
         return torch.log(par.from_model(sumexp)) + m - tgt
 
+    # ------------------------------------------------------------- MTP
+    def _mtp_params(self, params: Params) -> Params:
+        """The MTP module's projection and block, all-gathered over the
+        data axes; its norm as it is (the head gathers it)."""
+        mtp, spec = params["mtp"], self.specs["mtp"]
+        return {"proj": self.par.weight(mtp["proj"], spec["proj"]),
+                "block": self.par.layer(mtp["block"], spec["block"]),
+                "norm": mtp["norm"]}
+
+    def _batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's mean of this rank's per-token values (every
+        data rank holds as many rows)."""
+        par = self.par
+        if not self.batch_over_data or par.data_size == 1:
+            return x.mean()
+        return par.sum_data(x.sum()) / (x.numel() * par.data_size)
+
     # --------------------------------------------------- over the mesh
     def _mean_loss(self, num: torch.Tensor, den: torch.Tensor,
                    aux: torch.Tensor) -> torch.Tensor:
@@ -637,15 +687,20 @@ class ShardedModel(Model):
     def init_cache(self, batch: int, smax: int, shard_seq: bool = False,
                    device=None):
         """This rank's part of the cache of a global ``batch``: (cache,
-        None, specs), the cache placed by ``cache_placements``."""
+        None, specs), the cache placed by ``execution_cache_placements``
+        (MLA's latent whole on every model rank)."""
         dev = self.device if device is None else torch.device(device)
         full, specs = self._cache_layout(batch, smax, shard_seq)
+        if shard_seq and self.cfg.use_mla and self.par.data_size > 1:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the absorbed decode over a latent cache "
+                f"whose sequence is split over the data axes")
         for seg in specs if self.par.data_size > 1 else ():
             for blk in seg:
-                over = blk["k"][1] is not None
-                if over != self.batch_over_data:
+                spec = next(iter(blk.values()))     # dim 1 is the batch
+                if (spec[1] is not None) != self.batch_over_data:
                     raise ValueError(
-                        f"cache batch {batch} placed {blk['k']}, but the "
+                        f"cache batch {batch} placed {spec}, but the "
                         f"model's batch_over_data is {self.batch_over_data}")
         local = _map2(lambda leaf, spec: torch.zeros(
             local_shape(leaf.shape, spec, self.mesh), dtype=leaf.dtype,
@@ -658,7 +713,7 @@ class ShardedModel(Model):
         key = (batch, smax, shard_seq)
         if key not in self._layouts:
             full, _ = init_cache(self.cfg, batch, smax, device="meta")
-            self._layouts[key] = full, cache_placements(
+            self._layouts[key] = full, execution_cache_placements(
                 full, self.mesh, shard_seq=shard_seq)
         return self._layouts[key]
 

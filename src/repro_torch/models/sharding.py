@@ -81,6 +81,8 @@ _FFN_DENSE = {"g": ("fsdp", "model"), "u": ("fsdp", "model"),
               "d": ("model", "fsdp")}
 _FFN_MOE = {"g": ("model", "fsdp", None), "u": ("model", "fsdp", None),
             "d": ("model", "fsdp", None)}
+_MAMBA_IN_RE = re.compile(r"\['core'\]\['in_proj'\]$")
+_LATENT_RE = re.compile(r"\['(?:c_kv|k_rope)'\]$")
 
 MODEL = "model"
 
@@ -190,18 +192,51 @@ def param_placements(params: Any, mesh) -> Any:
         params)
 
 
+def _mamba_in(path) -> bool:
+    return bool(_MAMBA_IN_RE.search(path_str(path)))
+
+
+def execution_view(params: Any) -> Any:
+    """The tree the port runs under a mesh: the reference's, but each
+    Mamba ``in_proj`` (..., D, 2 D_in) viewed as (..., D, 2, D_in), so
+    that a split of D_in over ``model`` gives every rank the same
+    channels of x and of the gate z (the block splits the projection's
+    output in halves). Views of the same storage; ``meta`` leaves
+    too."""
+    return _map_with_path(
+        lambda path, leaf: leaf.reshape(*leaf.shape[:-1], 2,
+                                        leaf.shape[-1] // 2)
+        if _mamba_in(path) else leaf, params)
+
+
 def execution_placements(params: Any, mesh) -> Any:
-    """The layout :mod:`repro_torch.models.parallel` runs: the
-    reference's placements, except a stacked dense FFN weight, which
-    takes the dense rule the reference documents (after the repeat axis:
-    D over the data axes, the FFN hidden over ``model``): column- and
-    row-parallel products instead of each layer's weights living on one
-    model rank."""
+    """The layout :mod:`repro_torch.models.parallel` runs, as specs of
+    ``execution_view(params)`` (``params`` in the reference's shapes):
+    the reference's placements, with two differences by design.
+
+    * A stacked dense FFN weight (repeat, D, F) takes the dense rule the
+      reference documents (after the repeat axis: D over the data axes,
+      the FFN hidden over ``model``) where the reference's function
+      takes its MoE branch (the layer axis over ``model``): column- and
+      row-parallel products instead of each layer's weights living on
+      one model rank. Where the layers divide ``model`` a device holds
+      the reference's bytes; where they do not (DeepSeek-V3's 3 dense
+      layers, Jamba's 9 periods, any one-layer config) the reference
+      replicates the weight over ``model`` and the port holds a
+      ``1 / model`` slice of it.
+    * A Mamba ``in_proj``, viewed as (D, 2, D_in), has D over the data
+      axes and D_in over ``model``: the reference's ``("fsdp",
+      "model")`` cuts the concatenated [x | z] axis in one piece, which
+      on ``model`` 2 gives rank 0 every x channel and rank 1 every z
+      channel. The bytes a device holds are the reference's."""
     def spec(path, leaf):
         shape = tuple(leaf.shape)
         m = _FFN_RE.search(path_str(path))
         if m and path[0] == "segments" and len(shape) == 3:
             return resolve(_FFN_DENSE[m.group(1)], shape, mesh)
+        if _mamba_in(path):
+            return resolve(("fsdp", None, MODEL),
+                           shape[:-1] + (2, shape[-1] // 2), mesh)
         return _param_spec(path, shape, mesh)
 
     return _map_with_path(spec, params)
@@ -228,6 +263,11 @@ def cache_placements(cache: Any, mesh, shard_seq: bool = False) -> Any:
     ``model`` puts its SEQUENCE over ``model`` (qwen2-72b's 8 KV heads
     on model 16, granite-34b's one): each model rank holds a slice of
     the context."""
+    return _cache_specs(cache, mesh, shard_seq, latent_over_model=True)
+
+
+def _cache_specs(cache: Any, mesh, shard_seq: bool,
+                 latent_over_model: bool) -> Any:
     fsdp_axes, fsdp_size, model_size = _sizes(mesh)
     data = data_entry(fsdp_axes)
 
@@ -241,9 +281,10 @@ def cache_placements(cache: Any, mesh, shard_seq: bool = False) -> Any:
         if re.search(r"\['(?:k|v|k_rope|c_kv)'\]$", ps) and len(shape) >= 4:
             if shard_seq and shape[2] % fsdp_size == 0:
                 spec[2] = data
-            if shape[3] % model_size == 0:
+            split = latent_over_model or not _LATENT_RE.search(ps)
+            if split and shape[3] % model_size == 0:
                 spec[3] = MODEL
-            elif spec[2] is None and shape[2] % model_size == 0:
+            elif split and spec[2] is None and shape[2] % model_size == 0:
                 spec[2] = MODEL
         elif re.search(r"\['(?:h|conv|C|n)'\]$", ps) and len(shape) >= 3:
             ch_dim = 2 if not re.search(r"\['conv'\]$", ps) else 3
@@ -252,6 +293,18 @@ def cache_placements(cache: Any, mesh, shard_seq: bool = False) -> Any:
         return tuple(spec)
 
     return _map_with_path(assign, cache)
+
+
+def execution_cache_placements(cache: Any, mesh,
+                               shard_seq: bool = False) -> Any:
+    """The cache layout the port runs: :func:`cache_placements`, but
+    MLA's latent cache (``c_kv``, ``k_rope``) is replicated over
+    ``model``. The absorbed decode contracts each of a rank's query
+    heads with the whole latent, so a latent split over ``model`` would
+    be all-gathered every step; replicated, each model rank holds
+    ``kv_lora + qk_rope`` values a token a layer (DeepSeek-V3: 576, 1152
+    bytes in bf16), ``model`` times the reference's shard."""
+    return _cache_specs(cache, mesh, shard_seq, latent_over_model=False)
 
 
 def entry_axes(entry) -> Tuple[str, ...]:

@@ -6,8 +6,9 @@ a ``FileStore`` in WORKDIR; with ``cuda``, NCCL and one card a rank, as
 ``tests/test_torch_gpu.py`` runs it). It reads ``WORKDIR/inputs.pkl`` (per case:
 the full parameter tree as numpy, the batch, the prompt) and rank 0
 writes ``WORKDIR/out_DATAxMODEL.pkl``: the gathered logits, greedy
-tokens, loss, gradients and the global gradient norm of each case, and
-the message each family not sharded yet raises. Imports no JAX.
+tokens, loss, gradients (each in the reference's shape) and the global
+gradient norm of each case, and the message each family not sharded
+yet raises. Imports no JAX.
 """
 
 import os
@@ -34,8 +35,7 @@ from repro_torch.models.parallel import (  # noqa: E402
 from repro_torch.train import AdamW, make_train_step  # noqa: E402
 from repro_torch.train.tree import leaves  # noqa: E402
 
-RAISES = ("deepseek-v3-671b", "jamba-1.5-large-398b", "xlstm-125m",
-          "whisper-small", "pixtral-12b")
+RAISES = ("xlstm-125m", "whisper-small", "pixtral-12b")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -103,9 +103,10 @@ def run_case(case: dict, mesh, device: torch.device) -> dict:
     _map2(lambda g, s: spec_of.__setitem__(id(g), s), grads, model.specs)
     out["loss"] = float(metrics["loss"])
     out["grad_sq_norm"] = sq
-    # in jax.tree_util's leaf order (dict keys sorted)
-    out["grads"] = [_np(gather_leaf(g, spec_of[id(g)], par))
-                    for g in leaves(grads)]
+    # in jax.tree_util's leaf order (dict keys sorted), each in the
+    # reference's shape (Mamba's in_proj runs as (D, 2, D_in))
+    out["grads"] = [_np(gather_leaf(g, spec_of[id(g)], par).reshape(
+        f.shape)) for g, f in zip(leaves(grads), leaves(full))]
     return out
 
 

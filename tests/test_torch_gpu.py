@@ -1638,7 +1638,8 @@ def test_sim_kernels_reject_what_they_do_not_take(gen):
 # ---------------------------------------------------------------------------
 
 SHARD_ARCHS = ("llama3.2-1b", "qwen2-72b", "granite-34b",
-               "granite-moe-1b-a400m")
+               "granite-moe-1b-a400m", "deepseek-v3-671b",
+               "jamba-1.5-large-398b")
 SHARD_MESHES = ((1, 4), (2, 2))
 SHARD_RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "_torch_parallel_ranks.py")

@@ -1,5 +1,5 @@
-"""Sharded serving and training of the dense and MoE families on the CPU
-(gloo), against the JAX reference's unsharded model.
+"""Sharded serving and training of the dense, MoE, MLA and hybrid
+families on the CPU (gloo), against the JAX reference's unsharded model.
 
 One spawn a mesh, module-scoped: DATA x MODEL processes run
 ``tests/_torch_parallel_ranks.py``, each join under its own timeout of
@@ -13,15 +13,19 @@ gathered over data), granite-moe with 2 routing groups (on ``(2, 2)``,
 each data rank routes its own group), and llama3.2-1b-sw as long_500k
 runs it (a batch of 1 on every data rank, the window-capped ring
 cache's sequence over the data axes: on ``(2, 2)`` decode combines
-partial softmaxes over data).
+partial softmaxes over data), deepseek-v3-671b (MLA's heads over
+``model`` with the latent cache whole on every rank, the MoE with its
+shared expert, MTP in the loss) and jamba-1.5-large-398b (Mamba's
+channels over ``model``, its attention layer's 2 KV heads taking the
+sequence-split cache on model 4, the MoE every other layer).
 
 Tolerances: logits of the forward, the prefill and every greedy step at
 the port's model bar, f32 atol 1e-4 / rtol 1e-4
 (tests/test_torch_families.py); greedy tokens equal; the loss, every
 leaf's gradient and the global gradient norm at the train tests' 5e-4
-(atol and rtol; tests/test_torch_train.py). DeepSeek (MLA), Jamba
-(Mamba), xLSTM, whisper (encoder-decoder) and pixtral (image) raise
-``NotImplementedError`` naming ROADMAP A11b.
+(atol and rtol; tests/test_torch_train.py). xLSTM, whisper
+(encoder-decoder) and pixtral (image) raise ``NotImplementedError``
+naming ROADMAP A11b.
 """
 
 import dataclasses
@@ -48,9 +52,9 @@ GRAD_TOL = dict(atol=5e-4, rtol=5e-4)
 JOIN_S = 120
 MESHES = ((1, 2), (1, 4), (2, 2))
 ARCHS = ("llama3.2-1b", "qwen2-72b", "granite-34b", "granite-moe-1b-a400m")
-CASES = ARCHS + ("granite-moe-1b-a400m/groups2", "llama3.2-1b-sw/long")
-RAISES = ("deepseek-v3-671b", "jamba-1.5-large-398b", "xlstm-125m",
-          "whisper-small", "pixtral-12b")
+CASES = ARCHS + ("granite-moe-1b-a400m/groups2", "llama3.2-1b-sw/long",
+                 "deepseek-v3-671b", "jamba-1.5-large-398b")
+RAISES = ("xlstm-125m", "whisper-small", "pixtral-12b")
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "_torch_parallel_ranks.py")
 BATCH, SEQ, PROMPT, SMAX, STEPS = 4, 16, 8, 32, 6

@@ -231,11 +231,16 @@ def _at(tree, path):
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16", "1x4"])
 @pytest.mark.parametrize("arch", BUILT)
 def test_execution_layout_differs_only_at_stacked_dense_ffns(arch, mesh):
-    """The layout the port runs is the reference's placements except for
-    a stacked dense FFN weight (repeat, D, F): there the reference's
-    function puts the layer axis over `model` (rank 3 takes its MoE
-    branch) and the port runs the dense rule the reference documents (D
-    over the data axes, the FFN hidden over `model`)."""
+    """The layout the port runs is the reference's placements except at
+    two by-design differences. A stacked dense FFN weight (repeat, D, F):
+    there the reference's function puts the layer axis over `model`
+    (rank 3 takes its MoE branch), or replicates the weight where the
+    layers do not divide `model`, and the port runs the dense rule the
+    reference documents (D over the data axes, the FFN hidden over
+    `model`). A Mamba in_proj (repeat, D, 2 D_in) runs as (repeat, D, 2,
+    D_in) with D_in over `model`, so that a rank's x and z channels
+    match, where the reference cuts the concatenated axis in one
+    piece."""
     from repro_torch.models.sharding import execution_placements
     _, _, _, tp = _trees(arch)
     m = _stub(mesh)
@@ -255,7 +260,97 @@ def test_execution_layout_differs_only_at_stacked_dense_ffns(arch, mesh):
             else:                          # (repeat, D, F)
                 want = (None, data if a % n_data == 0 else None,
                         "model" if b % n_model == 0 else None)
-            changed += got != _at(ref, path)
+        if path[-2:] == ("core", "in_proj"):
+            r, d, e = leaf.shape           # (repeat, D, 2 D_in)
+            want = (None, data if d % n_data == 0 else None, None,
+                    "model" if (e // 2) % n_model == 0 else None)
+        changed += got != _at(ref, path)
         assert got == want, path
-    if get_arch(arch).family == "dense":
+    if get_arch(arch).family in ("dense", "hybrid"):
         assert changed > 0
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16", "1x4", "2x2"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "jamba-1.5-large-398b",
+                                  "qwen2-72b"])
+def test_execution_cache_keeps_the_latent_whole_over_model(arch, mesh):
+    """The cache the port runs is the reference's placements, but MLA's
+    latent (c_kv, k_rope) is replicated over `model`: the absorbed
+    decode contracts every local head with the whole latent. The data
+    axes, the KV heads and the Mamba state keep the reference's."""
+    from repro_torch.models.sharding import execution_cache_placements
+    cfg = get_arch(arch)
+    m = _stub(mesh)
+    for shape, shard_seq in (((128, 1024), False), ((1, 4096), True)):
+        tc, _ = init_cache(cfg, *shape, device="meta")
+        ref = dict(_port_flat(cache_placements(tc, m, shard_seq=shard_seq)))
+        run = dict(_port_flat(execution_cache_placements(
+            tc, m, shard_seq=shard_seq)))
+        assert run.keys() == ref.keys()
+        for path, spec in ref.items():
+            if path.endswith(("['c_kv']", "['k_rope']")):
+                assert "model" in spec
+                spec = tuple(None if e == "model" else e for e in spec)
+            assert run[path] == spec, path
+
+
+def test_mamba_shards_hold_matching_x_and_z_channels():
+    """Each rank's local in_proj, read as the block reads it ((D, 2
+    D_in / model), split in halves), gives x and the gate z of the same
+    channels, the channels its conv_w, dt, A and skip rows and its
+    carried state hold; and ShardedModel.init_local's deterministic
+    leaves (A, dt's weight and bias, the skip, the norm scales) equal
+    the rows of Model.init's."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.parallel import ShardedModel
+    cfg = get_smoke("jamba-1.5-large-398b")
+    full = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    d_in = cfg.d_model * cfg.mamba_expand
+    for mesh in ("1x4", "2x2"):
+        m = _stub(mesh)
+        n_model, n_data = m.shape["model"], m.shape["data"]
+        c = d_in // n_model
+        for r in range(n_model):
+            coords = {"data": n_data - 1, "model": r}
+            local = shard_params(full, m, coords)
+            for bi, blk in enumerate(cfg.segments[0].blocks):
+                if blk.kind != "mamba":
+                    continue
+                want, got = full["segments"][0][bi]["core"], \
+                    local["segments"][0][bi]["core"]
+                w = got["in_proj"]                   # (1, D / data, 2, c)
+                assert w.shape == (1, cfg.d_model // n_data, 2, c)
+                xs, z = w.reshape(1, w.shape[1], -1).chunk(2, dim=-1)
+                rows = slice((n_data - 1) * w.shape[1], n_data * w.shape[1])
+                chans = slice(r * c, (r + 1) * c)
+                ref_in = want["in_proj"][:, rows]
+                assert torch.equal(xs, ref_in[..., :d_in][..., chans])
+                assert torch.equal(z, ref_in[..., d_in:][..., chans])
+                for key in ("w_dt", "b_dt", "d_skip", "a_log"):
+                    assert torch.equal(got[key], want[key][:, chans]), key
+                assert torch.equal(got["conv_w"], want["conv_w"][..., chans])
+
+    class Mesh:         # a (2, 2) DeviceMesh's surface, for one rank
+        mesh_dim_names = ("data", "model")
+
+        def size(self, i):
+            return 2
+
+        def get_coordinate(self):
+            return [1, 1]
+
+        def get_group(self, name):
+            return None
+
+    model = ShardedModel(cfg, Mesh(), torch.device("cpu"))
+    local = model.init_local(torch.Generator().manual_seed(1))
+    det = ("w_dt", "b_dt", "d_skip", "a_log", "scale")
+    n = 0
+    for path, leaf in _walk(local):
+        if path[-1] in det:
+            want = _at(full, path)
+            idx = local_slices(want.shape, _at(model.specs, path),
+                               _stub("2x2"), {"data": 1, "model": 1})
+            assert torch.equal(leaf, want[idx]), path
+            n += 1
+    assert n == 4 * 7 + 2 * 8 + 1         # 7 Mamba layers, 16 norms, final
