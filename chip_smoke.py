@@ -170,7 +170,13 @@ Phases, in order; any failure exits non-zero:
    card's peak, one traced step's busy and NCCL shares on rank 0, and
    each rank's launches (every rank must launch flash, decode attention
    and rmsnorm, exactly as the config implies); (d) the port's dry-run of
-   (c) on the (1, 4) mesh beside (c)'s measured peak. On fewer cards it
+   (c) on the (1, 4) mesh beside (c)'s measured peak; (e) granite-34b's
+   sequence-split decode; (f)-(i) DeepSeek-V3 and Jamba cut and whole;
+   (j) xlstm-125m, (k) whisper-small (1500 stub frames a row) and (l)
+   pixtral-12b whole (40 layers, 1024 stub patches a row, rank 0's
+   weights broadcast a leaf at a time), f32 at published width, against
+   one card on both meshes at (a)'s bar, phase 12's prompts, each
+   mesh's shards a card, peak and seconds logged. On fewer cards it
    prints "not run";
 12. the recurrent, encoder-decoder and image families at published
    width, f32, seeded random weights, each freed before the next: (a)
@@ -216,6 +222,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import operator
@@ -375,6 +382,14 @@ PAR_JOIN_S = 900
 PAR_DEEPSEEK_CUT = (1, 1)       # dense, MoE layers
 PAR_HYBRID_BLOCKS = (3, 5)
 PAR_DEEPSEEK_WHOLE = (3, 9)
+# phase 11 (j)-(l): xlstm-125m, whisper-small (1500 stub frames a row)
+# and pixtral-12b whole (40 layers, 49.0 GB in f32; 1024 stub patches a
+# row, rank 0's weights broadcast a leaf at a time) at published width,
+# f32, each against one card on both meshes: (arch, batch, text prompt,
+# cache slots) as phase 12 decodes them
+PAR_FAMILIES = (("j", "xlstm-125m", DECODE_BATCH, PROMPT, SMAX),
+                ("k", "whisper-small", DECODE_BATCH, 64, 448),
+                ("l", "pixtral-12b", 4, 64, 1152))
 # phase 10: llama3.2-1b trained at published width, f32 (the reference's
 # dtype), remat on as the dry-run sets it for every train shape
 # (src/repro/launch/shapes.py:124-127); train_4k's sequence length with
@@ -3983,22 +3998,24 @@ def train_full_width(cfg, smoke_cfg, batch_size: int, seq: int,
 
 
 # --------------------------------------------------------------- phase 11
-def _p11_greedy(model, params, prompt, steps: int):
-    """Prefill and ``steps`` greedy steps of a (sharded or plain) model
-    on this rank's rows: (every step's whole-vocabulary logits (B, 1 +
-    steps, V), tokens (B, 1 + steps), prefill s, the steps' s)."""
+def _p11_greedy(model, params, batch, steps: int, smax: int = SMAX):
+    """Prefill ``batch`` (this rank's rows: the prompt and the stub
+    features its config takes) into ``smax`` slots and ``steps`` greedy
+    steps of a (sharded or plain) model: (every step's whole-vocabulary
+    logits (B, 1 + steps, V), tokens (B, 1 + steps), prefill s, the
+    steps' s)."""
     whole = model.gather_logits
+    pos = batch["tokens"].shape[1] + model.cfg.num_image_tokens
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, state = model.prefill(params, {"tokens": prompt}, SMAX)
+    logits, state = model.prefill(params, batch, smax)
     outs = [whole(logits)]
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
     toks = [outs[-1].argmax(-1)]
     t0 = time.perf_counter()
     for i in range(steps):
-        logits, state = model.decode_step(params, toks[-1], PROMPT + i,
-                                          state)
+        logits, state = model.decode_step(params, toks[-1], pos + i, state)
         outs.append(whole(logits))
         toks.append(outs[-1].argmax(-1))
     torch.cuda.synchronize()
@@ -4012,6 +4029,24 @@ def _p11_rel(got: torch.Tensor, exp: torch.Tensor) -> float:
 
 def _p11_dev(rank: int) -> torch.device:
     return torch.device("cuda", rank)
+
+
+def _p11_batch(cfg, tokens: torch.Tensor, seed: int) -> dict:
+    """``tokens`` and, for whisper or pixtral, seeded stub frames
+    (encoder_max_frames a row) or patch embeddings of as many rows, the
+    same on every rank."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": tokens}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.standard_normal(
+            (tokens.shape[0], cfg.encoder_max_frames, AUDIO_FEAT_DIM),
+            dtype=np.float32)
+    if cfg.num_image_tokens:
+        batch["image_feats"] = rng.standard_normal(
+            (tokens.shape[0], cfg.num_image_tokens, IMAGE_FEAT_DIM),
+            dtype=np.float32)
+    return {k: v if k == "tokens" else torch.from_numpy(v).to(tokens.device)
+            for k, v in batch.items()}
 
 
 def _p11_draw(cfg, dev):
@@ -4054,15 +4089,19 @@ def _p11_scatter(model, cfg, rank: int, dev):
     return _map2(lambda leaf, spec: next(shards), model.full, model.specs)
 
 
-def _p11_against_one_card(rank: int, cfg, meshes,
-                          scatter: bool = False) -> dict:
-    """(a), (b), (e): the same seeded weights, drawn on every card; rank
-    0 runs the plain model on its card, then every mesh of ``meshes``
-    runs the sharded one. With ``scatter`` ((f), (g): a model whose full
+def _p11_against_one_card(rank: int, cfg, meshes, scatter: bool = False,
+                          batch: int = DECODE_BATCH, prompt_len: int = PROMPT,
+                          smax: int = SMAX) -> dict:
+    """(a), (b), (e), (j), (k): the same seeded weights, drawn on every
+    card; rank 0 runs the plain model on its card, then every mesh of
+    ``meshes`` runs the sharded one: the forward of PAR_FWD, then
+    ``batch`` x ``prompt_len`` prefilled into ``smax`` slots and
+    PAR_STEPS greedy steps, with the stub frames or image features the
+    config takes. With ``scatter`` ((f), (g), (l): a model whose full
     tree and shards do not fit one card together) only rank 0 draws
     them, and each mesh's shards come from :func:`_p11_scatter`. Returns
-    rank 0's errors and token agreement, and this rank's launches over
-    the sharded runs."""
+    rank 0's errors and token agreement, each mesh's shards a card and
+    peak, and this rank's launches over the sharded runs."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.parallel import (ShardedModel, shard_batch,
                                              shard_params)
@@ -4070,16 +4109,17 @@ def _p11_against_one_card(rank: int, cfg, meshes,
     t_part = time.perf_counter()
     full = _p11_draw(cfg, dev) if rank == 0 or not scatter else None
     rng = np.random.default_rng(11)
-    fwd = torch.from_numpy(rng.integers(0, cfg.vocab_size, PAR_FWD)).to(dev)
-    prompt = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (DECODE_BATCH, PROMPT))).to(dev)
+    fwd = _p11_batch(cfg, torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, PAR_FWD)).to(dev), 12)
+    prompt = _p11_batch(cfg, torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (batch, prompt_len))).to(dev), 13)
     out = {"meshes": {}}
     with torch.no_grad():
         if rank == 0:
             plain = build_model(cfg, dev)
-            ref_fwd, _ = plain.forward(full, {"tokens": fwd})
+            ref_fwd, _ = plain.forward(full, fwd)
             ref_steps, ref_toks, _, _ = _p11_greedy(plain, full, prompt,
-                                                    PAR_STEPS)
+                                                    PAR_STEPS, smax)
         if scatter:
             del full
             gc.collect()
@@ -4096,11 +4136,11 @@ def _p11_against_one_card(rank: int, cfg, meshes,
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
             reset_counts()
-            logits, _ = model.forward(local, shard_batch({"tokens": fwd},
-                                                         mesh))
+            t_mesh = time.perf_counter()
+            logits, _ = model.forward(local, shard_batch(fwd, mesh))
             logits = par.all_gather(model.gather_logits(logits), 0, "data")
-            rows = shard_batch({"tokens": prompt}, mesh)["tokens"]
-            steps, toks, _, _ = _p11_greedy(model, local, rows, PAR_STEPS)
+            steps, toks, _, _ = _p11_greedy(
+                model, local, shard_batch(prompt, mesh), PAR_STEPS, smax)
             steps = par.all_gather(steps, 0, "data")
             toks = par.all_gather(toks, 0, "data")
             add_counts(total, counts())
@@ -4110,6 +4150,9 @@ def _p11_against_one_card(rank: int, cfg, meshes,
                     "steps_rel": _p11_rel(steps, ref_steps),
                     "tokens_equal": int((toks == ref_toks).sum()),
                     "tokens": toks.numel(),
+                    "local_gb": sum(t.numel() * t.element_size()
+                                    for t in _leaves(local)) / 1e9,
+                    "s": time.perf_counter() - t_mesh,
                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
                     "collectives": {f"{k}/{n}": c for (k, n), (c, _)
                                     in par.stats.by_kind.items()}}
@@ -4160,8 +4203,8 @@ def _p11_whole(rank: int, cfg) -> dict:
         _, state = model.prefill(params, {"tokens": prompt}, SMAX)   # cold
         del state
         reset_counts()
-        steps, toks, pre_s, dec_s = _p11_greedy(model, params, prompt,
-                                                PAR_WHOLE_STEPS)
+        steps, toks, pre_s, dec_s = _p11_greedy(
+            model, params, {"tokens": prompt}, PAR_WHOLE_STEPS)
         launches = counts()
         want = launches_per_forward(cfg, PROMPT)
         for k, n in launches_per_step(cfg).items():
@@ -4260,6 +4303,11 @@ def _p11_parts(rank: int) -> dict:
             *PAR_DEEPSEEK_WHOLE))),
         "i": lambda: _p11_whole(rank, par_hybrid()),
     }
+    for part, arch, batch, prompt_len, smax in PAR_FAMILIES:
+        runs[part] = functools.partial(
+            _p11_against_one_card, rank, get_arch(arch), PAR_MESHES,
+            scatter=arch == "pixtral-12b", batch=batch,
+            prompt_len=prompt_len, smax=smax)
     res: dict = {}
     for part, run in runs.items():
         res[part] = run()
@@ -4366,9 +4414,12 @@ def sharded_on_four_cards() -> dict:
     (g) jamba-1.5-large-398b with its experts, cut, f32, drop-free, on
     both meshes, the bar of (a); (h) deepseek-v3-671b at
     PAR_DEEPSEEK_WHOLE layers, bf16, and (i) one whole period of Jamba,
-    f32, served on (1, 4) as (c) is. Every rank of (f)-(i) must launch
-    rmsnorm and flash attention, and of (g) and (i) the scan and decode
-    attention too. Returns the ranks' launches, summed."""
+    f32, served on (1, 4) as (c) is; (j) xlstm-125m, (k) whisper-small
+    and (l) pixtral-12b whole at published width, f32, on both meshes,
+    the bar of (a). Every rank of (f)-(i) must launch rmsnorm and flash
+    attention, and of (g) and (i) the scan and decode attention too; of
+    (j) rmsnorm, of (k) and (l) rmsnorm, flash and decode attention.
+    Returns the ranks' launches, summed."""
     import multiprocessing as mp
     out_dir = ROOT / "build" / "phase11"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -4419,19 +4470,25 @@ def sharded_on_four_cards() -> dict:
                      f" dense+MoE layers with MTP, f32, drop-free"),
                ("g", f"jamba-1.5-large-398b blocks "
                      f"{list(PAR_HYBRID_BLOCKS)} with experts, f32, "
-                     f"drop-free"))
+                     f"drop-free"),
+               ("j", "xlstm-125m whole, f32"),
+               ("k", "whisper-small whole, f32, 1500 stub frames a row"),
+               ("l", "pixtral-12b whole (40 layers), f32, 1024 stub "
+                     "patches a row"))
+    failed = []         # every part is logged before phase 11 fails
     for part, label in against:
         for mesh, m in res[0][part]["meshes"].items():
             log(f"  ({part}) {label} on ({mesh.replace('x', ', ')}): "
                 f"forward {PAR_FWD[0]}x{PAR_FWD[1]} max|dlogit|/max|logit| "
-                f"{m['forward_rel']:.3e}; prefill {DECODE_BATCH}x{PROMPT} + "
+                f"{m['forward_rel']:.3e}; prefill + "
                 f"{PAR_STEPS} steps {m['steps_rel']:.3e} (bar {PAR_REL:g}); "
                 f"greedy tokens equal {m['tokens_equal']} of {m['tokens']}; "
-                f"peak {m['peak_gb']:.2f} GB on rank 0; "
+                f"{m['local_gb']:.2f} GB of shards a card, peak "
+                f"{m['peak_gb']:.2f} GB on rank 0, {m['s']:.1f} s; "
                 f"collectives a rank {m['collectives']}")
             if not (m["forward_rel"] <= PAR_REL and m["steps_rel"] <= PAR_REL
                     and m["tokens_equal"] == m["tokens"]):
-                raise RuntimeError(f"phase 11 ({part}) {mesh}: {m}")
+                failed.append(f"({part}) {mesh}: {m}")
         log(f"  ({part}) launches a rank over its sharded runs: "
             f"{[x[part]['launches'] for x in res]}; {res[0][part]['s']:.1f}"
             f" s in all")
@@ -4444,13 +4501,15 @@ def sharded_on_four_cards() -> dict:
                            f"sequence: {[x['e']['launches'] for x in res]}")
     need = {"f": ("rmsnorm", "flash_attention"),
             "g": ("rmsnorm", "flash_attention", "mamba_scan",
-                  "decode_attention")}
+                  "decode_attention"),
+            "j": ("rmsnorm",),
+            "k": ("rmsnorm", "flash_attention", "decode_attention"),
+            "l": ("rmsnorm", "flash_attention", "decode_attention")}
     for part, kernels in need.items():
         for x in res:
             if not all(x[part]["launches"][k] > 0 for k in kernels):
-                raise RuntimeError(f"phase 11 ({part}): a rank launched no "
-                                   f"kernel of the path: "
-                                   f"{x[part]['launches']}")
+                failed.append(f"({part}): a rank launched no kernel of the "
+                              f"path: {x[part]['launches']}")
     whole = (("c", "qwen2-72b whole: 80 layers, bf16",
               ("rmsnorm", "flash_attention", "decode_attention")),
              ("h", f"deepseek-v3-671b, {PAR_DEEPSEEK_WHOLE[0]} dense + "
@@ -4468,9 +4527,11 @@ def sharded_on_four_cards() -> dict:
         log(f"  (d) the dry-run of (c) on (1, {PAR_CARDS}), {kind}: peak "
             f"{peaks[kind] / 1e9:.2f} GB a device; (c) measured "
             f"{measured / 1e9:.2f} GB: ratio {peaks[kind] / measured:.3f}")
+    if failed:
+        raise RuntimeError("phase 11 failed: " + "; ".join(failed))
     total = dict.fromkeys(COUNTERS, 0)
     for x in res:
-        for part in "abecfghi":
+        for part in "abecfghijkl":
             add_counts(total, x[part]["launches"])
     return total
 

@@ -34,12 +34,13 @@ def enabled() -> bool:
     return getattr(_state, "flops", None) is not None
 
 
-def add(flops: float, *tensors) -> None:
+def add(flops: float, *tensors, nbytes: float = None) -> None:
     """Count a kernel call: its FLOPs, and its inputs' and outputs'
-    bytes (each read or written once)."""
+    bytes (each read or written once), or ``nbytes`` where a branch
+    counts the bytes of a loop of operations itself."""
     _state.flops += float(flops)
-    _state.bytes += float(sum(t.numel() * t.element_size()
-                              for t in tensors))
+    _state.bytes += float(nbytes) if nbytes is not None else float(
+        sum(t.numel() * t.element_size() for t in tensors))
 
 
 def flops() -> float:

@@ -17,9 +17,11 @@ their FLOPs. The numbers are one rank's, measured against one H100's
 Nothing is compiled, so ``compile_s`` is 0 and ``lower_s`` is the time
 of the traced step. The memory is what the step's tensors occupy at
 their peak (parameters, optimizer state, batch and cache resident, plus
-the step's live tensors), not an allocator's reserve. Architectures the
-port does not shard yet (xLSTM, encoder-decoder, image: ROADMAP A11b)
-are recorded as ``"skipped"`` with the reason.
+the step's live tensors), not an allocator's reserve. The batches are
+the reference's ``batch_specs`` (whisper's stub frames, pixtral's stub
+image features beside the tokens); a combination the reference skips
+(long_500k on a full-attention architecture) is recorded as
+``"skipped"`` with its reason.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-72b \\
@@ -51,6 +53,7 @@ from repro_torch.launch.shapes import (
     SHAPES,
     ShapeSpec,
     applicable,
+    batch_specs,
     dryrun_config,
 )
 from repro_torch.models.kvcache import init_cache
@@ -153,18 +156,6 @@ def _fake_mesh(shape: Tuple[int, ...], names: Tuple[str, ...]):
     return init_device_mesh("cpu", shape, mesh_dim_names=names)
 
 
-def _skip_reason(cfg) -> str:
-    if cfg.is_encoder_decoder or cfg.num_image_tokens:
-        return ("encoder-decoder and image models are not sharded yet "
-                "(ROADMAP A11b)")
-    kinds = {b.kind for s in cfg.segments for b in s.blocks} - {"attn",
-                                                                 "mamba"}
-    if kinds:
-        return (f"{'/'.join(sorted(kinds))} blocks are not sharded yet "
-                f"(ROADMAP A11b)")
-    return ""
-
-
 def _analytic_bytes_per_device(cfg, shape: ShapeSpec, chips: int,
                                data_size: int, big: bool,
                                cache_bytes: int) -> float:
@@ -189,7 +180,8 @@ def lower_one(arch: str, shape: Union[str, ShapeSpec],
               verbose: bool = True) -> Dict[str, Any]:
     """Trace one combination on ``meta``; returns the artifact dict.
     ``shape`` is a name of ``SHAPES`` or a ``ShapeSpec`` of one's own;
-    ``smax`` (prefill only) sizes the cache, by default the sequence."""
+    ``smax`` (prefill only) sizes the cache, by default the sequence and
+    an image prefix, as the reference's."""
     if isinstance(shape, str):
         shape = SHAPES[shape]
     mesh_name, mesh_shape, axis_names = _mesh_dims(mesh)
@@ -199,8 +191,7 @@ def lower_one(arch: str, shape: Union[str, ShapeSpec],
     head = {"arch": arch, "arch_effective": arch_eff, "shape": shape.name,
             "mesh": mesh_name}
     ok, why = applicable(base, shape)
-    why = why or _skip_reason(base)
-    if not ok or why:
+    if not ok:
         return {**head, "status": "skipped", "reason": why}
 
     dmesh = _fake_mesh(mesh_shape, axis_names)
@@ -211,6 +202,11 @@ def lower_one(arch: str, shape: Union[str, ShapeSpec],
     over_data = shape.batch % data_size == 0
     model = ShardedModel(cfg, dmesh, META, batch_over_data=over_data)
     b_local = shape.batch // data_size if over_data else shape.batch
+    # this rank's rows of the reference's batch
+    batch = {k: torch.empty((b_local,) + tuple(v.shape[1:]), dtype=v.dtype,
+                            device=META)
+             for k, v in batch_specs(cfg, shape).items()}
+    smax = smax or shape.seq + cfg.num_image_tokens
 
     t0 = time.time()
     params = model.init_local(None)
@@ -226,31 +222,26 @@ def lower_one(arch: str, shape: Union[str, ShapeSpec],
         micro = max(1, shape.batch // data_size) if big else 1
         step = make_train_step(model, opt, microbatches=micro,
                                accum_dtype="bfloat16" if big else None)
-        batch = {"tokens": torch.empty((b_local, shape.seq),
-                                       dtype=torch.int32, device=META)}
         kept += leaves(batch)
 
         def run():
             return step(params, opt_state, batch)[2]["loss"]
     elif shape.kind == "prefill":
-        batch = {"tokens": torch.empty((b_local, shape.seq),
-                                       dtype=torch.int32, device=META)}
         kept += leaves(batch)
         # the cache's layout, set up outside the traced step (the step
         # allocates the local cache itself)
-        model.init_cache(shape.batch, smax or shape.seq, device=META)
-        cache_full = _tree_bytes(init_cache(cfg, shape.batch,
-                                            smax or shape.seq,
+        model.init_cache(shape.batch, smax, device=META)
+        cache_full = _tree_bytes(init_cache(cfg, shape.batch, smax,
                                             device=META)[0])
 
         def run():
             with torch.no_grad():
-                return model.prefill(params, batch, smax or shape.seq)
+                return model.prefill(params, batch, smax)
     else:
         shard_seq = shape.batch == 1
         state = model.init_cache(shape.batch, shape.seq, shard_seq=shard_seq,
                                  device=META)
-        kept += leaves(state[0])
+        kept += leaves(state[:2])
         cache_full = _tree_bytes(init_cache(cfg, shape.batch, shape.seq,
                                             device=META)[0])
         token = torch.empty((b_local, 1), dtype=torch.int32, device=META)

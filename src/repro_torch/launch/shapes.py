@@ -9,9 +9,9 @@ the reference's ``repro/launch/shapes.py``.
                                                archs only)
 
 ``batch_specs``, ``cache_specs`` and ``decode_specs`` return ``meta``
-tensors (shapes and dtypes, no storage). The encoder-decoder and image
-families' adjustments are kept as the reference writes them, for when
-the port builds those models.
+tensors (shapes and dtypes, no storage), with the reference's
+adjustments for the encoder-decoder (stub frames) and image (stub patch
+features) families.
 """
 
 from __future__ import annotations

@@ -29,6 +29,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig, Block
 
 Device = Union[str, torch.device, None]
+# the xLSTM cells' log-space stabilizer m before the first token
+STABILIZER_INIT = {"mlstm": -1e30, "slstm": -1e9}
 
 
 def _attn_cache(cfg: ArchConfig, repeat: int, batch: int, smax: int,
@@ -70,15 +72,17 @@ def _block_cache(cfg: ArchConfig, block: Block, repeat: int, batch: int,
             "n": torch.zeros((repeat, batch, cfg.num_heads, dh), dtype=f32,
                              device=device),
             # log-space stabilizer carried across decode steps
-            "m": torch.full((repeat, batch, cfg.num_heads), -1e30,
-                            dtype=f32, device=device),
+            "m": torch.full((repeat, batch, cfg.num_heads),
+                            STABILIZER_INIT["mlstm"], dtype=f32,
+                            device=device),
         }
     if block.kind == "slstm":
         shape = (repeat, batch, cfg.d_model)
         return {"h": torch.zeros(shape, dtype=f32, device=device),
                 "c": torch.zeros(shape, dtype=f32, device=device),
                 "n": torch.zeros(shape, dtype=f32, device=device),
-                "m": torch.full(shape, -1e9, dtype=f32, device=device)}
+                "m": torch.full(shape, STABILIZER_INIT["slstm"], dtype=f32,
+                                device=device)}
     raise ValueError(block.kind)
 
 

@@ -25,7 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import meta, ops
 from repro_torch.models.config import ArchConfig
 
 Params = Dict[str, Any]
@@ -115,6 +115,17 @@ class Local:
     def layer(self, p: Params, spec) -> Params:
         """One layer's weights for use (FSDP's all-gather)."""
         return p
+
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's slice of ``x`` along ``dim``, concatenated
+        (the backward reduce-scatters)."""
+        return x
+
+    def whole(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """A weight split over ``model`` along ``dim``, gathered whole
+        for a computation every model rank repeats (the backward keeps
+        this rank's slice)."""
+        return t
 
     def cache_slots(self, slots: int) -> Tuple[int, int, int]:
         """(first slot, slots, slots in all) of this rank's slice of a
@@ -249,7 +260,8 @@ def attention(params: Params, cfg: ArchConfig, x: torch.Tensor,
         # a replicated KV weight that this rank uses in part
         return par.to_model(t) if kv_whole and name in KV_WEIGHTS else t
 
-    src = x if kv_x is None else kv_x
+    # the encoder's states feed every rank's heads: their gradient sums
+    src = x if kv_x is None else (par.to_model(kv_x) if heads_tp else kv_x)
     q = torch.einsum("bsd,dhk->bshk", x, w("wq"))
     k = torch.einsum("bsd,dhk->bshk", src, w("wk"))
     v = torch.einsum("bsd,dhk->bshk", src, w("wv"))
@@ -714,7 +726,8 @@ def init_mlstm(gen: torch.Generator, cfg: ArchConfig,
 
 
 def mlstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
-                state: Optional[Params] = None) -> torch.Tensor:
+                state: Optional[Params] = None,
+                par: Local = LOCAL) -> torch.Tensor:
     """mLSTM matrix-memory cell, chunkwise parallel, with the reference's
     log-space stabilizer (see ``repro/models/layers.py:mlstm_block``):
     weights exp(F_t - F_s + i~_s) are divided by exp(m_t) with
@@ -726,25 +739,58 @@ def mlstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
     cell continues from it and writes the final triple into it in place,
     as :func:`mamba_block` does; without, it starts from zeros and m =
     -1e30, the initial state of ``kvcache.init_cache``.
+
+    Under a mesh the heads are this rank's when ``mq`` holds whole heads
+    of fewer than ``D_in`` channels: ``up`` (as ``(D, 2, D_in / model)``:
+    the same channels of x and of the gate z) is column-parallel, x's
+    channels are all-gathered over ``model`` (``mq``/``mk``/``mv`` are
+    column-parallel over heads and read every channel), ``w_i``/``w_f``
+    are row-parallel and the gates' partial sums all-reduced (one
+    collective for both), the state holds the rank's heads, the group
+    norm is per head, and ``down`` is row-parallel, its output
+    all-reduced. Gathering x (rows x ``D_in``) rather than ``up``'s x
+    half (``D x D_in``) keeps every product at a ``1 / model`` share,
+    and moves less wherever a call has fewer rows than ``D``, as every
+    decode step has. Where ``model`` splits a head (xlstm-125m's 4 heads
+    on 16), every split weight is gathered over ``model`` and each rank
+    runs the whole cell.
     """
     b, s, d = x.shape
     h = cfg.num_heads
     d_in = d * cfg.xlstm_expand
     dh = d_in // h
     cd = cfg.cdtype
+    up = params["up"].reshape(d, 2, -1)          # [x | z] of the channels
+    mq, mk, mv = params["mq"], params["mk"], params["mv"]
+    w_i, w_f, down = params["w_i"], params["w_f"], params["down"]
+    if mq.shape[1] % dh:            # model splits a head: run it whole
+        up, mq, mk, mv = par.whole(up, 2), par.whole(mq, 1), \
+            par.whole(mk, 1), par.whole(mv, 1)
+        w_i, w_f, down = par.whole(w_i, 0), par.whole(w_f, 0), \
+            par.whole(down, 0)
+    dl = up.shape[2]                             # this rank's channels
+    hl = dl // dh
+    tp = dl < d_in
+    if tp:
+        x = par.to_model(x)
 
-    xu, z = torch.einsum("bsd,de->bse", x,
-                         params["up"].to(cd)).chunk(2, dim=-1)
-    q = torch.einsum("bse,ef->bsf", xu, params["mq"].to(cd))
-    k = torch.einsum("bse,ef->bsf", xu, params["mk"].to(cd))
-    v = torch.einsum("bse,ef->bsf", xu, params["mv"].to(cd))
-    q = q.reshape(b, s, h, dh).float() / math.sqrt(dh)
-    k = k.reshape(b, s, h, dh).float()
-    v = v.reshape(b, s, h, dh).float()
-    logit_i = (torch.einsum("bse,eh->bsh", xu, params["w_i"].to(cd))
-               + params["b_i"].to(cd)).float()
-    logit_f = (torch.einsum("bse,eh->bsh", xu, params["w_f"].to(cd))
-               + params["b_f"].to(cd)).float()
+    xz = torch.einsum("bsd,dte->bste", x, up.to(cd))
+    xu, z = xz[:, :, 0], xz[:, :, 1]
+    xa = par.gather_model(xu, 2) if tp else xu   # every channel
+    q = torch.einsum("bse,ef->bsf", xa, mq.to(cd))
+    k = torch.einsum("bse,ef->bsf", xa, mk.to(cd))
+    v = torch.einsum("bse,ef->bsf", xa, mv.to(cd))
+    q = q.reshape(b, s, hl, dh).float() / math.sqrt(dh)
+    k = k.reshape(b, s, hl, dh).float()
+    v = v.reshape(b, s, hl, dh).float()
+    gates = torch.einsum("bse,eh->bsh", xu,
+                         torch.cat([w_i, w_f], dim=1).to(cd))
+    if tp:      # partial sums over the channels; this rank's heads
+        h0 = par.model_rank * hl
+        gates = par.to_model(par.from_model(gates)).view(
+            b, s, 2, h)[..., h0:h0 + hl].reshape(b, s, 2 * hl)
+    logit_i = (gates[..., :hl] + params["b_i"].to(cd)).float()
+    logit_f = (gates[..., hl:] + params["b_f"].to(cd)).float()
     log_f = F.logsigmoid(logit_f)                      # (B,S,H), <= 0
 
     chunk = min(cfg.ssm_chunk, s)
@@ -756,10 +802,10 @@ def mlstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
     if state is not None:
         C, n, m_prev = (state[k].float() for k in ("C", "n", "m"))
     else:
-        C = torch.zeros((b, h, dh, dh), dtype=torch.float32,
+        C = torch.zeros((b, hl, dh, dh), dtype=torch.float32,
                         device=x.device)
-        n = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-        m_prev = torch.full((b, h), -1e30, dtype=torch.float32,
+        n = torch.zeros((b, hl, dh), dtype=torch.float32, device=x.device)
+        m_prev = torch.full((b, hl), -1e30, dtype=torch.float32,
                             device=x.device)
     ys = []
     for c0 in range(0, s, chunk):
@@ -802,9 +848,14 @@ def mlstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
     # per-head group norm
     var = y.square().mean(dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-6)
-    y = y.reshape(b, s, d_in).to(cd) * params["out_norm"].to(cd)
+    norm = params["out_norm"]
+    if tp:          # replicated, used in part
+        norm = par.to_model(norm)[par.model_rank * dl:
+                                  (par.model_rank + 1) * dl]
+    y = y.reshape(b, s, dl).to(cd) * norm.to(cd)
     y = y * F.silu(z)
-    return torch.einsum("bse,ed->bsd", y, params["down"].to(cd))
+    out = torch.einsum("bse,ed->bsd", y, down.to(cd))
+    return par.from_model(out) if tp else out
 
 
 def init_slstm(gen: torch.Generator, cfg: ArchConfig,
@@ -828,7 +879,15 @@ def slstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
 
     With ``state`` (dict h, c, n, m: (B,D) f32) the cell continues from
     it and writes the final four into it in place; without, it starts
-    from zeros and m = -1e9, as ``kvcache.init_cache``'s state."""
+    from zeros and m = -1e9, as ``kvcache.init_cache``'s state.
+
+    Its weights are replicated under a mesh (the reference's placement),
+    so every rank runs the whole cell and no step issues a collective.
+    In the dry-run (``meta`` tensors inside
+    :func:`repro_torch.kernels.meta.shapes_only`) the token loop is one
+    operation, :class:`_MetaRecurrence`, as a kernel's meta branch is:
+    traced a token at a time, xlstm-125m's train_4k would dispatch about
+    a million ``meta`` operations."""
     b, s, d = x.shape
     cd = cfg.cdtype
     pre = torch.einsum("bsd,de->bse", x, params["w_x"].to(cd)) + \
@@ -841,13 +900,32 @@ def slstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
         c = torch.zeros_like(h)
         n = torch.zeros_like(h)
         m = torch.full((b, d), -1e9, dtype=torch.float32, device=x.device)
+    if meta.takes(x):
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (pre, r_h, h, c, n, m))
+        y, h, c, n, m = _MetaRecurrence.apply(pre, r_h, h, c, n, m, grad)
+    else:
+        y, h, c, n, m = _slstm_steps(pre, r_h, h, c, n, m)
+    if state is not None:
+        for key, t in (("h", h), ("c", c), ("n", n), ("m", m)):
+            state[key].copy_(t)
+    return torch.einsum("bsd,de->bse", y.to(cd), params["proj"].to(cd))
+
+
+def _slstm_steps(pre: torch.Tensor, r_h: torch.Tensor, h: torch.Tensor,
+                 c: torch.Tensor, n: torch.Tensor, m: torch.Tensor):
+    """The sLSTM's token loop from the states (h, c, n, m): (every
+    step's h (B,S,D), and the final h, c, n, m). The steps' inputs are
+    one ``unbind``, whose backward stacks their gradients once (a slice
+    a step would materialize a (B,S,4D) gradient in every step's
+    backward)."""
     hs = []
-    for t in range(s):
-        gates = pre[:, t].float() + h @ r_h
+    for pre_t in pre.unbind(1):
+        gates = pre_t.float() + h @ r_h
         z_t, i_t, f_t, o_t = gates.chunk(4, dim=-1)
         z_t = torch.tanh(z_t)
         o_t = torch.sigmoid(o_t)
-        m_new = torch.maximum(f_t + m, i_t)          # log-space stabilizer
+        m_new = torch.maximum(f_t + m, i_t)      # log-space stabilizer
         i_s = torch.exp(i_t - m_new)
         f_s = torch.exp(f_t + m - m_new)
         c = f_s * c + i_s * z_t
@@ -855,8 +933,75 @@ def slstm_block(params: Params, cfg: ArchConfig, x: torch.Tensor,
         h = o_t * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h)
-    if state is not None:
-        for key, t in (("h", h), ("c", c), ("n", n), ("m", m)):
-            state[key].copy_(t)
-    y = torch.stack(hs, dim=1).to(cd)
-    return torch.einsum("bsd,de->bse", y, params["proj"].to(cd))
+    return torch.stack(hs, dim=1), h, c, n, m
+
+
+class _MetaRecurrence(torch.autograd.Function):
+    """The sLSTM's token loop on ``meta`` tensors (the dry-run): the
+    outputs' shapes (every step's h, and the final h, c, n, m), and what
+    :func:`_slstm_steps` would add to the dry-run's counts were it
+    traced a token at a time, from such a trace on ``meta`` (``tests/
+    test_torch_dryrun.py::test_slstm_meta_branch_counts_the_traced_loop``
+    holds the two together). Per step and row, with D the width, B the
+    rows and e the bytes of an element of ``pre``:
+
+    - FLOPs, as ``FlopCounterMode`` counts them: the recurrent product,
+      8 D^2 forward; in the backward 8 D^2 for h's gradient (the first
+      step's only if the initial h takes one) and 8 D^2 for r_h's.
+    - bytes the operations move: 16 D^2 / B (r_h read every step) and
+      260 D forward, 80 D^2 / B and 554 D backward (less 64 D^2 + 104 B D
+      in all), and where ``pre`` is not f32 its casts: (e + 4) 4 D
+      forward and 8 D backward.
+    - live bytes: without grad, the steps' h before their stack and a
+      step's temporaries (7 D f32); with grad, 14 D f32 saved for the
+      backward. At its peak the backward holds, beside dys and the
+      gradients, (14 - e) D f32 and two (D, 4D) partial sums of r_h's
+      gradient.
+
+    The counts are the loop's, not a fused kernel's: eager PyTorch is
+    what runs the loop on the card."""
+
+    @staticmethod
+    def forward(ctx, pre, r_h, h, c, n, m, grad):
+        b, s, d = pre.shape[0], pre.shape[1], h.shape[-1]
+        e = pre.element_size()
+        cast = (e + 4) * 4 * s * b * d if e != 4 else 0
+        work = _f32(pre, (b, 7 + (0 if grad else s), d))
+        ys = _f32(pre, (b, s, d))
+        outs = [_f32(pre, (b, d)) for _ in range(4)]
+        if grad:
+            ctx.kept = [_f32(pre, (b, s, 14 * d))]
+        made = _nbytes(work, ys, *outs, *getattr(ctx, "kept", ()))
+        del work
+        meta.add(8 * b * s * d * d,
+                 nbytes=s * (16 * d * d + 260 * b * d) + cast - made)
+        ctx.shapes = [t.shape for t in (pre, r_h, h, c, n, m)]
+        ctx.dtypes = [t.dtype for t in (pre, r_h, h, c, n, m)]
+        ctx.e = e
+        return (ys, *outs)
+
+    @staticmethod
+    def backward(ctx, dys, *_):
+        ctx.kept.clear()             # the saved steps, freed as they go
+        need = ctx.needs_input_grad
+        (b, s, d4), d, e = ctx.shapes[0], ctx.shapes[2][-1], ctx.e
+        grads = [torch.empty(shape, dtype=dt, device="meta") if need[i]
+                 else None for i, (shape, dt)
+                 in enumerate(zip(ctx.shapes, ctx.dtypes))]
+        held = [_f32(dys, (b, s, (14 - e) * d)), _f32(dys, (2, d, d4))]
+        made = _nbytes(*held, *(g for g in grads if g is not None))
+        del held
+        products = (s - 1 + need[2]) + (s if need[1] else 0)
+        cast = 8 * s * b * d if e != 4 else 0
+        meta.add(8 * b * d * d * products,
+                 nbytes=4 * (20 * s * d * d + 138.5 * s * b * d
+                             - 16 * d * d - 26 * b * d) + cast - made)
+        return (*grads, None)
+
+
+def _f32(like: torch.Tensor, shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+def _nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)

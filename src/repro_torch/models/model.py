@@ -132,12 +132,12 @@ def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
     elif block.kind == "mamba":
         out = L.mamba_block(p["core"], cfg, h, cache, par)
     elif block.kind == "mlstm":
-        out = L.mlstm_block(p["core"], cfg, h, cache)
-    else:
+        out = L.mlstm_block(p["core"], cfg, h, cache, par)
+    else:       # replicated weights: every rank runs the whole cell
         out = L.slstm_block(p["core"], cfg, h, cache)
     x = x + out
     if "cross" in p:
-        x = x + _cross(p, cfg, x, positions, enc_out, cross)
+        x = x + _cross(p, cfg, x, positions, enc_out, cross, par)
     if block.ffn == "dense":
         h = L.rmsnorm(p["norm2"], cfg, x)
         x = x + L.mlp(p["ffn"], cfg, h, par)
@@ -150,29 +150,37 @@ def _apply_block(p: Params, cfg: ArchConfig, block: Block, x: torch.Tensor,
 
 def _cross(p: Params, cfg: ArchConfig, x: torch.Tensor,
            positions: torch.Tensor, enc_out: Optional[torch.Tensor],
-           cross: Optional[Params]) -> torch.Tensor:
+           cross: Optional[Params], par: L.Local = L.LOCAL) -> torch.Tensor:
     """The cross-attention branch of a decoder block (before the residual
     add). With ``enc_out`` (B,F,d), a forward or prefill: attention over
     the encoder's states, no RoPE, no mask; a prefill's ``cross`` (this
     layer's views of the cross cache, F frames) takes the encoder's K/V,
     with no bias, as the reference's. Without it, a decode step: the
     query (no bias, no RoPE) attends over every frame of ``cross``
-    through the flash kernel ("full"), the reference's route."""
+    through the flash kernel ("full"), the reference's route.
+
+    Under a mesh the heads are this rank's as in :func:`L.attention`, and
+    so are the cross cache's; a decode step attends with them and
+    all-reduces ``wo``'s partial output."""
     cd = cfg.cdtype
     w = p["cross"]
     h = L.rmsnorm(p["norm_cross"], cfg, x)
     if enc_out is not None:
         out, _ = L.attention(w, cfg, h, positions, kind="full", kv_x=enc_out,
-                             use_rope=False)
+                             use_rope=False, par=par)
         if cross is not None:
             for key in ("k", "v"):
                 cross[key].copy_(torch.einsum(
                     "bsd,dhk->bshk", enc_out, w["w" + key].to(cd)))
         return out
+    heads_tp = w["wq"].shape[1] < cfg.num_heads
+    if heads_tp:
+        h = par.to_model(h)
     q = torch.einsum("bsd,dhk->bshk", h, w["wq"].to(cd))
     o = ops.attention(q, cross["k"].to(cd), cross["v"].to(cd), None, cd,
                       kind="full")
-    return torch.einsum("bshk,hkd->bsd", o, w["wo"].to(cd))
+    out = torch.einsum("bshk,hkd->bsd", o, w["wo"].to(cd))
+    return par.from_model(out) if heads_tp else out
 
 
 def _init_segment(gen: torch.Generator, cfg: ArchConfig, seg: Segment,
@@ -266,9 +274,12 @@ class Model:
     device: torch.device
 
     # one rank; a sharded model (repro_torch.models.parallel) sets its
-    # mesh's collectives and each segment's per-layer placements
+    # mesh's collectives, the tree's placements, each segment's per-layer
+    # placements and the encoder's
     par = L.LOCAL
+    specs = None
     seg_specs = None
+    enc_specs = None
 
     def init(self, generator: torch.Generator) -> Params:
         """Random parameters in the reference's shapes and dtypes, drawn
@@ -326,23 +337,32 @@ class Model:
         x = self._embed_tokens(params, batch["tokens"])
         if not (cfg.num_image_tokens and "image_feats" in batch):
             return x, 0
+        w = params["img_proj"] if self.specs is None else \
+            self.par.layer(params["img_proj"], self.specs["img_proj"])
         img = torch.einsum("bnf,fd->bnd", batch["image_feats"].to(cfg.cdtype),
-                           params["img_proj"].to(cfg.cdtype))
+                           w.to(cfg.cdtype))
         return torch.cat([img, x], dim=1), img.shape[1]
 
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
         """Whisper's encoder over stub frame features (B,F,128): the
         projection, sinusoidal positions, the encoder stack (full
         attention, RoPE on its self-attention, as the reference's) and
-        its final norm."""
-        cfg = self.cfg
+        its final norm. Under a mesh ``enc_specs`` places the encoder's
+        leaves: its layers run as the decoder's do."""
+        cfg, specs = self.cfg, self.enc_specs
         enc, cd = params["encoder"], cfg.cdtype
+        if specs is not None:
+            enc = {k: enc[k] if k == "segments" else
+                   self.par.layer(enc[k], specs[k]) for k in enc}
         x = torch.einsum("bfe,ed->bfd", frames.to(cd), enc["in_proj"].to(cd))
         x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model,
                                        x.device).to(cd)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for seg, ps in zip(cfg.encoder_segments, enc["segments"]):
-            x, _ = _run_segment(ps, cfg, seg, x, positions, "full")
+        for si, (seg, ps) in enumerate(zip(cfg.encoder_segments,
+                                           enc["segments"])):
+            x, _ = _run_segment(ps, cfg, seg, x, positions, "full",
+                                par=self.par, specs=None if specs is None
+                                else specs["segments"][si])
         return L.rmsnorm(enc["final_norm"], cfg, x)
 
     def _head(self, params: Params, x: torch.Tensor,

@@ -1,6 +1,7 @@
-"""Sharded execution of the dense, MoE, MLA (with MTP) and hybrid
-(Mamba) families on a ``DeviceMesh``: FSDP over the data axes and
-tensor parallelism over ``model``.
+"""Sharded execution of every family of the zoo on a ``DeviceMesh``:
+dense, MoE, MLA (with MTP), hybrid (Mamba), xLSTM, encoder-decoder
+(whisper) and image (pixtral); FSDP over the data axes and tensor
+parallelism over ``model``.
 
 The reference gets sharded execution from GSPMD: it pins placements
 (:mod:`repro.models.sharding`) and XLA inserts the collectives. Here
@@ -48,12 +49,32 @@ attention) run unchanged on the local tensors; no DTensor reaches them.
   ``w_bc`` row-parallel with B and C made whole (then f, since every
   rank scans its channels with all of them), the scan on the local
   channels, ``out_proj`` row-parallel.
+* **xLSTM**: an mLSTM's heads (``up`` run as ``(D, 2, D_in)`` and
+  column-parallel, x's channels all-gathered for ``mq``/``mk``/``mv``,
+  which are column-parallel over heads; ``w_i``/``w_f`` row-parallel,
+  the gates' partial sums all-reduced; the state and the group norm per
+  head; ``down`` row-parallel). Where ``model`` splits a head, the
+  split weights are gathered over ``model`` and every rank runs the
+  whole cell. An sLSTM's weights are replicated, as the reference
+  places them, and so is its state: every rank runs the whole
+  recurrence, with no collective inside its token loop.
+* **Whisper**: the encoder's layers run as the decoder's (its specs in
+  ``enc_specs``, ``in_proj`` gathered over the data axes); the
+  cross-attention's heads are local, as self-attention's are, and so
+  are the cross cache's; the encoder's states go through f into every
+  cross-attention, so their gradient sums over the heads. **Pixtral**:
+  ``img_proj`` gathered over the data axes, the image prefix's rows
+  over the data axes with the text's.
 * **The layout** is :func:`~repro_torch.models.sharding.
   execution_placements`: the reference's placements, but a stacked
   dense FFN weight has its hidden dimension over ``model`` (the rule the
   reference documents) where the reference's ``param_pspec`` puts the
   layer axis, and a Mamba ``in_proj`` runs as ``(D, 2, D_in)``. A
-  dimension that does not divide its axis is replicated.
+  dimension that does not divide its axis is replicated. The cache
+  (:func:`~repro_torch.models.sharding.execution_cache_placements`) is
+  the reference's but for MLA's latent (whole over ``model``), an
+  mLSTM's stabilizer (the rank's heads) and an sLSTM's state (whole
+  over ``model``); whisper's cross cache never splits its frames.
   KV heads that do not divide ``model`` (qwen2's 8 on 16,
   granite-34b's 1) leave ``wk``/``wv`` replicated: a rank computes every
   KV head and attends with the ones its query heads use; the cache then
@@ -76,10 +97,9 @@ mean, each rank's init and the global gradient norm.
 Every collective is counted (:class:`CollectiveStats`: kind, group
 size, bytes of the output), for the roofline's collective term.
 
-The xLSTM cells and the encoder-decoder (whisper) and image (pixtral)
-models are not sharded yet: on a mesh of more than one rank their
-configs raise ``NotImplementedError`` (ROADMAP A11b), before any weight
-is placed.
+MLA's absorbed decode over a latent cache whose sequence is split over
+the data axes (``shard_seq`` with more than one data rank) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -95,13 +115,15 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention_with_lse
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.kvcache import init_cache
+from repro_torch.models.kvcache import STABILIZER_INIT, init_cache
 from repro_torch.models.model import Model, _cross_entropy
 from repro_torch.models.sharding import (
     MODEL,
+    _stacked,
     batch_placements,
     entry_axes,
     execution_cache_placements,
+    execution_cross_placements,
     execution_placements,
     execution_view,
     local_shape,
@@ -244,11 +266,26 @@ class Parallel(L.Local):
 
     def gather_data(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """All-gather over the data axes; the backward reduce-scatters."""
-        if self.data_size == 1:
+        return self._gather(x, dim, "data", True)
+
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather over ``model``; the backward reduce-scatters."""
+        return self._gather(x, dim, MODEL, True)
+
+    def whole(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather over ``model`` for a computation every model rank
+        repeats on the same inputs: each rank's gradient is then the
+        whole one, and the backward keeps this rank's slice of it."""
+        return self._gather(t, dim, MODEL, False)
+
+    def _gather(self, x: torch.Tensor, dim: int, entry,
+                reduce: bool) -> torch.Tensor:
+        _, n, _ = self.group(entry)
+        if n == 1:
             return x
         if not _needs_grad(x):
-            return self.all_gather(x, dim, "data")
-        return _GatherData.apply(x, dim, self)
+            return self.all_gather(x, dim, entry)
+        return _Gather.apply(x, dim, self, entry, reduce)
 
     def weight(self, p: torch.Tensor, spec) -> torch.Tensor:
         """A weight for use: its data-sharded dim all-gathered
@@ -380,15 +417,24 @@ class _Reduce(torch.autograd.Function):
         return g, None, None
 
 
-class _GatherData(torch.autograd.Function):
+class _Gather(torch.autograd.Function):
+    """All-gather over the group of ``entry``; the backward
+    reduce-scatters (``reduce``) or keeps this rank's slice."""
+
     @staticmethod
-    def forward(ctx, x, dim, par):
-        ctx.par, ctx.dim = par, dim
-        return par.all_gather(x, dim, "data")
+    def forward(ctx, x, dim, par, entry, reduce):
+        ctx.par, ctx.dim, ctx.entry, ctx.reduce = par, dim, entry, reduce
+        return par.all_gather(x, dim, entry)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.par.reduce_scatter(g, ctx.dim, "data"), None, None
+        par, dim, entry = ctx.par, ctx.dim, ctx.entry
+        if ctx.reduce:
+            g = par.reduce_scatter(g, dim, entry)
+        else:
+            _, n, i = par.group(entry)
+            g = g.chunk(n, dim)[i]
+        return g, None, None, None, None
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -427,6 +473,11 @@ def _layer_specs(tree):
     return tuple(tree[1:])
 
 
+def _segment_specs(segments):
+    """Each segment's per-layer specs, a block at a time."""
+    return tuple(tuple(_layer_specs(b) for b in seg) for seg in segments)
+
+
 def shard_params(params, mesh, coords: Optional[Dict[str, int]] = None,
                  device=None):
     """One rank's local shards of a full parameter tree (of
@@ -463,6 +514,8 @@ def _init_scale(path: Tuple, shape: Tuple[int, ...], cfg: ArchConfig
     key = path[-1]
     if key in ("embed", "unembed") or path[-2:] == ("mtp", "proj"):
         return 0.02
+    if key == "img_proj" or path[-2:] == ("encoder", "in_proj"):
+        return 0.05
     if key in _FILLS:
         return None
     if key == "conv_w":
@@ -470,31 +523,21 @@ def _init_scale(path: Tuple, shape: Tuple[int, ...], cfg: ArchConfig
     if key == "wo":
         hd = cfg.v_head_dim if cfg.use_mla else cfg.resolved_head_dim
         return 1.0 / math.sqrt(cfg.num_heads * hd)
-    lead = 1 if path[0] == "segments" else 0
-    return 1.0 / math.sqrt(max(shape[lead], 1))
+    fan_in = shape[1 if _stacked(path) else 0]
+    return (0.5 if key == "r_h" else 1.0) / math.sqrt(max(fan_in, 1))
 
 
 # the deterministic leaves, as Model.init makes them: a value, or a row
-# of the channels' (Mamba's A: log 1..N for every channel)
+# of the channels' (Mamba's A: log 1..N for every channel; the sLSTM's
+# bias: 0 for z and i, 3 for f, 0 for o)
 _FILLS = {"scale": 1.0, "q_norm": 1.0, "kv_norm": 1.0, "bq": 0.0,
           "bk": 0.0, "bv": 0.0, "w_dt": 0.1, "b_dt": -2.0, "d_skip": 1.0,
           "a_log": lambda n: torch.log(torch.arange(1, n + 1,
-                                                    dtype=torch.float32))}
-
-
-def _supported(cfg: ArchConfig) -> None:
-    """Raises for a family this module does not shard yet."""
-    if cfg.is_encoder_decoder or cfg.num_image_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: sharding the encoder-decoder and image models "
-            f"(cross-attention, the encoder, img_proj) arrives with ROADMAP "
-            f"A11b")
-    for seg in cfg.segments:
-        for blk in seg.blocks:
-            if blk.kind not in ("attn", "mamba"):
-                raise NotImplementedError(
-                    f"{cfg.name}: sharding {blk.kind} blocks arrives with "
-                    f"ROADMAP A11b")
+                                                    dtype=torch.float32)),
+          "b_i": 0.0, "b_f": 3.0, "out_norm": 1.0,
+          "bias": lambda n: torch.cat([torch.zeros(n // 2),
+                                       torch.full((n // 4,), 3.0),
+                                       torch.zeros(n // 4)])}
 
 
 # ---------------------------------------------------------------------------
@@ -526,13 +569,14 @@ class ShardedModel(Model):
         self.mesh = mesh
         self.batch_over_data = batch_over_data
         self.par = Parallel(mesh, batch_over_data)
-        if self.par.world > 1:
-            _supported(cfg)
         full = Model(cfg, torch.device("meta")).init(None)
         self.full = execution_view(full)
         self.specs = execution_placements(full, mesh)
-        self.seg_specs = tuple(tuple(_layer_specs(b) for b in seg)
-                               for seg in self.specs["segments"])
+        self.seg_specs = _segment_specs(self.specs["segments"])
+        if cfg.is_encoder_decoder:
+            enc = self.specs["encoder"]
+            self.enc_specs = {**enc,
+                              "segments": _segment_specs(enc["segments"])}
         emb = self.specs["embed"]
         self.vocab_tp = self.par.model_size > 1 and (
             emb[0] if cfg.tie_embeddings
@@ -547,7 +591,6 @@ class ShardedModel(Model):
         scales, biases, Mamba's dt, A and skip) are the full leaves'
         rows. No rank holds the whole tree. On ``meta``, shapes only."""
         cfg, dev = self.cfg, self.device
-        _supported(cfg)
 
         def leaf(path, full, spec):
             shape = local_shape(full.shape, spec, self.mesh)
@@ -563,7 +606,7 @@ class ShardedModel(Model):
             out = torch.empty(shape, dtype=full.dtype, device=dev)
             # a layer at a time: one layer's f32 draw is all the extra
             # memory (qwen2-72b's FFN stack is 19 GB a card in f32)
-            for layer in (out if path[0] == "segments" else (out,)):
+            for layer in (out if _stacked(path) else (out,)):
                 layer.copy_(torch.randn(layer.shape, generator=generator,
                                         device=dev).mul_(scale))
             return out
@@ -687,10 +730,12 @@ class ShardedModel(Model):
     def init_cache(self, batch: int, smax: int, shard_seq: bool = False,
                    device=None):
         """This rank's part of the cache of a global ``batch``: (cache,
-        None, specs), the cache placed by ``execution_cache_placements``
-        (MLA's latent whole on every model rank)."""
+        cross, specs), the cache placed by ``execution_cache_placements``
+        (MLA's latent and an sLSTM's state whole on every model rank),
+        an encoder-decoder's cross cache by ``execution_cross_placements``
+        (else None), ``specs`` the cache's."""
         dev = self.device if device is None else torch.device(device)
-        full, specs = self._cache_layout(batch, smax, shard_seq)
+        (full, specs), cross = self._cache_layout(batch, smax, shard_seq)
         if shard_seq and self.cfg.use_mla and self.par.data_size > 1:
             raise NotImplementedError(
                 f"{self.cfg.name}: the absorbed decode over a latent cache "
@@ -702,19 +747,28 @@ class ShardedModel(Model):
                     raise ValueError(
                         f"cache batch {batch} placed {spec}, but the "
                         f"model's batch_over_data is {self.batch_over_data}")
-        local = _map2(lambda leaf, spec: torch.zeros(
-            local_shape(leaf.shape, spec, self.mesh), dtype=leaf.dtype,
-            device=dev), full, specs)
-        return local, None, specs
+        def local(tree, tree_specs):
+            return _map2(lambda leaf, spec: torch.zeros(
+                local_shape(leaf.shape, spec, self.mesh), dtype=leaf.dtype,
+                device=dev), tree, tree_specs)
+        cache = local(full, specs)
+        for seg_cache, seg in zip(cache, self.cfg.segments):
+            for blk_cache, blk in zip(seg_cache, seg.blocks):
+                if blk.kind in STABILIZER_INIT:     # as init_cache starts
+                    blk_cache["m"].fill_(STABILIZER_INIT[blk.kind])
+        return cache, None if cross is None else local(*cross), specs
 
     def _cache_layout(self, batch: int, smax: int, shard_seq: bool):
-        """The whole cache's tree on ``meta`` and its placements, once
-        per shape."""
+        """The whole cache's tree on ``meta`` and its placements, and
+        the cross cache's (or None), once per shape."""
         key = (batch, smax, shard_seq)
         if key not in self._layouts:
-            full, _ = init_cache(self.cfg, batch, smax, device="meta")
-            self._layouts[key] = full, execution_cache_placements(
-                full, self.mesh, shard_seq=shard_seq)
+            full, cross = init_cache(self.cfg, batch, smax, device="meta")
+            self._layouts[key] = (
+                (full, execution_cache_placements(full, self.mesh,
+                                                  shard_seq=shard_seq)),
+                None if cross is None else (cross, execution_cross_placements(
+                    cross, self.mesh, shard_seq=shard_seq)))
         return self._layouts[key]
 
     def _cache_par(self, state) -> Parallel:

@@ -81,7 +81,9 @@ _FFN_DENSE = {"g": ("fsdp", "model"), "u": ("fsdp", "model"),
               "d": ("model", "fsdp")}
 _FFN_MOE = {"g": ("model", "fsdp", None), "u": ("model", "fsdp", None),
             "d": ("model", "fsdp", None)}
-_MAMBA_IN_RE = re.compile(r"\['core'\]\['in_proj'\]$")
+# the projections whose output is [x | gate] in one axis: Mamba's in_proj
+# and mLSTM's up
+_PAIRED_RE = re.compile(r"\['core'\]\['(?:in_proj|up)'\]$")
 _LATENT_RE = re.compile(r"\['(?:c_kv|k_rope)'\]$")
 
 MODEL = "model"
@@ -192,21 +194,27 @@ def param_placements(params: Any, mesh) -> Any:
         params)
 
 
-def _mamba_in(path) -> bool:
-    return bool(_MAMBA_IN_RE.search(path_str(path)))
+def _paired(path) -> bool:
+    return bool(_PAIRED_RE.search(path_str(path)))
+
+
+def _stacked(path) -> bool:
+    """A leaf of a decoder or encoder segment: a leading repeat axis."""
+    return path[0] == "segments" or tuple(path[:2]) == ("encoder",
+                                                        "segments")
 
 
 def execution_view(params: Any) -> Any:
     """The tree the port runs under a mesh: the reference's, but each
-    Mamba ``in_proj`` (..., D, 2 D_in) viewed as (..., D, 2, D_in), so
-    that a split of D_in over ``model`` gives every rank the same
-    channels of x and of the gate z (the block splits the projection's
-    output in halves). Views of the same storage; ``meta`` leaves
-    too."""
+    Mamba ``in_proj`` and mLSTM ``up`` (..., D, 2 D_in) viewed as (...,
+    D, 2, D_in), so that a split of D_in over ``model`` gives every rank
+    the same channels of x and of the gate z (the blocks split the
+    projection's output in halves). Views of the same storage; ``meta``
+    leaves too."""
     return _map_with_path(
         lambda path, leaf: leaf.reshape(*leaf.shape[:-1], 2,
                                         leaf.shape[-1] // 2)
-        if _mamba_in(path) else leaf, params)
+        if _paired(path) else leaf, params)
 
 
 def execution_placements(params: Any, mesh) -> Any:
@@ -214,27 +222,28 @@ def execution_placements(params: Any, mesh) -> Any:
     ``execution_view(params)`` (``params`` in the reference's shapes):
     the reference's placements, with two differences by design.
 
-    * A stacked dense FFN weight (repeat, D, F) takes the dense rule the
-      reference documents (after the repeat axis: D over the data axes,
-      the FFN hidden over ``model``) where the reference's function
-      takes its MoE branch (the layer axis over ``model``): column- and
-      row-parallel products instead of each layer's weights living on
-      one model rank. Where the layers divide ``model`` a device holds
-      the reference's bytes; where they do not (DeepSeek-V3's 3 dense
-      layers, Jamba's 9 periods, any one-layer config) the reference
-      replicates the weight over ``model`` and the port holds a
-      ``1 / model`` slice of it.
-    * A Mamba ``in_proj``, viewed as (D, 2, D_in), has D over the data
-      axes and D_in over ``model``: the reference's ``("fsdp",
-      "model")`` cuts the concatenated [x | z] axis in one piece, which
-      on ``model`` 2 gives rank 0 every x channel and rank 1 every z
-      channel. The bytes a device holds are the reference's."""
+    * A stacked dense FFN weight (repeat, D, F), of the decoder or of
+      whisper's encoder, takes the dense rule the reference documents
+      (after the repeat axis: D over the data axes, the FFN hidden over
+      ``model``) where the reference's function takes its MoE branch
+      (the layer axis over ``model``): column- and row-parallel
+      products instead of each layer's weights living on one model
+      rank. Where the layers divide ``model`` a device holds the
+      reference's bytes; where they do not (DeepSeek-V3's 3 dense
+      layers, Jamba's 9 periods, whisper's 12 and pixtral's 40 on 16,
+      any one-layer config) the reference replicates the weight over
+      ``model`` and the port holds a ``1 / model`` slice of it.
+    * A Mamba ``in_proj`` or an mLSTM ``up``, viewed as (D, 2, D_in),
+      has D over the data axes and D_in over ``model``: the reference's
+      ``("fsdp", "model")`` cuts the concatenated [x | z] axis in one
+      piece, which on ``model`` 2 gives rank 0 every x channel and rank 1
+      every z channel. The bytes a device holds are the reference's."""
     def spec(path, leaf):
         shape = tuple(leaf.shape)
         m = _FFN_RE.search(path_str(path))
-        if m and path[0] == "segments" and len(shape) == 3:
+        if m and _stacked(path) and len(shape) == 3:
             return resolve(_FFN_DENSE[m.group(1)], shape, mesh)
-        if _mamba_in(path):
+        if _paired(path):
             return resolve(("fsdp", None, MODEL),
                            shape[:-1] + (2, shape[-1] // 2), mesh)
         return _param_spec(path, shape, mesh)
@@ -297,14 +306,48 @@ def _cache_specs(cache: Any, mesh, shard_seq: bool,
 
 def execution_cache_placements(cache: Any, mesh,
                                shard_seq: bool = False) -> Any:
-    """The cache layout the port runs: :func:`cache_placements`, but
-    MLA's latent cache (``c_kv``, ``k_rope``) is replicated over
-    ``model``. The absorbed decode contracts each of a rank's query
-    heads with the whole latent, so a latent split over ``model`` would
-    be all-gathered every step; replicated, each model rank holds
-    ``kv_lora + qk_rope`` values a token a layer (DeepSeek-V3: 576, 1152
-    bytes in bf16), ``model`` times the reference's shard."""
-    return _cache_specs(cache, mesh, shard_seq, latent_over_model=False)
+    """The cache layout the port runs: :func:`cache_placements`, with
+    three differences by design.
+
+    * MLA's latent cache (``c_kv``, ``k_rope``) is replicated over
+      ``model``. The absorbed decode contracts each of a rank's query
+      heads with the whole latent, so a latent split over ``model``
+      would be all-gathered every step; replicated, each model rank
+      holds ``kv_lora + qk_rope`` values a token a layer (DeepSeek-V3:
+      576, 1152 bytes in bf16), ``model`` times the reference's shard.
+    * An mLSTM's stabilizer ``m`` (B, H) keeps this rank's heads, as its
+      ``C`` and ``n`` do; the reference's rule misses the name and
+      replicates it.
+    * An sLSTM's four states are whole on every model rank, where the
+      reference splits ``h`` and ``n`` over ``model``: every step of the
+      recurrence multiplies the whole ``h`` by the (replicated) ``r_h``,
+      so a split ``h`` would be all-gathered every token."""
+    specs = _cache_specs(cache, mesh, shard_seq, latent_over_model=False)
+    return tuple(tuple(_run_block_cache(blk) for blk in seg)
+                 for seg in specs)
+
+
+def _run_block_cache(spec: Dict[str, Spec]) -> Dict[str, Spec]:
+    if "C" in spec:                         # mLSTM
+        return {**spec, "m": spec["C"][:3]}
+    if "c" in spec:                         # sLSTM
+        return {k: tuple(None if e == MODEL else e for e in s)
+                for k, s in spec.items()}
+    return spec
+
+
+def execution_cross_placements(cross: Any, mesh,
+                               shard_seq: bool = False) -> Any:
+    """The layout the port runs for an encoder-decoder's cross cache
+    (``(repeat, B, F, KV, hd)`` a segment, from ``init_cache``'s second
+    element): the reference's ``cache_pspec`` of it, but the frames are
+    never split. The reference puts them over ``model`` where the KV
+    heads do not divide it (and over the data axes with ``shard_seq``);
+    the port then holds every frame, as the query heads are then
+    replicated and every rank attends over all of them."""
+    return tuple({k: tuple(None if d == 2 else e for d, e in enumerate(s))
+                  for k, s in seg.items()}
+                 for seg in cache_placements(cross, mesh, shard_seq))
 
 
 def entry_axes(entry) -> Tuple[str, ...]:

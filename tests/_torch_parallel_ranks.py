@@ -4,11 +4,11 @@ Run as ``python tests/_torch_parallel_ranks.py RANK DATA MODEL WORKDIR
 [cuda]`` by that test, DATA x MODEL times, one process a rank (gloo over
 a ``FileStore`` in WORKDIR; with ``cuda``, NCCL and one card a rank, as
 ``tests/test_torch_gpu.py`` runs it). It reads ``WORKDIR/inputs.pkl`` (per case:
-the full parameter tree as numpy, the batch, the prompt) and rank 0
-writes ``WORKDIR/out_DATAxMODEL.pkl``: the gathered logits, greedy
-tokens, loss, gradients (each in the reference's shape) and the global
-gradient norm of each case, and the message each family not sharded
-yet raises. Imports no JAX.
+the full parameter tree as numpy, the batch, the prompt, and the stub
+frames or image features of each: ``feats`` and ``prompt_feats``) and
+rank 0 writes ``WORKDIR/out_DATAxMODEL.pkl``: the gathered logits,
+greedy tokens, loss, gradients (each in the reference's shape) and the
+global gradient norm of each case. Imports no JAX.
 """
 
 import os
@@ -23,7 +23,6 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
-from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models.parallel import (  # noqa: E402
@@ -34,8 +33,6 @@ from repro_torch.models.parallel import (  # noqa: E402
 )
 from repro_torch.train import AdamW, make_train_step  # noqa: E402
 from repro_torch.train.tree import leaves  # noqa: E402
-
-RAISES = ("xlstm-125m", "whisper-small", "pixtral-12b")
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -61,6 +58,9 @@ def run_case(case: dict, mesh, device: torch.device) -> dict:
 
     def rows(name):
         batch = {"tokens": torch.from_numpy(case[name]).to(device)}
+        for k, v in case.get({"tokens": "feats",
+                              "prompt": "prompt_feats"}[name], {}).items():
+            batch[k] = torch.from_numpy(v).to(device)
         return shard_batch(batch, mesh) if over_data else batch
 
     def whole(x):
@@ -72,16 +72,15 @@ def run_case(case: dict, mesh, device: torch.device) -> dict:
         logits = whole(model.gather_logits(logits))
         out["logits"], out["aux"] = _np(logits), float(aux)
 
-        prompt = rows("prompt")["tokens"]
-        logits, state = model.prefill(params, {"tokens": prompt},
-                                      case["smax"],
+        logits, state = model.prefill(params, rows("prompt"), case["smax"],
                                       shard_seq=case.get("shard_seq", False))
         step_logits = [model.gather_logits(logits)]
         tok = step_logits[-1].argmax(-1)
         toks = [tok]
+        # a step's position counts an image prefix
+        pos = case["prompt"].shape[1] + cfg.num_image_tokens
         for i in range(case["steps"]):
-            logits, state = model.decode_step(
-                params, tok, case["prompt"].shape[1] + i, state)
+            logits, state = model.decode_step(params, tok, pos + i, state)
             step_logits.append(model.gather_logits(logits))
             tok = step_logits[-1].argmax(-1)
             toks.append(tok)
@@ -104,7 +103,8 @@ def run_case(case: dict, mesh, device: torch.device) -> dict:
     out["loss"] = float(metrics["loss"])
     out["grad_sq_norm"] = sq
     # in jax.tree_util's leaf order (dict keys sorted), each in the
-    # reference's shape (Mamba's in_proj runs as (D, 2, D_in))
+    # reference's shape (Mamba's in_proj and mLSTM's up run as (D, 2,
+    # D_in))
     out["grads"] = [_np(gather_leaf(g, spec_of[id(g)], par).reshape(
         f.shape)) for g, f in zip(leaves(grads), leaves(full))]
     return out
@@ -134,12 +134,6 @@ def main() -> None:
             results[name] = run_case(case, mesh, device)
         except Exception:  # noqa: BLE001 - reported per case
             results[name] = {"error": traceback.format_exc()}
-    for arch in RAISES:
-        try:
-            build_sharded(get_smoke(arch), mesh, device)
-            results[f"raises/{arch}"] = None
-        except NotImplementedError as e:
-            results[f"raises/{arch}"] = str(e)
     if rank == 0:
         path = os.path.join(workdir, f"out_{tag}.pkl")
         with open(path + ".tmp", "wb") as f:

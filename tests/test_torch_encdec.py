@@ -31,7 +31,7 @@ from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models import parallel  # noqa: E402
+from _torch_shards import check_local_shapes  # noqa: E402
 from repro_torch.train.tree import leaves  # noqa: E402
 
 WHISPER, PIXTRAL = "whisper-small", "pixtral-12b"
@@ -273,5 +273,8 @@ def test_loss_and_every_gradient_match_the_reference(built, arch, frames):
 
 @pytest.mark.parametrize("arch", [WHISPER, PIXTRAL])
 def test_a_mesh_refuses_the_encoder_decoder_and_image_models(arch):
-    with pytest.raises(NotImplementedError, match="A11b"):
-        parallel._supported(get_smoke(arch))
+    """Once refused under a mesh, both build a ShardedModel on a (1, 2)
+    stub mesh whose local leaves (the encoder's, img_proj) are the
+    reference's shards (their parity over gloo:
+    tests/test_torch_parallel.py)."""
+    assert check_local_shapes(get_smoke(arch), 1, 2) > 0

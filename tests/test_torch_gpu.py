@@ -1639,7 +1639,8 @@ def test_sim_kernels_reject_what_they_do_not_take(gen):
 
 SHARD_ARCHS = ("llama3.2-1b", "qwen2-72b", "granite-34b",
                "granite-moe-1b-a400m", "deepseek-v3-671b",
-               "jamba-1.5-large-398b")
+               "jamba-1.5-large-398b", "xlstm-125m", "whisper-small",
+               "pixtral-12b")
 SHARD_MESHES = ((1, 4), (2, 2))
 SHARD_RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "_torch_parallel_ranks.py")
@@ -1656,7 +1657,8 @@ def _numpy_tree(tree):
 @pytest.fixture(scope="module")
 def four_card_runs(tmp_path_factory):
     """Each mesh's four NCCL ranks (one a card) on the smoke configs,
-    and the plain model's outputs on cuda:0 from the same weights."""
+    and the plain model's outputs on cuda:0 from the same weights (with
+    16 stub frames or the image features a row, as the config takes)."""
     import pickle
     import subprocess
     import sys
@@ -1674,21 +1676,34 @@ def four_card_runs(tmp_path_factory):
         cfg = get_smoke(arch)
         full = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
         rng = np.random.default_rng(3)
+
+        def feats():
+            if cfg.is_encoder_decoder:
+                return {"frames": rng.standard_normal((4, 16, 128),
+                                                      dtype=np.float32)}
+            if cfg.num_image_tokens:
+                return {"image_feats": rng.standard_normal(
+                    (4, cfg.num_image_tokens, 1024), dtype=np.float32)}
+            return {}
         case = dict(cfg=cfg, params=_numpy_tree(full),
                     tokens=rng.integers(0, cfg.vocab_size, (4, 16)),
                     prompt=rng.integers(0, cfg.vocab_size, (4, 8)),
-                    smax=32, steps=6)
+                    smax=32, steps=6, feats=feats(), prompt_feats=feats())
         model = build_model(cfg, "cuda")
         params = params_from_numpy(case["params"], "cuda")
-        tokens = torch.from_numpy(case["tokens"]).cuda()
+
+        def batch(name, extra):
+            return {"tokens": torch.from_numpy(case[name]).cuda(),
+                    **{k: torch.from_numpy(v).cuda()
+                       for k, v in case[extra].items()}}
         with torch.no_grad():
-            logits, _ = model.forward(params, {"tokens": tokens})
+            logits, _ = model.forward(params, batch("tokens", "feats"))
             out, state = model.prefill(
-                params, {"tokens": torch.from_numpy(case["prompt"]).cuda()},
-                32)
+                params, batch("prompt", "prompt_feats"), 32)
             steps, toks = [out], [out.argmax(-1)]
-            for i in range(6):
-                out, state = model.decode_step(params, toks[-1], 8 + i, state)
+            for i in range(6):          # positions count an image prefix
+                out, state = model.decode_step(
+                    params, toks[-1], 8 + cfg.num_image_tokens + i, state)
                 steps.append(out)
                 toks.append(out.argmax(-1))
         seen = []
@@ -1700,7 +1715,7 @@ def four_card_runs(tmp_path_factory):
 
         opt = Recording(lr=1e-3)
         _, _, metrics = make_train_step(model, opt)(
-            params, opt.init(params), {"tokens": tokens})
+            params, opt.init(params), batch("tokens", "feats"))
         cases[arch] = case
         wants[arch] = dict(
             logits=logits.cpu().numpy(),

@@ -26,7 +26,6 @@ from repro_torch.configs import get_arch, get_smoke  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.device import resolve_device, torch_dtype  # noqa: E402
 from repro_torch.models import Block, Segment, build_model  # noqa: E402
-from repro_torch.models import parallel  # noqa: E402
 from repro_torch.models.kvcache import init_cache  # noqa: E402
 
 ARCHS = ["llama3.2-1b", "llama3.2-1b-sw", "xlstm-125m"]
@@ -120,7 +119,8 @@ def test_params_from_numpy_keeps_bfloat16_bits():
 def test_families_of_later_slices_raise(change):
     """Image and encoder-decoder configs, once refused, build and score
     on one rank (their parity with the reference:
-    tests/test_torch_encdec.py); a mesh still refuses them (A11b)."""
+    tests/test_torch_encdec.py; over a mesh:
+    tests/test_torch_parallel.py)."""
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), **change)
     model = build_model(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(0))
@@ -132,8 +132,6 @@ def test_families_of_later_slices_raise(change):
     logits, _ = model.forward(params, batch)
     assert logits.shape == (2, 8, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
-    with pytest.raises(NotImplementedError, match="A11b"):
-        parallel._supported(cfg)
 
 
 @pytest.mark.parametrize("change", [

@@ -1,5 +1,5 @@
-"""Sharded serving and training of the dense, MoE, MLA and hybrid
-families on the CPU (gloo), against the JAX reference's unsharded model.
+"""Sharded serving and training of every family on the CPU (gloo),
+against the JAX reference's unsharded model.
 
 One spawn a mesh, module-scoped: DATA x MODEL processes run
 ``tests/_torch_parallel_ranks.py``, each join under its own timeout of
@@ -15,17 +15,26 @@ runs it (a batch of 1 on every data rank, the window-capped ring
 cache's sequence over the data axes: on ``(2, 2)`` decode combines
 partial softmaxes over data), deepseek-v3-671b (MLA's heads over
 ``model`` with the latent cache whole on every rank, the MoE with its
-shared expert, MTP in the loss) and jamba-1.5-large-398b (Mamba's
+shared expert, MTP in the loss), jamba-1.5-large-398b (Mamba's
 channels over ``model``, its attention layer's 2 KV heads taking the
-sequence-split cache on model 4, the MoE every other layer).
+sequence-split cache on model 4, the MoE every other layer),
+xlstm-125m (an mLSTM's heads over ``model``, the sLSTM replicated;
+with one head, ``model`` splits it and every rank runs the whole cell
+on weights gathered over ``model``), whisper-small (the encoder's
+layers and the cross-attention's heads over ``model``, 16 stub frames
+a row; with a vocabulary of 509, which divides no ``model``, the
+embedding and the head replicated there, as whisper's 51865 are) and
+pixtral-12b (16 stub image features a row, their prefix's rows over
+the data axes with the text's).
 
 Tolerances: logits of the forward, the prefill and every greedy step at
 the port's model bar, f32 atol 1e-4 / rtol 1e-4
 (tests/test_torch_families.py); greedy tokens equal; the loss, every
 leaf's gradient and the global gradient norm at the train tests' 5e-4
-(atol and rtol; tests/test_torch_train.py). xLSTM, whisper
-(encoder-decoder) and pixtral (image) raise ``NotImplementedError``
-naming ROADMAP A11b.
+(atol and rtol; tests/test_torch_train.py). Beside the parity cases,
+each of the last three families builds a ``ShardedModel`` on a stub
+mesh of each shape, whose local leaves hold the reference's shards
+(tests/_torch_shards.py).
 """
 
 import dataclasses
@@ -47,26 +56,31 @@ from repro.configs import get_smoke as jax_get_smoke  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.configs import get_smoke  # noqa: E402
 
+from _torch_shards import check_local_shapes  # noqa: E402
+
 MODEL_TOL = dict(atol=1e-4, rtol=1e-4)
 GRAD_TOL = dict(atol=5e-4, rtol=5e-4)
 JOIN_S = 120
 MESHES = ((1, 2), (1, 4), (2, 2))
 ARCHS = ("llama3.2-1b", "qwen2-72b", "granite-34b", "granite-moe-1b-a400m")
+FAMILIES = ("xlstm-125m", "whisper-small", "pixtral-12b")
 CASES = ARCHS + ("granite-moe-1b-a400m/groups2", "llama3.2-1b-sw/long",
-                 "deepseek-v3-671b", "jamba-1.5-large-398b")
-RAISES = ("xlstm-125m", "whisper-small", "pixtral-12b")
+                 "deepseek-v3-671b", "jamba-1.5-large-398b") + FAMILIES + (
+    "xlstm-125m/heads1", "whisper-small/vocab509")
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "_torch_parallel_ranks.py")
 BATCH, SEQ, PROMPT, SMAX, STEPS = 4, 16, 8, 32, 6
+FRAMES = 16         # whisper's stub frames a row
 
 
 def _configs(name):
     arch, _, variant = name.partition("/")
     jcfg, cfg = jax_get_smoke(arch), get_smoke(arch)
-    if variant == "groups2":
-        jcfg = dataclasses.replace(jcfg, moe_groups=2)
-        cfg = dataclasses.replace(cfg, moe_groups=2)
-    return jcfg, cfg, variant
+    change = {"groups2": dict(moe_groups=2),
+              "heads1": dict(num_heads=1, num_kv_heads=1),
+              "vocab509": dict(vocab_size=509)}.get(variant, {})
+    return (dataclasses.replace(jcfg, **change),
+            dataclasses.replace(cfg, **change), variant)
 
 
 def _reference(name):
@@ -79,20 +93,25 @@ def _reference(name):
     tokens = rng.integers(0, cfg.vocab_size, (batch, SEQ)).astype(np.int32)
     prompt = rng.integers(0, cfg.vocab_size,
                           (batch, PROMPT)).astype(np.int32)
-    logits, aux = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tokens)})
-    loss, grads = jax.jit(jax.value_and_grad(jm.loss))(
-        jp, {"tokens": jnp.asarray(tokens)})
+    feats, prompt_feats = _feats(cfg, rng, batch), _feats(cfg, rng, batch)
+    fwd = {"tokens": jnp.asarray(tokens),
+           **{k: jnp.asarray(v) for k, v in feats.items()}}
+    logits, aux = jax.jit(jm.forward)(jp, fwd)
+    loss, grads = jax.jit(jax.value_and_grad(jm.loss))(jp, fwd)
     out, state = jax.jit(jm.prefill, static_argnums=2)(
-        jp, {"tokens": jnp.asarray(prompt)}, SMAX)
+        jp, {"tokens": jnp.asarray(prompt),
+             **{k: jnp.asarray(v) for k, v in prompt_feats.items()}}, SMAX)
     step = jax.jit(jm.decode_step)
     steps, toks = [out], [jnp.argmax(out, -1)]
-    for i in range(STEPS):
-        out, state = step(jp, toks[-1], PROMPT + i, state)
+    for i in range(STEPS):      # a position counts an image prefix
+        out, state = step(jp, toks[-1], PROMPT + cfg.num_image_tokens + i,
+                          state)
         steps.append(out)
         toks.append(jnp.argmax(out, -1))
     flat = jax.tree_util.tree_leaves(grads)
     case = dict(cfg=cfg, params=jax.tree.map(np.asarray, jp), tokens=tokens,
-                prompt=prompt, smax=SMAX, steps=STEPS)
+                prompt=prompt, smax=SMAX, steps=STEPS, feats=feats,
+                prompt_feats=prompt_feats)
     if variant == "long":
         # long_500k's policy: a batch of 1 on every data rank, the
         # cache's sequence over the data axes
@@ -105,6 +124,17 @@ def _reference(name):
                                            1),
                 tokens=np.concatenate([np.asarray(t) for t in toks], 1))
     return case, want
+
+
+def _feats(cfg, rng, batch) -> dict:
+    """The modality stub's features of ``batch`` rows, as numpy."""
+    if cfg.is_encoder_decoder:
+        return {"frames": rng.standard_normal((batch, FRAMES, 128),
+                                              dtype=np.float32)}
+    if cfg.num_image_tokens:
+        return {"image_feats": rng.standard_normal(
+            (batch, cfg.num_image_tokens, 1024), dtype=np.float32)}
+    return {}
 
 
 @pytest.fixture(scope="module")
@@ -198,10 +228,10 @@ def test_sharded_train_step_loss_and_grads_match_jax(results, refs, mesh,
                                **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", RAISES)
+@pytest.mark.parametrize("arch", FAMILIES)
 @pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
-def test_families_not_sharded_yet_raise_under_a_mesh(results, mesh, arch):
-    res = results(mesh)
-    assert "error" not in res, res["error"]
-    msg = res[f"raises/{arch}"]
-    assert msg is not None and "A11b" in msg, msg
+def test_families_not_sharded_yet_raise_under_a_mesh(mesh, arch):
+    """Once refused under a mesh: each family now builds a ShardedModel
+    on a stub mesh of this shape, and every rank's local leaves have
+    the shapes of the reference's shards."""
+    check_local_shapes(get_smoke(arch), *mesh)

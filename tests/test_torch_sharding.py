@@ -146,6 +146,21 @@ def test_cache_placements_equal_the_reference(arch, mesh, shape):
     assert got == want
 
 
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+@pytest.mark.parametrize("mesh", MESHES)
+def test_cross_cache_placements_equal_the_reference(mesh, shape):
+    """whisper-small's cross cache (the second element of init_cache),
+    which the reference's dry-run places with the same cache_pspec."""
+    spec = SHAPES[shape]
+    jcfg, cfg = jax_get_arch("whisper-small"), get_arch("whisper-small")
+    jc = jax.eval_shape(lambda: jax_init_cache(jcfg, spec.batch, spec.seq))
+    _, cross = init_cache(cfg, spec.batch, spec.seq, device="meta")
+    m = _stub(mesh)
+    shard_seq = spec.batch == 1
+    assert _port_flat(cache_placements(cross, m, shard_seq=shard_seq)) == \
+        _jax_flat(cache_pspec(jc[1], m, shard_seq=shard_seq))
+
+
 def test_qwen2_cache_puts_the_sequence_over_model_16():
     """qwen2-72b's 8 KV heads do not divide model 16: the reference puts
     the SEQUENCE over `model` (sharding.py:262-271); so does the port.
@@ -237,10 +252,11 @@ def test_execution_layout_differs_only_at_stacked_dense_ffns(arch, mesh):
     (rank 3 takes its MoE branch), or replicates the weight where the
     layers do not divide `model`, and the port runs the dense rule the
     reference documents (D over the data axes, the FFN hidden over
-    `model`). A Mamba in_proj (repeat, D, 2 D_in) runs as (repeat, D, 2,
-    D_in) with D_in over `model`, so that a rank's x and z channels
-    match, where the reference cuts the concatenated axis in one
-    piece."""
+    `model`). A Mamba in_proj or an mLSTM up (repeat, D, 2 D_in) runs
+    as (repeat, D, 2, D_in) with D_in over `model`, so that a rank's x
+    and z channels match, where the reference cuts the concatenated
+    axis in one piece. Whisper's encoder FFN is a stacked dense FFN
+    too."""
     from repro_torch.models.sharding import execution_placements
     _, _, _, tp = _trees(arch)
     m = _stub(mesh)
@@ -251,7 +267,9 @@ def test_execution_layout_differs_only_at_stacked_dense_ffns(arch, mesh):
     changed = 0
     for path, leaf in _walk(tp):
         got, want = _at(run, path), _at(ref, path)
-        if path[0] == "segments" and path[-2] in ("ffn", "shared") and \
+        stacked = path[0] == "segments" or path[:2] == ("encoder",
+                                                        "segments")
+        if stacked and path[-2] in ("ffn", "shared") and \
                 path[-1] in ("wg", "wu", "wd") and leaf.dim() == 3:
             r, a, b = leaf.shape
             if path[-1] == "wd":           # (repeat, F, D)
@@ -260,14 +278,61 @@ def test_execution_layout_differs_only_at_stacked_dense_ffns(arch, mesh):
             else:                          # (repeat, D, F)
                 want = (None, data if a % n_data == 0 else None,
                         "model" if b % n_model == 0 else None)
-        if path[-2:] == ("core", "in_proj"):
+        if path[-2:] in (("core", "in_proj"), ("core", "up")):
             r, d, e = leaf.shape           # (repeat, D, 2 D_in)
             want = (None, data if d % n_data == 0 else None, None,
                     "model" if (e // 2) % n_model == 0 else None)
         changed += got != _at(ref, path)
         assert got == want, path
-    if get_arch(arch).family in ("dense", "hybrid"):
+    if get_arch(arch).family in ("dense", "hybrid", "ssm", "encdec",
+                                 "vlm"):
         assert changed > 0
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16", "1x4", "2x2"])
+@pytest.mark.parametrize("shard_seq", [False, True])
+def test_execution_cache_holds_the_recurrent_states_as_the_cells_run(
+        mesh, shard_seq):
+    """xlstm-125m's cache as the port runs it: the reference's
+    placements, but an mLSTM's stabilizer m keeps the heads of its C
+    and n (the reference's rule misses the name), and an sLSTM's four
+    states are whole over `model` (the reference splits h and n there).
+    whisper-small's cross cache keeps the reference's but never splits
+    its frames (with shard_seq the reference puts them over the data
+    axes)."""
+    from repro_torch.models.sharding import (execution_cache_placements,
+                                             execution_cross_placements)
+    m = _stub(mesh)
+    batch = 1 if shard_seq else 128
+    tc, _ = init_cache(get_arch("xlstm-125m"), batch, 4096, device="meta")
+    ref = cache_placements(tc, m, shard_seq=shard_seq)
+    run = execution_cache_placements(tc, m, shard_seq=shard_seq)
+    heads_split = 4 % m.shape["model"] == 0
+    for seg_ref, seg_run in zip(ref, run):
+        for blk_ref, blk_run in zip(seg_ref, seg_run):
+            assert blk_ref.keys() == blk_run.keys()
+            if "C" in blk_ref:                          # mLSTM
+                assert blk_run["m"] == blk_ref["C"][:3]
+                assert blk_run["m"][2] == ("model" if heads_split
+                                           else None)
+                assert {k: blk_run[k] for k in "Cn"} == \
+                    {k: blk_ref[k] for k in "Cn"}
+            else:                                       # sLSTM
+                for k, spec in blk_ref.items():
+                    assert blk_run[k] == tuple(
+                        None if e == "model" else e for e in spec), k
+                assert blk_ref["h"][2] == "model"
+    _, cross = init_cache(get_arch("whisper-small"), batch, 4096,
+                          device="meta")
+    ref = cache_placements(cross, m, shard_seq=shard_seq)
+    run = execution_cross_placements(cross, m, shard_seq=shard_seq)
+    for seg_ref, seg_run in zip(ref, run):
+        for k in ("k", "v"):
+            want = list(seg_ref[k])
+            want[2] = None
+            assert seg_run[k] == tuple(want)
+            assert seg_run[k][3] == ("model" if 12 % m.shape["model"] == 0
+                                     else None)
 
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16", "1x4", "2x2"])
@@ -354,3 +419,23 @@ def test_mamba_shards_hold_matching_x_and_z_channels():
             assert torch.equal(leaf, want[idx]), path
             n += 1
     assert n == 4 * 7 + 2 * 8 + 1         # 7 Mamba layers, 16 norms, final
+
+
+def test_mla_decode_over_a_sequence_split_latent_cache_raises():
+    """MLA's absorbed decode over a latent cache whose sequence is split
+    over the data axes (shard_seq with more than one data rank) is not
+    implemented: the cache refuses that layout before any decode, and
+    takes it on one data rank. No dry-run shape reaches it (DeepSeek
+    has no long-context variant)."""
+    from _torch_shards import StubMesh
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.parallel import ShardedModel
+    cfg = get_smoke("deepseek-v3-671b")
+    model = ShardedModel(cfg, StubMesh(2, 2), torch.device("meta"),
+                         batch_over_data=False)
+    with pytest.raises(NotImplementedError, match="sequence is split"):
+        model.init_cache(1, 64, shard_seq=True, device="meta")
+    model = ShardedModel(cfg, StubMesh(1, 2), torch.device("meta"),
+                         batch_over_data=False)
+    cache, _, specs = model.init_cache(1, 64, shard_seq=True, device="meta")
+    assert cache[0][0]["c_kv"].shape == (1, 1, 64, cfg.kv_lora_rank)
