@@ -18,9 +18,15 @@ Phases, in order; any failure exits non-zero:
    its grid against the CTAs an SM holds (the waves), at the hybrid's
    prefill chunk and step shape in f32 and bf16, with a bound that
    counts its exponentials on the special-function units; for flash
-   attention also the forward's logsumexp and the backward kernel
+   attention also the f32 forward against the same attention in f64
+   where its sums run long (whisper's 2048 x 1500 cross-attention,
+   pixtral's 4096 keys; 1e-5 of each row's largest entry), the
+   forward's logsumexp and the backward kernel
    against their plain versions (f32 5e-4, bf16 3e-2) at the training
-   shape and at edge shapes, and at the training shape the backward's
+   shape, at edge shapes and at phases 15 and 16's training shapes
+   (whisper's encoder over 1500 frames and its cross-attention, pixtral
+   at 4096, MLA at 4096 with 32 heads a rank), and at the training
+   shape the backward's
    time beside its plain version's, SDPA's backward and its bound, and
    the forward with its logsumexp against the forward without; the
    flash and decode shapes of phase 12's whisper-small and pixtral-12b
@@ -175,9 +181,13 @@ Phases, in order; any failure exits non-zero:
    (j) xlstm-125m, (k) whisper-small (1500 stub frames a row) and (l)
    pixtral-12b whole (40 layers, 1024 stub patches a row, rank 0's
    weights broadcast a leaf at a time), f32 at published width, against
-   one card on both meshes at (a)'s bar, phase 12's prompts, each
-   mesh's shards a card, peak and seconds logged. On fewer cards it
-   prints "not run";
+   one card on both meshes at (a)'s bar ((j): the same weights and
+   batches also run in f64; its forward is held to the f64 run at (a)'s
+   bar, its prefill and steps to the one-card run at (a)'s bar and to
+   the f64 run at 1.1 times the one-card run's own distance from it,
+   its tokens to the one-card run's),
+   phase 12's prompts, each mesh's shards a card, peak and seconds
+   logged. On fewer cards it prints "not run";
 12. the recurrent, encoder-decoder and image families at published
    width, f32, seeded random weights, each freed before the next: (a)
    xlstm-125m, prefill 8 x 512 and 64 greedy steps through its carried
@@ -212,7 +222,35 @@ Phases, in order; any failure exits non-zero:
    query answered, the closed loop's scale-up, nothing released; its
    measured p50/p99/miss beside the Estimator's) and ``train_arch --arch
    jamba-1.5-large-398b --steps 100`` (it learns and round-trips its
-   checkpoint), with each one's wall time.
+   checkpoint), with each one's wall time;
+15. train the MoE and encoder-decoder families at published width on one
+   card, f32, remat, AdamW(lr=1e-3), as phase 10: granite-moe-1b-a400m
+   (B 2 x 4096; (a) and (b) drop-free, (c) at its published capacity
+   factor 1.25) and whisper-small (B 8 x 2048 tokens, 1500 stub frames a
+   row); (b) at B 1 x 512; (c) one warm-up and 4 timed steps, launches a
+   step exact (granite-moe 97 rmsnorm, 48 flash forward, 24 backward;
+   whisper 122 / 72 / 36), ms a step, tokens/s, TFLOP/s of 6 N T, the
+   peak beside the port's dry-run of the same step, a traced step, the
+   losses finite and falling. Where a MoE's gradients are held against
+   another run's, that run's routes are replayed (``Routes``): a near
+   tie between experts that rounding flips moves a token's gradient;
+16. with at least four cards, training sharded over NCCL, four ranks
+   spawned as in phase 11: (a) granite-moe-1b-a400m whole, drop-free, B
+   2 x 4096, and (b) pixtral-12b cut to 2 layers at full width, B 2 x
+   (1024 stub patches + 3072 tokens), each one make_train_step with
+   AdamW on (1, 4) and (2, 2) against one card: the loss, every
+   gradient leaf made whole and every first moment within 5e-4 of the
+   leaf's largest entry; (c) deepseek-v3-671b 1 dense + 1 MoE layer with
+   MTP, f32, drop-free, on (1, 4), B 1 x 512: each rank's gradients
+   through the kernels against the plain versions on the same cards;
+   (d) pixtral-12b whole, f32, B 1 x (1024 + 3072), and (e) the DeepSeek
+   cut under the dry-run's training policy (bf16 parameters and compute)
+   at its published capacity, B 1 x 4096, each on (1, 4) from
+   ``init_local``: one warm-up and 3 timed steps, launches exact on
+   every rank, ms a step, tokens/s, each card's peak beside the port's
+   dry-run, one traced step's busy and NCCL shares, the collectives of a
+   step, the losses finite, falling and the same on every rank. On
+   fewer cards it prints "not run".
 
 The line before the last is a JSON object with one record per kernel;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -220,6 +258,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -282,7 +321,7 @@ from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.train import AdamW, make_train_step  # noqa: E402
 from repro_torch.train.trainer import value_and_grad  # noqa: E402
 from repro_torch.train.data import batches  # noqa: E402
-from repro_torch.train.tree import leaves as tree_leaves  # noqa: E402
+from repro_torch.train.tree import leaves as tree_leaves, tree_map  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     SEQ,
     LiveControlLoop,
@@ -368,6 +407,13 @@ PAR_MESHES = ((1, 4), (2, 2))
 PAR_FWD = (8, 32)               # the forward's batch x tokens
 PAR_STEPS, PAR_WHOLE_STEPS = 16, 32
 PAR_REL = 1e-4                  # max |dlogit| / max |logit|
+# phase 11 (j): a sharded run's prefill and steps may sit at most this
+# times as far from the f64 run as the one-card f32 run does. Every f32
+# run of xlstm-125m sits 1.8-4.7e-4 from f64 there (the CPU, the plain
+# versions on the card, one card, both meshes: PERF.md section 6), since
+# its group norm scales a tiny row up, so no f32 run meets PAR_REL
+# against f64; the steps also stay within PAR_REL of the one-card run
+PAR_F64_MARGIN = 1.1
 PAR_JOIN_S = 900
 # phase 11 (f)-(i), the two models no card holds, over the same meshes:
 # (f) deepseek-v3-671b cut as phase 8 (b) cuts it (its first dense layer
@@ -415,6 +461,28 @@ HYBRID_SMOKE_SEQ = 128          # the smoke step's scan in two chunks of 64
 # phase 14: the examples, each a process of its own
 EXAMPLE_TRAIN_ARGS = ("--arch", HYBRID, "--steps", "100")
 EXAMPLE_TIMEOUT_S = 420
+# phase 15: the MoE and encoder-decoder families trained at published
+# width on one card, f32, remat, as phase 10: (arch, batch, text tokens a
+# row), train_4k's length (whisper: its decoder half, beside the data
+# pipeline's encoder_max_frames stub frames) with the batch cut to fit;
+# (b) at B 1 x GRAD_SEQ; fewer timed steps than phase 10, for the
+# script's time limit
+P15_RUNS = (("granite-moe-1b-a400m", 2, 4096), ("whisper-small", 8, 2048))
+P15_STEPS = 4
+# phase 16: training sharded over NCCL on four cards, f32 unless said:
+# (a) granite-moe-1b-a400m whole, drop-free, and (b) pixtral-12b cut to
+# P16_PIXTRAL_CUT layers, each one step against one card on PAR_MESHES at
+# (batch, text tokens a row); (c) DeepSeek 1 + 1 with MTP, drop-free, on
+# (1, 4), the kernels against the plain versions on the same cards; (d)
+# pixtral-12b whole, f32, and (e) DeepSeek 1 + 1 under the dry-run's
+# training policy (bf16 parameters and compute, remat) at the published
+# capacity, each trained on (1, 4) for 1 + P16_STEPS steps and one traced
+P16_AGAINST = (("a", "granite-moe-1b-a400m", 2, 4096),
+               ("b", "pixtral-12b", 2, 3072))
+P16_PIXTRAL_CUT = 2
+P16_DEEPSEEK_GRAD = (1, GRAD_SEQ)
+P16_WHOLE = (("d", "pixtral-12b", 1, 3072), ("e", DEEPSEEK, 1, 4096))
+P16_STEPS = 3
 # phase 12: (arch, batch, text prompt, cache slots, greedy steps) at
 # published width; whisper takes encoder_max_frames (30 s) of stub
 # frames, pixtral its 1024 stub patch embeddings before the prompt
@@ -628,6 +696,56 @@ def check_flash(gen: torch.Generator) -> None:
                 f"max_abs_err={err:.3e}, lse {lse_err:.3e}  ok")
 
 
+# the f32 forward's O against the same attention run in f64 where its P
+# V sums run long: whisper's cross-attention (2048 queries over 1500
+# frames) and pixtral's 4096 keys. Each row (a query at a head) is held
+# to its own largest |O|, since a causal row's O shrinks as it sees more
+# keys. With P V added straight into O, the MMAs' truncating f32
+# accumulation left such rows 2.4e-05 / 5.4e-05 off; through a tile of
+# its own, 4.7e-06 / 5.6e-06 (tools/flash_fwd_vs_parent.py, PERF.md)
+FLASH_F64_CASES = (
+    # (name, b, sq, sk, h, kv, d, dv, causal)
+    ("whisper cross", 2, 2048, 1500, 12, 12, 64, 64, False),
+    ("pixtral 4096", 1, 4096, 4096, 32, 8, 128, 128, True),
+)
+FLASH_F64_REL = 1e-5
+
+
+def flash_f64_errors(fn=None) -> list:
+    """(name, worst row's max |O - O_f64| / max |O_f64|, the same over
+    the whole output) for each of FLASH_F64_CASES, on f32 inputs drawn
+    from a generator of their own; ``fn(q, k, v, causal)`` is the
+    forward under test, the kernel by default."""
+    if fn is None:
+        def fn(q, k, v, causal):
+            return fa_mod.flash_attention(q, k, v, causal=causal)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for name, b, sq, sk, h, kv, d, dv, causal in FLASH_F64_CASES:
+        q = rand(gen, (b, sq, h, d), torch.float32)
+        k = rand(gen, (b, sk, kv, d), torch.float32)
+        v = rand(gen, (b, sk, kv, dv), torch.float32)
+        got = fn(q, k, v, causal).double()
+        with Float64():
+            exp = ref.flash_attention_ref(q, k, v, causal=causal)
+        diff = (got - exp).abs()
+        out.append((name, float((diff.amax(-1) / exp.abs().amax(-1)).max()),
+                    float(diff.max() / exp.abs().max())))
+        del q, k, v, got, exp, diff
+    return out
+
+
+def check_flash_against_f64() -> None:
+    plain = flash_f64_errors(lambda q, k, v, causal: ref.flash_attention_ref(
+        q, k, v, causal=causal))
+    for (name, row, whole), (_, p_row, _) in zip(flash_f64_errors(), plain):
+        log(f"  flash    {name:13s} f32 against f64: worst row "
+            f"{row:.3e} of its largest |O| (bar {FLASH_F64_REL:g}; the "
+            f"plain version in f32 {p_row:.3e}), whole output {whole:.3e}")
+        if not row <= FLASH_F64_REL:
+            raise RuntimeError(f"flash {name} f32 against f64: {row:.3e}")
+
+
 # the backward at the training shape and at edge shapes: the reference's
 # five cases (tests/test_kernels.py:183-189, B 2, D 64), G 1 / 2 / 4,
 # window 64, D 128, MLA's D 192 / Dv 128, Sq > Sk (rows that see no key)
@@ -643,6 +761,13 @@ FLASH_BWD_CASES = (
     ("MLA 192/128", 1, 160, 160, 16, 16, 192, 128, True, 0),
     ("D!=Dv 64/32", 2, 70, 90, 6, 3, 64, 32, True, 16),
     ("Sq>Sk", 1, 48, 16, 4, 1, 32, 32, True, 0),
+    # phases 15 and 16's training shapes: whisper's encoder (1500 frames,
+    # not a multiple of a tile) and its cross-attention over them,
+    # pixtral's self-attention, MLA at 4096 with 32 heads a rank
+    ("whisper enc", 8, 1500, 1500, 12, 12, 64, 64, False, 0),
+    ("whisper cross", 8, 2048, 1500, 12, 12, 64, 64, False, 0),
+    ("pixtral 4k", 1, 4096, 4096, 32, 8, 128, 128, True, 0),
+    ("MLA 4k 32h", 1, 4096, 4096, 32, 32, 192, 128, True, 0),
 )
 
 
@@ -3762,8 +3887,9 @@ def planner_sweep() -> list:
 # --------------------------------------------------------------- phase 10
 
 class RecordingAdamW:
-    """AdamW that keeps a copy of the gradients of its last update (the
-    train step calls only ``update``)."""
+    """AdamW that keeps the gradient tree of its last update (the train
+    step calls only ``update``, which reads the gradients and writes
+    nothing of them)."""
 
     def __init__(self, opt: AdamW):
         self.opt, self.grads = opt, None
@@ -3772,7 +3898,7 @@ class RecordingAdamW:
         return self.opt.init(params)
 
     def update(self, params, state, grads, sq_norm):
-        self.grads = [g.detach().clone() for g in tree_leaves(grads)]
+        self.grads = grads
         return self.opt.update(params, state, grads, sq_norm)
 
 
@@ -3791,17 +3917,25 @@ def train_counts(reset: bool = False) -> dict:
 
 
 def launches_per_train_step(cfg, seq: int) -> dict:
-    """Launches of one remat training step: the forward's, each layer's
-    norms, flash and scans again when the backward runs the layer's
-    checkpoint (the final norm is outside them), and one flash backward
-    per attention layer and one scan backward per Mamba layer and chunk
-    (65 / 32 / 16 / 0 / 0 for llama3.2-1b; 9 / 2 / 1 / 32 / 16 for
-    phase 13's two Jamba blocks at 4096 tokens)."""
-    fwd = launches_per_forward(cfg, seq)
-    return {"rmsnorm": 2 * fwd["rmsnorm"] - 1,
-            "flash_attention": 2 * fwd["flash_attention"],
+    """Launches of one training step over ``seq`` text tokens: the
+    forward's (with its MTP module and encoder), then, with remat, each
+    layer's norms, flash and scans again when the backward runs the
+    layer's checkpoint, encoder and cross-attention included; what runs
+    outside the checkpoints runs once (the final norm, an encoder's final
+    norm, the MTP module's three norms and flash call); one flash
+    backward per flash forward, one scan backward per scan (65 / 32 / 16
+    / 0 / 0 for llama3.2-1b; 9 / 2 / 1 / 32 / 16 for phase 13's two Jamba
+    blocks at 4096 tokens; whisper-small 122 / 72 / 36)."""
+    mtp = bool(cfg.mtp_depth) and seq >= 3
+    fwd = launches_per_forward(cfg, seq, mtp=mtp)
+    remat = bool(cfg.remat)
+    once_norms = 1 + bool(cfg.encoder_segments) + 3 * mtp
+    return {"rmsnorm": fwd["rmsnorm"]
+            + remat * (fwd["rmsnorm"] - once_norms),
+            "flash_attention": fwd["flash_attention"]
+            + remat * (fwd["flash_attention"] - mtp),
             "flash_attention_bwd": fwd["flash_attention"],
-            "mamba_scan": 2 * fwd["mamba_scan"],
+            "mamba_scan": (1 + remat) * fwd["mamba_scan"],
             "mamba_scan_bwd": fwd["mamba_scan"]}
 
 
@@ -3839,21 +3973,24 @@ def smoke_step_against_cpu(cfg, seq: int) -> None:
     step on the CPU: loss, every leaf's gradient, every first moment."""
     params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
     batch = next(batches(cfg, 2, seq, seed=2))
-    out = {}
+    out, routes = {}, Routes()
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, dev)
         p = _tree_to(params, dev, copy=True)   # the step writes it in place
         opt = RecordingAdamW(AdamW(lr=TRAIN_LR))
         state = opt.init(p)
         train_counts(reset=True)
-        _, state, m = make_train_step(model, opt)(p, state,
-                                                  batch_on(batch, dev))
-        torch.cuda.synchronize()
+        with routes.run(replay=dev == "cuda"):
+            _, state, m = make_train_step(model, opt)(p, state,
+                                                      batch_on(batch, dev))
+            torch.cuda.synchronize()
         launched = train_counts()
-        out[dev] = (float(m["loss"]), [g.cpu() for g in opt.grads],
+        out[dev] = (float(m["loss"]),
+                    [g.cpu() for g in tree_leaves(opt.grads)],
                     [t.cpu() for t in tree_leaves(state.mu)], launched)
         if dev == "cpu" and any(launched.values()):
             raise RuntimeError(f"the CPU step launched kernels {launched}")
+    routes.check(f"{cfg.name} smoke step, card vs CPU")
     want = launches_per_train_step(cfg, seq)
     if out["cuda"][3] != want:
         raise RuntimeError(f"smoke step launches {out['cuda'][3]} != {want}")
@@ -3865,7 +4002,80 @@ def smoke_step_against_cpu(cfg, seq: int) -> None:
     log(f"  (a) {cfg.name}, one step on the card vs the CPU: loss "
         f"{lg:.6f} vs {lc:.6f}; {len(gg)} leaves, worst gradient "
         f"{g_err:.3e} and first moment {m_err:.3e} of the leaf's largest "
-        f"entry (bar {STEP_REL}); card launches {out['cuda'][3]}")
+        f"entry (bar {STEP_REL}); card launches {out['cuda'][3]}"
+        + (f"; {routes.line()}" if routes.tokens else ""))
+
+
+class Routes:
+    """The MoE router's ``torch.topk`` (``layers._moe_tokens``), recorded
+    in one run and replayed in another: a replayed call takes the
+    recorded experts, their weights gathered from its own probabilities
+    (topk's gradient is that gather's), so that two runs whose router
+    logits differ by rounding route every token alike; a near tie
+    between the k-th and the next expert, which rounding flips, would
+    otherwise move a token's gradient from one expert to another.
+    ``index`` maps a replaying call's number to the recorded call's (a
+    sharded run's groups are a slice of the one-card run's). ``flips``
+    counts the tokens whose own top-k differs from the route taken;
+    :meth:`check` bounds them at FLIP_SHARE of the routes, so that the
+    replay covers near ties and a router that picks other experts still
+    fails."""
+
+    FLIP_SHARE = 1e-3
+
+    def __init__(self):
+        self.calls, self.flips, self.tokens = [], 0, 0
+        self.index, self.replayed = None, 0
+
+    @contextlib.contextmanager
+    def run(self, replay: bool):
+        topk = torch.topk
+
+        def routed(x, k, dim=-1, *args, **kwargs):
+            if not replay:
+                out = topk(x, k, dim, *args, **kwargs)
+                self.calls.append(out.indices.detach())
+                return out
+            i = self.replayed if self.index is None else \
+                self.index(self.replayed)
+            self.replayed += 1
+            idx = self.calls[i].to(x.device)
+            own = topk(x.detach(), k, dim).indices
+            self.flips += int((own.sort(dim).values != idx.sort(dim).values)
+                              .any(dim).sum())
+            self.tokens += idx.shape[0]
+            return x.gather(dim, idx), idx
+        torch.topk = routed
+        try:
+            yield self
+        finally:
+            torch.topk = topk
+
+    def broadcast(self, rank: int, dev) -> None:
+        """Rank 0's recorded routes to every rank (each call holds a
+        group's (tokens, k) experts; every group is as large)."""
+        import torch.distributed as dist
+        shape = torch.tensor([len(self.calls)] + list(
+            self.calls[0].shape if self.calls else (0, 0)), device=dev) \
+            if rank == 0 else torch.zeros(3, dtype=torch.int64, device=dev)
+        dist.broadcast(shape, 0)
+        n, t, k = shape.tolist()
+        if not n:
+            return
+        stacked = torch.stack(self.calls).to(dev) if rank == 0 else \
+            torch.empty((n, t, k), dtype=torch.int64, device=dev)
+        dist.broadcast(stacked, 0)
+        self.calls = list(stacked)
+
+    def line(self) -> str:
+        return (f"{self.tokens} token routes replayed, {self.flips} of them "
+                f"other than the run's own top-k" if self.tokens else "")
+
+    def check(self, label: str) -> None:
+        if self.flips > self.FLIP_SHARE * self.tokens:
+            raise RuntimeError(f"{label}: {self.line()}, more than "
+                               f"{self.FLIP_SHARE:g} of them: the routers "
+                               f"differ beyond near ties")
 
 
 def plain_on_the_card():
@@ -3886,29 +4096,42 @@ def plain_on_the_card():
     return restore
 
 
-def grads_against_plain(cfg, batch_size: int) -> None:
-    """Phase 10 / 13 (b): at full width, B ``batch_size`` x GRAD_SEQ, the
-    gradient of Model.loss for every leaf (make_train_step's own
-    ``value_and_grad``) through the kernels against the same through
-    the plain versions on the card (no kernel launched), per leaf within
-    STEP_REL of the leaf's largest entry."""
-    model = build_model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(1))
-    batch = batch_on(next(batches(cfg, batch_size, GRAD_SEQ, seed=1)),
-                     "cuda")
-    results = []
+def kernels_and_plain(model, params, batch) -> tuple:
+    """The loss and every leaf's gradient (make_train_step's own
+    ``value_and_grad``) through the kernels, then through the plain
+    versions on the card, each with the launches it made; the second
+    run takes the first's MoE routes (:class:`Routes`). Returns the two
+    (loss, gradients, launches) and the routes."""
+    routes, results = Routes(), []
     for plain in (False, True):
         restore = plain_on_the_card() if plain else None
         try:
-            train_counts(reset=True)
-            loss, grads = value_and_grad(model, params, batch)
-            torch.cuda.synchronize()
+            with routes.run(replay=plain):
+                train_counts(reset=True)
+                loss, grads = value_and_grad(model, params, batch)
+                torch.cuda.synchronize()
             results.append((float(loss), grads, train_counts()))
             del grads
         finally:
             if restore:
                 restore()
-    (lk, gk, ck), (lp, gp, cp) = results
+    routes.check(f"{model.cfg.name}, kernels vs plain")
+    return results[0], results[1], routes
+
+
+def grads_against_plain(cfg, batch_size: int) -> None:
+    """Phases 10, 13 and 15 (b): at full width, B ``batch_size`` x
+    GRAD_SEQ (with the stub features the config takes), the gradient of
+    Model.loss for every leaf (make_train_step's own ``value_and_grad``)
+    through the kernels against the same through the plain versions on
+    the card (no kernel launched), per leaf within STEP_REL of the leaf's
+    largest entry."""
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    batch = batch_on(next(batches(cfg, batch_size, GRAD_SEQ, seed=1)),
+                     "cuda")
+    (lk, gk, ck), (lp, gp, cp), routes = kernels_and_plain(model, params,
+                                                           batch)
     if ck != launches_per_train_step(cfg, GRAD_SEQ) or any(cp.values()):
         raise RuntimeError(f"launches: kernels {ck}, plain {cp}")
     worst = check_leaves(f"B {batch_size} x {GRAD_SEQ}, kernels vs plain",
@@ -3916,24 +4139,37 @@ def grads_against_plain(cfg, batch_size: int) -> None:
     errs = leaf_errors(gk, gp)
     if not abs(lk - lp) <= 1e-5 * abs(lp):
         raise RuntimeError(f"loss with kernels {lk} vs plain {lp}")
-    log(f"  (b) B={batch_size} x {GRAD_SEQ}, one step's gradients through "
-        f"the kernels ({ck}) vs the plain versions on the card (no launch):"
-        f" loss {lk:.6f} vs {lp:.6f}; {len(gk)} leaves, worst "
-        f"{worst:.3e} of the leaf's largest entry (bar {STEP_REL}), median "
-        f"{float(np.median(errs)):.3e}")
-    del gk, gp, params, model, results
+    log(f"  (b) {cfg.name}, B={batch_size} x {GRAD_SEQ}, one step's "
+        f"gradients through the kernels ({ck}) vs the plain versions on "
+        f"the card (no launch): loss {lk:.6f} vs {lp:.6f}; {len(gk)} "
+        f"leaves, worst {worst:.3e} of the leaf's largest entry (bar "
+        f"{STEP_REL}), median {float(np.median(errs)):.3e}"
+        + (f"; {routes.line()}" if routes.tokens else ""))
+    del gk, gp, params, model
+
+
+def positions(cfg, batch_size: int, seq: int) -> int:
+    """The positions a training step runs: ``seq`` text tokens a row,
+    an image prefix and an encoder's stub frames (those the data
+    pipeline gives)."""
+    return batch_size * (seq + cfg.num_image_tokens
+                         + cfg.encoder_max_frames * cfg.is_encoder_decoder)
 
 
 def train_full_width(cfg, smoke_cfg, batch_size: int, seq: int,
-                     smoke_seq: int = SMOKE_TRAIN_SEQ) -> dict:
-    """Phases 10 and 13: (a) and (b) for ``smoke_cfg`` and ``cfg``, then
-    (c), the main path of the phase: ``cfg`` at published width trained
-    by make_train_step (AdamW, remat) on batches(cfg, batch_size, seq):
-    one warm-up step, TRAIN_STEPS timed steps each with its launches
-    checked exactly, then one traced step. Returns the launches of the
-    steps."""
+                     smoke_seq: int = SMOKE_TRAIN_SEQ,
+                     steps: int = TRAIN_STEPS, grad_cfg=None,
+                     grad_batch: int = 0, dryrun_gb=None) -> dict:
+    """Phases 10, 13 and 15: (a) and (b) for ``smoke_cfg`` and
+    ``grad_cfg`` (by default ``cfg``; B ``grad_batch``, by default
+    ``batch_size``), then (c), the main path of the phase: ``cfg`` at
+    published width trained by make_train_step (AdamW, remat) on
+    batches(cfg, batch_size, seq): one warm-up step, ``steps`` timed
+    steps each with its launches checked exactly, then one traced step;
+    the peak beside ``dryrun_gb()``, the dry-run's, where given. Returns
+    the launches of the steps."""
     smoke_step_against_cpu(smoke_cfg, smoke_seq)
-    grads_against_plain(cfg, batch_size)
+    grads_against_plain(grad_cfg or cfg, grad_batch or batch_size)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3950,7 +4186,7 @@ def train_full_width(cfg, smoke_cfg, batch_size: int, seq: int,
     total = dict.fromkeys(TRAIN_COUNTERS, 0)
     losses, step_s = [], []
     torch.cuda.reset_peak_memory_stats()
-    for i in range(1 + TRAIN_STEPS):
+    for i in range(1 + steps):
         batch = batch_on(next(data), "cuda")
         torch.cuda.synchronize()
         train_counts(reset=True)
@@ -3968,14 +4204,22 @@ def train_full_width(cfg, smoke_cfg, batch_size: int, seq: int,
     peak = torch.cuda.max_memory_allocated() / 1e9
     tokens = batch_size * seq
     ms = float(np.mean(step_s)) * 1e3
-    log(f"  (c) {TRAIN_STEPS} timed steps after 1 warm-up, B={batch_size} x "
-        f"{seq} tokens, AdamW(lr={TRAIN_LR}), remat: {ms:.1f} ms a step "
-        f"(min {min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}), "
-        f"{tokens / (ms / 1e3):.1f} tokens/s, "
-        f"{6 * n * tokens / (ms / 1e3) / 1e12:.1f} TFLOP/s of 6 N T; "
+    # 6 N T: N the parameters a token touches (a MoE's top-k experts and
+    # shared one), T every position the step runs
+    n_active = cfg.active_param_count() if cfg.num_experts else n
+    pos = positions(cfg, batch_size, seq)
+    extra = f" + {pos - tokens} prefix or encoder positions" \
+        if pos != tokens else ""
+    log(f"  (c) {steps} timed steps after 1 warm-up, B={batch_size} x "
+        f"{seq} tokens{extra}, AdamW(lr={TRAIN_LR}), remat: {ms:.1f} ms a "
+        f"step (min {min(step_s) * 1e3:.1f}, max {max(step_s) * 1e3:.1f}),"
+        f" {tokens / (ms / 1e3):.1f} tokens/s, "
+        f"{6 * n_active * pos / (ms / 1e3) / 1e12:.1f} TFLOP/s of 6 N T "
+        f"(N {n_active} parameters a token touches, T {pos} positions); "
         f"peak device memory {peak:.2f} GB "
-        f"(torch.cuda.max_memory_allocated); launches a step {want}, "
-        f"exact in every step ({nvidia_smi()})")
+        f"(torch.cuda.max_memory_allocated)"
+        + (f", the dry-run's {dryrun_gb():.2f} GB" if dryrun_gb else "")
+        + f"; launches a step {want}, exact in every step ({nvidia_smi()})")
     batch = batch_on(next(data), "cuda")
     train_counts(reset=True)
     report_trace("one traced training step",
@@ -4089,9 +4333,63 @@ def _p11_scatter(model, cfg, rank: int, dev):
     return _map2(lambda leaf, spec: next(shards), model.full, model.specs)
 
 
+def _p11_forced(model, params, batch, toks: torch.Tensor,
+                smax: int = SMAX) -> torch.Tensor:
+    """:func:`_p11_greedy`'s logits (B, 1 + steps, V) with its tokens
+    given: step i decodes ``toks[:, i]``, so every step sees the input of
+    the greedy run that chose ``toks``."""
+    pos = batch["tokens"].shape[1] + model.cfg.num_image_tokens
+    logits, state = model.prefill(params, batch, smax)
+    outs = [logits]
+    for i in range(toks.shape[1] - 1):
+        logits, state = model.decode_step(params, toks[:, i:i + 1], pos + i,
+                                          state)
+        outs.append(logits)
+    return torch.cat(outs, 1)
+
+
+class Float64(torch.overrides.TorchFunctionMode):
+    """Every ``float()`` cast and every ``float32`` argument becomes
+    ``float64``: the model's f32 arithmetic, run in f64. With ``log``,
+    each call's (function, arguments, output) is appended to it."""
+
+    def __init__(self, log: list = None):
+        super().__init__()
+        self.log = log
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.float:
+            out = args[0].to(torch.float64)
+        else:
+            def sub(v):
+                return torch.float64 if v is torch.float32 else v
+            out = func(*(sub(a) for a in args),
+                       **{k: sub(v) for k, v in (kwargs or {}).items()})
+        if self.log is not None:
+            self.log.append((func, args, out))
+        return out
+
+
+def _p11_f64(cfg, full, fwd, prompt, toks, smax: int) -> tuple:
+    """(j)'s reference: the one-card model on the same weights and
+    batches in f64 (the plain versions on the card, every f32 cast
+    promoted): the forward's logits and the prefill and steps fed the
+    one-card run's greedy ``toks``."""
+    model = build_model(cfg, full["embed"].device)
+    w64 = tree_map(lambda t: t.to(torch.float64), full)
+    restore = plain_on_the_card()
+    try:
+        with Float64():
+            out = (model.forward(w64, fwd)[0],
+                   _p11_forced(model, w64, prompt, toks, smax))
+    finally:
+        restore()
+    return out
+
+
 def _p11_against_one_card(rank: int, cfg, meshes, scatter: bool = False,
                           batch: int = DECODE_BATCH, prompt_len: int = PROMPT,
-                          smax: int = SMAX) -> dict:
+                          smax: int = SMAX, f64: bool = False) -> dict:
     """(a), (b), (e), (j), (k): the same seeded weights, drawn on every
     card; rank 0 runs the plain model on its card, then every mesh of
     ``meshes`` runs the sharded one: the forward of PAR_FWD, then
@@ -4099,9 +4397,13 @@ def _p11_against_one_card(rank: int, cfg, meshes, scatter: bool = False,
     PAR_STEPS greedy steps, with the stub frames or image features the
     config takes. With ``scatter`` ((f), (g), (l): a model whose full
     tree and shards do not fit one card together) only rank 0 draws
-    them, and each mesh's shards come from :func:`_p11_scatter`. Returns
-    rank 0's errors and token agreement, each mesh's shards a card and
-    peak, and this rank's launches over the sharded runs."""
+    them, and each mesh's shards come from :func:`_p11_scatter`. With
+    ``f64`` ((j)) the logits are also held against :func:`_p11_f64`'s,
+    and the one-card run's own distance from f64 is returned beside
+    them (``forward_rel`` and ``steps_rel`` are then f64's,
+    ``vs_one_card`` the one-card run's). Returns rank 0's
+    errors and token agreement, each mesh's shards a card and peak, and
+    this rank's launches over the sharded runs."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.parallel import (ShardedModel, shard_batch,
                                              shard_params)
@@ -4120,6 +4422,15 @@ def _p11_against_one_card(rank: int, cfg, meshes, scatter: bool = False,
             ref_fwd, _ = plain.forward(full, fwd)
             ref_steps, ref_toks, _, _ = _p11_greedy(plain, full, prompt,
                                                     PAR_STEPS, smax)
+            if f64:
+                f64_fwd, f64_steps = _p11_f64(cfg, full, fwd, prompt,
+                                              ref_toks, smax)
+                out["one_card_vs_f64"] = {
+                    "forward_rel": _p11_rel(ref_fwd, f64_fwd),
+                    "steps_rel": _p11_rel(ref_steps, f64_steps)}
+                # the one-card run's logits, kept for the log
+                one_fwd, one_steps = ref_fwd, ref_steps
+                ref_fwd, ref_steps = f64_fwd, f64_steps
         if scatter:
             del full
             gc.collect()
@@ -4148,6 +4459,9 @@ def _p11_against_one_card(rank: int, cfg, meshes, scatter: bool = False,
                 out["meshes"][f"{shape[0]}x{shape[1]}"] = {
                     "forward_rel": _p11_rel(logits, ref_fwd),
                     "steps_rel": _p11_rel(steps, ref_steps),
+                    **({"vs_one_card": [_p11_rel(logits, one_fwd),
+                                        _p11_rel(steps, one_steps)]}
+                       if f64 else {}),
                     "tokens_equal": int((toks == ref_toks).sum()),
                     "tokens": toks.numel(),
                     "local_gb": sum(t.numel() * t.element_size()
@@ -4174,9 +4488,39 @@ def _covered_ms(spans) -> float:
     return total / 1e3
 
 
+def _trace_summary(prof, wall_ms: float) -> dict:
+    """One rank's traced step: its CUDA kernels, the time the union of
+    the non-NCCL kernels' intervals covers (busy) and NCCL's, and the
+    five kernels with the most device time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    spans = [(e.time_range.start, e.time_range.end,
+              "nccl" in e.name.lower()) for e in prof.events()
+             if e.device_type == cuda]
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall_ms,
+            "busy_ms": _covered_ms([(a, b) for a, b, n in spans if not n]),
+            "nccl_ms": _covered_ms([(a, b) for a, b, n in spans if n]),
+            "kernels": sum(e.count for e in kern),
+            "top": [(e.key[:70], e.self_device_time_total / 1e3, e.count)
+                    for e in top]}
+
+
+def _log_trace(part: str, t: dict) -> None:
+    """Log a :func:`_trace_summary` of rank 0."""
+    log(f"  ({part}) one traced step on rank 0: {t['kernels']} kernels, "
+        f"device busy (the union of its non-NCCL kernels) "
+        f"{t['busy_ms']:.3f} of {t['wall_ms']:.3f} ms "
+        f"({t['busy_ms'] / t['wall_ms']:.1%}); NCCL kernels resident "
+        f"{t['nccl_ms']:.3f} ms ({t['nccl_ms'] / t['wall_ms']:.1%}: "
+        f"transfer and the wait for the slowest rank)")
+    for key, ms, n in t["top"]:
+        log(f"    {ms:8.3f} ms  x{n:<5d} {key}")
+
+
 def _p11_whole(rank: int, cfg) -> dict:
     """(c), (h), (i): ``cfg`` at full width on the (1, 4) mesh, each
-    card's shards drawn from its own seeded generator: prefill
+    card drawing its shards (init_local, one seed on every card): prefill
     DECODE_BATCH x PROMPT into SMAX slots (a cold call, then a timed
     one), then PAR_WHOLE_STEPS greedy steps; launches checked per rank;
     one more step traced on rank 0."""
@@ -4189,8 +4533,7 @@ def _p11_whole(rank: int, cfg) -> dict:
     mesh = make_mesh(1, PAR_CARDS)
     model = ShardedModel(cfg, mesh, dev)
     t0 = time.perf_counter()
-    params = model.init_local(torch.Generator(device=dev).manual_seed(
-        1000 + rank))
+    params = model.init_local(1000)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)     # serving's peak, from here
     out = {"init_s": time.perf_counter() - t0,
@@ -4235,20 +4578,7 @@ def _p11_whole(rank: int, cfg) -> dict:
                 t0 = time.perf_counter()
                 step()
                 wall = (time.perf_counter() - t0) * 1e3
-            kern = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA]
-            spans = [(e.time_range.start, e.time_range.end,
-                      "nccl" in e.name.lower()) for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
-            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
-            out["trace"] = {
-                "wall_ms": wall,
-                "busy_ms": _covered_ms([(a, b) for a, b, n in spans
-                                        if not n]),
-                "nccl_ms": _covered_ms([(a, b) for a, b, n in spans if n]),
-                "kernels": sum(e.count for e in kern),
-                "top": [(e.key[:70], e.self_device_time_total / 1e3,
-                         e.count) for e in top]}
+            out["trace"] = _trace_summary(prof, wall)
         else:
             step()
         torch.distributed.barrier()
@@ -4307,7 +4637,7 @@ def _p11_parts(rank: int) -> dict:
         runs[part] = functools.partial(
             _p11_against_one_card, rank, get_arch(arch), PAR_MESHES,
             scatter=arch == "pixtral-12b", batch=batch,
-            prompt_len=prompt_len, smax=smax)
+            prompt_len=prompt_len, smax=smax, f64=part == "j")
     res: dict = {}
     for part, run in runs.items():
         res[part] = run()
@@ -4316,8 +4646,10 @@ def _p11_parts(rank: int) -> dict:
     return res
 
 
-def _p11_rank(rank: int, world: int, store: str, out_dir: str) -> None:
-    """One rank of phase 11: NCCL over a FileStore, one card a rank."""
+def _p11_rank(rank: int, world: int, store: str, out_dir: str,
+              phase: int = 11) -> None:
+    """One rank of phase 11 or 16: NCCL over a FileStore, one card a
+    rank."""
     import datetime
     import traceback
     import torch.distributed as dist
@@ -4331,7 +4663,7 @@ def _p11_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         device_id=torch.device("cuda", rank))
     res: dict = {"rank": rank}
     try:
-        res.update(_p11_parts(rank))
+        res.update(_p11_parts(rank) if phase == 11 else _p16_parts(rank))
     except Exception:  # noqa: BLE001 — reported to the parent
         res["error"] = traceback.format_exc()
     path = Path(out_dir) / f"rank{rank}.json"
@@ -4341,28 +4673,71 @@ def _p11_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
+class DryRun:
+    """The port's dry-run (``repro_torch.launch.dryrun.lower_one`` on
+    ``meta``) of each ``(config or registered name, ShapeSpec, mesh,
+    smax)`` of ``runs``, in a process of its own (its fake process group
+    is process-global), started at once; :meth:`gb` waits for it and
+    gives a run's per-device peak in GB. A name takes the reference's
+    production policy, a config is traced as it is."""
+
+    def __init__(self, runs):
+        import pickle
+        code = (
+            "import json, pickle, sys\n"
+            f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+            "from repro_torch.launch.dryrun import lower_one\n"
+            "runs = pickle.load(sys.stdin.buffer)\n"
+            "print(json.dumps([lower_one(a, shape, mesh, smax=smax, "
+            "verbose=False)['peak_bytes_per_device'] for a, shape, mesh, "
+            "smax in runs]))\n")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-W", "ignore", "-c", code],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT)
+        self.proc.stdin.write(pickle.dumps(list(runs)))
+        self.proc.stdin.close()
+        self.peaks = None
+
+    def gb(self, i: int) -> float:
+        if self.peaks is None:
+            out = self.proc.stdout.read().decode(errors="replace")
+            if self.proc.wait(timeout=600):
+                raise RuntimeError(f"the dry-run failed: {out[-3000:]}")
+            self.peaks = json.loads(out.strip().splitlines()[-1])
+        return self.peaks[i] / 1e9
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.proc.stdout.close()
+
+
+def train_shape(cfg, b: int, seq: int):
+    """The dry-run's training shape of B ``b`` x ``seq`` text tokens: its
+    batch is the reference's ``batch_specs``, whose training rows take
+    an image prefix before the text and, for an encoder-decoder, as many
+    stub frames as tokens."""
+    from repro_torch.launch.shapes import ShapeSpec
+    return ShapeSpec("train", "train", seq * (1 + cfg.is_encoder_decoder)
+                     + cfg.num_image_tokens, b)
+
+
 def dryrun_peaks(world: int) -> dict:
     """(d): the port's dry-run of (c)'s configuration on the (1, world)
-    mesh, in a subprocess (its fake group is process-global): the
-    prefill into SMAX slots and a decode step against them; returns
-    each one's per-device peak bytes."""
-    code = (
-        "import json, sys\n"
-        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
-        "from repro_torch.launch.dryrun import lower_one\n"
-        "from repro_torch.launch.shapes import ShapeSpec\n"
-        f"p = lower_one('qwen2-72b', ShapeSpec('prefill', 'prefill', "
-        f"{PROMPT}, {DECODE_BATCH}), (1, {world}), smax={SMAX}, "
-        "verbose=False)\n"
-        f"d = lower_one('qwen2-72b', ShapeSpec('decode', 'decode', {SMAX}, "
-        f"{DECODE_BATCH}), (1, {world}), verbose=False)\n"
-        "print(json.dumps({'prefill': p, 'decode': d}))\n")
-    run = subprocess.run([sys.executable, "-W", "ignore", "-c", code],
-                         capture_output=True, text=True, timeout=600)
-    if run.returncode:
-        raise RuntimeError(f"the dry-run failed: {run.stderr[-3000:]}")
-    arts = json.loads(run.stdout.strip().splitlines()[-1])
-    return {k: a["peak_bytes_per_device"] for k, a in arts.items()}
+    mesh: the prefill into SMAX slots and a decode step against them;
+    returns each one's per-device peak in GB."""
+    from repro_torch.launch.shapes import ShapeSpec
+    dry = DryRun([
+        ("qwen2-72b", ShapeSpec("prefill", "prefill", PROMPT, DECODE_BATCH),
+         (1, world), SMAX),
+        ("qwen2-72b", ShapeSpec("decode", "decode", SMAX, DECODE_BATCH),
+         (1, world), 0)])
+    try:
+        return {"prefill": dry.gb(0), "decode": dry.gb(1)}
+    finally:
+        dry.close()
 
 
 def _p11_report_whole(part: str, label: str, rows: list,
@@ -4388,47 +4763,23 @@ def _p11_report_whole(part: str, label: str, rows: list,
                                f"kernel of the path: {x['launches']}")
     log(f"  ({part}) collectives a rank [calls, bytes]: "
         f"{x0['collectives']}")
-    t = x0["trace"]
-    log(f"  ({part}) one traced step on rank 0: {t['kernels']} kernels, "
-        f"device busy (the union of its non-NCCL kernels) "
-        f"{t['busy_ms']:.3f} of {t['wall_ms']:.3f} ms "
-        f"({t['busy_ms'] / t['wall_ms']:.1%}); NCCL kernels resident "
-        f"{t['nccl_ms']:.3f} ms ({t['nccl_ms'] / t['wall_ms']:.1%}: "
-        f"transfer and the wait for the slowest rank)")
-    for key, ms, n in t["top"]:
-        log(f"    {ms:8.3f} ms  x{n:<5d} {key}")
+    _log_trace(part, x0["trace"])
 
 
-def sharded_on_four_cards() -> dict:
-    """Phase 11: PAR_CARDS ranks spawned, one a card (NCCL over a
-    FileStore under build/), running its parts in order:
-    (a) qwen2-72b cut to PAR_CUT layers, f32, the same seeded weights
-    unsharded on cuda:0 and split over each mesh of PAR_MESHES: the
-    forward's logits of PAR_FWD, then prefill DECODE_BATCH x PROMPT and
-    PAR_STEPS greedy steps into SMAX slots, within PAR_REL (max |dlogit|
-    / max |logit|) and every greedy token equal; (b) granite-moe-1b-a400m
-    whole on (1, 4), drop-free, the same bar; (e) granite-34b cut to
-    PAR_SPLIT_CUT layers on (1, 4), the same bar, its decode over the
-    sequence-split cache; (c) qwen2-72b whole (80 layers, bf16) on (1,
-    4); (d) the dry-run's peak beside (c)'s; (f) deepseek-v3-671b and
-    (g) jamba-1.5-large-398b with its experts, cut, f32, drop-free, on
-    both meshes, the bar of (a); (h) deepseek-v3-671b at
-    PAR_DEEPSEEK_WHOLE layers, bf16, and (i) one whole period of Jamba,
-    f32, served on (1, 4) as (c) is; (j) xlstm-125m, (k) whisper-small
-    and (l) pixtral-12b whole at published width, f32, on both meshes,
-    the bar of (a). Every rank of (f)-(i) must launch rmsnorm and flash
-    attention, and of (g) and (i) the scan and decode attention too; of
-    (j) rmsnorm, of (k) and (l) rmsnorm, flash and decode attention.
-    Returns the ranks' launches, summed."""
+def _spawn_ranks(phase: int) -> list:
+    """PAR_CARDS ranks of phase 11 or 16 spawned, one a card (NCCL over
+    a FileStore under build/), each running its parts in order: returns
+    their results, rank by rank, or raises with a failed rank's
+    traceback."""
     import multiprocessing as mp
-    out_dir = ROOT / "build" / "phase11"
+    out_dir = ROOT / "build" / f"phase{phase}"
     out_dir.mkdir(parents=True, exist_ok=True)
     for f in out_dir.glob("*"):
         f.unlink()
     ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
     procs = [ctx.Process(target=_p11_rank, args=(
-        r, PAR_CARDS, str(out_dir / "store"), str(out_dir)))
+        r, PAR_CARDS, str(out_dir / "store"), str(out_dir), phase))
         for r in range(PAR_CARDS)]
     for p in procs:
         p.start()
@@ -4452,16 +4803,43 @@ def sharded_on_four_cards() -> dict:
     for r in range(PAR_CARDS):
         path = out_dir / f"rank{r}.json"
         if not path.exists():
-            raise RuntimeError(f"phase 11: rank {r} wrote no result (exit "
-                               f"code {procs[r].exitcode})")
+            raise RuntimeError(f"phase {phase}: rank {r} wrote no result "
+                               f"(exit code {procs[r].exitcode})")
         res.append(json.loads(path.read_text()))
     errors = [x["error"] for x in res if "error" in x]
     if errors:
-        raise RuntimeError("phase 11 failed:\n" + "\n".join(errors))
+        raise RuntimeError(f"phase {phase} failed:\n" + "\n".join(errors))
     if any(p.exitcode != 0 for p in procs):
-        raise RuntimeError(f"phase 11: exit codes "
+        raise RuntimeError(f"phase {phase}: exit codes "
                            f"{[p.exitcode for p in procs]}")
+    return res
 
+
+def sharded_on_four_cards() -> dict:
+    """Phase 11: PAR_CARDS ranks spawned, one a card (NCCL over a
+    FileStore under build/), running its parts in order:
+    (a) qwen2-72b cut to PAR_CUT layers, f32, the same seeded weights
+    unsharded on cuda:0 and split over each mesh of PAR_MESHES: the
+    forward's logits of PAR_FWD, then prefill DECODE_BATCH x PROMPT and
+    PAR_STEPS greedy steps into SMAX slots, within PAR_REL (max |dlogit|
+    / max |logit|) and every greedy token equal; (b) granite-moe-1b-a400m
+    whole on (1, 4), drop-free, the same bar; (e) granite-34b cut to
+    PAR_SPLIT_CUT layers on (1, 4), the same bar, its decode over the
+    sequence-split cache; (c) qwen2-72b whole (80 layers, bf16) on (1,
+    4); (d) the dry-run's peak beside (c)'s; (f) deepseek-v3-671b and
+    (g) jamba-1.5-large-398b with its experts, cut, f32, drop-free, on
+    both meshes, the bar of (a); (h) deepseek-v3-671b at
+    PAR_DEEPSEEK_WHOLE layers, bf16, and (i) one whole period of Jamba,
+    f32, served on (1, 4) as (c) is; (j) xlstm-125m, (k) whisper-small
+    and (l) pixtral-12b whole at published width, f32, on both meshes,
+    the bar of (a) ((j): its forward against an f64 run at that bar, its
+    prefill and steps against one card at that bar and against the f64
+    run at PAR_F64_MARGIN times the one card's own distance from it).
+    Every rank of (f)-(i) must launch rmsnorm and flash
+    attention, and of (g) and (i) the scan and decode attention too; of
+    (j) rmsnorm, of (k) and (l) rmsnorm, flash and decode attention.
+    Returns the ranks' launches, summed."""
+    res = _spawn_ranks(11)
     against = (("a", f"qwen2-72b {PAR_CUT}L f32"),
                ("b", "granite-moe-1b-a400m whole, drop-free"),
                ("e", f"granite-34b {PAR_SPLIT_CUT}L f32, one KV "
@@ -4471,22 +4849,46 @@ def sharded_on_four_cards() -> dict:
                ("g", f"jamba-1.5-large-398b blocks "
                      f"{list(PAR_HYBRID_BLOCKS)} with experts, f32, "
                      f"drop-free"),
-               ("j", "xlstm-125m whole, f32"),
+               ("j", "xlstm-125m whole, f32, against f64"),
                ("k", "whisper-small whole, f32, 1500 stub frames a row"),
                ("l", "pixtral-12b whole (40 layers), f32, 1024 stub "
                      "patches a row"))
     failed = []         # every part is logged before phase 11 fails
     for part, label in against:
+        one = res[0][part].get("one_card_vs_f64")
+        if one:
+            log(f"  ({part}) {label}: every logit held against the same "
+                f"weights and batches in f64 (the plain versions, every "
+                f"f32 cast promoted; the steps fed the one-card run's "
+                f"tokens): max |d| / max |x_f64|; the one-card f32 run "
+                f"itself sits {one['forward_rel']:.3e} (forward) and "
+                f"{one['steps_rel']:.3e} (prefill + steps) from f64")
         for mesh, m in res[0][part]["meshes"].items():
+            if one:
+                # the steps: within PAR_REL of one card, and from f64
+                # within PAR_F64_MARGIN of the one card's own distance
+                steps_bar = PAR_F64_MARGIN * one["steps_rel"]
+                ok = (m["vs_one_card"][1] <= PAR_REL
+                      and m["steps_rel"] <= steps_bar)
+                log(f"  ({part}) on ({mesh.replace('x', ', ')}) against "
+                    f"the one-card f32 run: forward "
+                    f"{m['vs_one_card'][0]:.3e} (not a bar), prefill + "
+                    f"steps {m['vs_one_card'][1]:.3e} (bar {PAR_REL:g})")
+                steps = (f"{m['steps_rel']:.3e} (bar {PAR_F64_MARGIN:g} x "
+                         f"the one card's {one['steps_rel']:.3e} = "
+                         f"{steps_bar:.3e})")
+            else:
+                ok = m["steps_rel"] <= PAR_REL
+                steps = f"{m['steps_rel']:.3e} (bar {PAR_REL:g})"
             log(f"  ({part}) {label} on ({mesh.replace('x', ', ')}): "
                 f"forward {PAR_FWD[0]}x{PAR_FWD[1]} max|dlogit|/max|logit| "
-                f"{m['forward_rel']:.3e}; prefill + "
-                f"{PAR_STEPS} steps {m['steps_rel']:.3e} (bar {PAR_REL:g}); "
+                f"{m['forward_rel']:.3e} (bar {PAR_REL:g}); prefill + "
+                f"{PAR_STEPS} steps {steps}; "
                 f"greedy tokens equal {m['tokens_equal']} of {m['tokens']}; "
                 f"{m['local_gb']:.2f} GB of shards a card, peak "
                 f"{m['peak_gb']:.2f} GB on rank 0, {m['s']:.1f} s; "
                 f"collectives a rank {m['collectives']}")
-            if not (m["forward_rel"] <= PAR_REL and m["steps_rel"] <= PAR_REL
+            if not (ok and m["forward_rel"] <= PAR_REL
                     and m["tokens_equal"] == m["tokens"]):
                 failed.append(f"({part}) {mesh}: {m}")
         log(f"  ({part}) launches a rank over its sharded runs: "
@@ -4522,11 +4924,11 @@ def sharded_on_four_cards() -> dict:
     for part, label, kernels in whole:
         _p11_report_whole(part, label, [x[part] for x in res], kernels)
     peaks = dryrun_peaks(PAR_CARDS)
-    measured = max(x["c"]["peak_gb"] for x in res) * 1e9
+    measured = max(x["c"]["peak_gb"] for x in res)
     for kind in ("prefill", "decode"):
         log(f"  (d) the dry-run of (c) on (1, {PAR_CARDS}), {kind}: peak "
-            f"{peaks[kind] / 1e9:.2f} GB a device; (c) measured "
-            f"{measured / 1e9:.2f} GB: ratio {peaks[kind] / measured:.3f}")
+            f"{peaks[kind]:.2f} GB a device; (c) measured "
+            f"{measured:.2f} GB: ratio {peaks[kind] / measured:.3f}")
     if failed:
         raise RuntimeError("phase 11 failed: " + "; ".join(failed))
     total = dict.fromkeys(COUNTERS, 0)
@@ -4661,6 +5063,408 @@ def examples_on_the_card() -> None:
         f"{learned.group(2)}, checkpoint round-trip OK")
 
 
+# --------------------------------------------------------------- phase 15
+
+def train_the_families() -> dict:
+    """Phase 15: phase 10's three parts for each of P15_RUNS at published
+    width, f32, remat: granite-moe-1b-a400m, (a) and (b) drop-free (a
+    route that rounding flips makes a comparison meaningless) and (c) at
+    its published capacity factor, the reference's training semantics;
+    whisper-small with the data pipeline's encoder_max_frames stub frames
+    a row. (b) at B 1 x GRAD_SEQ, (c) P15_STEPS timed steps, its peak
+    beside the port's dry-run of the same step. Returns the launches of
+    the main path's steps."""
+    runs = [(dataclasses.replace(get_arch(arch), remat=True), b, seq)
+            for arch, b, seq in P15_RUNS]
+    dry = DryRun([(cfg, train_shape(cfg, b, seq), (1, 1), 0)
+                  for cfg, b, seq in runs])
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    try:
+        for i, (cfg, b, seq) in enumerate(runs):
+            log(f"  {cfg.name}, B {b} x {seq} tokens"
+                + (f" + {cfg.encoder_max_frames} stub frames a row"
+                   if cfg.is_encoder_decoder else "")
+                + (f", capacity factor {cfg.capacity_factor}"
+                   if cfg.num_experts else ""))
+            smoke = dataclasses.replace(drop_free(get_smoke(cfg.name)),
+                                        remat=True)
+            add_counts(total, train_full_width(
+                cfg, smoke, b, seq, steps=P15_STEPS, grad_cfg=drop_free(cfg),
+                grad_batch=1, dryrun_gb=functools.partial(dry.gb, i)))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dry.close()
+    return total
+
+
+# --------------------------------------------------------------- phase 16
+
+def _p16_batch(cfg, b: int, seq: int, dev, seed: int = 3) -> dict:
+    """One batch of the data pipeline, the same on every rank."""
+    return batch_on(next(batches(cfg, b, seq, seed=seed)), dev)
+
+
+def _p16_whole_leaves(tree, model, shapes):
+    """Every leaf of a tree of ``model``'s shards made whole (every rank
+    takes part; rank 0 keeps them), in :func:`tree_leaves`' order, each
+    in the reference's shape of ``shapes``: a generator, a leaf at a
+    time."""
+    spec_of = {}
+    from repro_torch.models.parallel import _map2
+    _map2(lambda t, spec: spec_of.__setitem__(id(t), spec), tree,
+          model.specs)
+    for t, shape in zip(tree_leaves(tree), shapes):
+        for d, entry in enumerate(spec_of[id(t)]):
+            if entry is not None:
+                t = model.par.all_gather(t, d, entry)
+        yield t.reshape(shape)
+
+
+def _p16_against_one_card(rank: int, cfg, meshes, b: int, seq: int) -> dict:
+    """(a), (b): the same seeded weights drawn on every card; rank 0
+    takes one make_train_step with AdamW on its card, then every mesh of
+    ``meshes`` takes the same step sharded, on the same B ``b`` x
+    ``seq`` batch. Rank 0 holds the sharded loss, every gradient leaf
+    and every first moment, each made whole, against its one-card run's:
+    max |d| over the leaf's largest |x|. Returns those, each mesh's
+    shards a card, peak and seconds, and this rank's launches, checked
+    exact, over the sharded steps."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.parallel import (ShardedModel, shard_batch,
+                                             shard_params)
+    dev = _p11_dev(rank)
+    t_part = time.perf_counter()
+    full = _p11_draw(cfg, dev)
+    batch = _p16_batch(cfg, b, seq, dev)
+    want = launches_per_train_step(cfg, seq)
+    shapes = [t.shape for t in tree_leaves(Model(cfg, torch.device(
+        "meta")).init(None))]
+    out = {"meshes": {}, "params": sum(t.numel() for t in tree_leaves(full))}
+    routes = Routes()
+    if rank == 0:
+        rec = RecordingAdamW(AdamW(lr=TRAIN_LR))
+        p = _tree_to(full, dev, copy=True)      # the step writes it
+        state = rec.init(p)
+        with routes.run(replay=False):
+            _, state, m = make_train_step(build_model(cfg, dev), rec)(
+                p, state, batch)
+        ref_loss = float(m["loss"])
+        ref = [(g.cpu(), mu.cpu()) for g, mu in zip(
+            tree_leaves(rec.grads), tree_leaves(state.mu))]
+        del p, state, rec, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    routes.broadcast(rank, dev)
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for shape in meshes:
+        mesh = make_mesh(*shape)
+        model = ShardedModel(cfg, mesh, dev)
+        local = shard_params(full, mesh)
+        rec = RecordingAdamW(AdamW(lr=TRAIN_LR))
+        state = rec.init(local)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        nd, g = model.par.data_size, cfg.moe_groups
+        # a data rank that routes its own rows takes its slice of the
+        # one-card run's groups (ShardedModel's moe_rows)
+        own = nd > 1 and g % nd == 0 and b * seq % g == 0
+        routes.index = functools.partial(
+            lambda i, per, d: (i // per) * g + d * per + i % per,
+            per=g // nd, d=model.par.data_rank) if own else None
+        routes.replayed = routes.flips = routes.tokens = 0
+        t_mesh = time.perf_counter()
+        train_counts(reset=True)
+        with routes.run(replay=True):
+            _, state, m = make_train_step(model, rec)(
+                local, state, shard_batch(batch, mesh))
+            torch.cuda.synchronize()
+        if routes.replayed * (nd if own else 1) != len(routes.calls):
+            raise RuntimeError(f"rank {rank} on {shape}: "
+                               f"{routes.replayed} routed groups, the "
+                               f"one-card run {len(routes.calls)}")
+        routes.check(f"rank {rank} on {shape}")
+        got = train_counts()
+        if got != want:
+            raise RuntimeError(f"rank {rank} on {shape}: launches {got} != "
+                               f"{want}")
+        add_counts(total, got)
+        step_s = time.perf_counter() - t_mesh
+        g_err, m_err = [], []
+        for (g, mu), whole_g, whole_mu in zip(
+                ref if rank == 0 else [(None, None)] * len(shapes),
+                _p16_whole_leaves(rec.grads, model, shapes),
+                _p16_whole_leaves(state.mu, model, shapes)):
+            if rank == 0:
+                g_err.append(leaf_errors([whole_g], [g.to(dev)])[0])
+                m_err.append(leaf_errors([whole_mu], [mu.to(dev)])[0])
+        if rank == 0:
+            out["meshes"][f"{shape[0]}x{shape[1]}"] = {
+                "loss": [float(m["loss"]), ref_loss],
+                "loss_rel": abs(float(m["loss"]) - ref_loss) / abs(ref_loss),
+                "grad_rel": max(g_err), "mu_rel": max(m_err),
+                "grad_median": float(np.median(g_err)),
+                "leaves": len(g_err), "step_s": step_s,
+                "routes": routes.line(),
+                "local_gb": sum(t.numel() * t.element_size()
+                                for t in tree_leaves(local)) / 1e9,
+                "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        del local, model, state, rec, m
+        torch.distributed.barrier()
+    out["launches"] = total
+    out["s"] = time.perf_counter() - t_part
+    return out
+
+
+def _p16_against_plain(rank: int, cfg, b: int, seq: int) -> dict:
+    """(c): ``cfg`` on (1, PAR_CARDS), each card drawing its own shards;
+    every rank's gradients of one loss through the kernels against the
+    same through the plain versions on the same cards (no launch), per
+    local leaf over the leaf's largest entry, and the loss."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.parallel import ShardedModel
+    dev = _p11_dev(rank)
+    t_part = time.perf_counter()
+    model = ShardedModel(cfg, make_mesh(1, PAR_CARDS), dev)
+    params = model.init_local(2000)
+    batch = _p16_batch(cfg, b, seq, dev)
+    (lk, gk, ck), (lp, gp, cp), routes = kernels_and_plain(model, params,
+                                                           batch)
+    want = launches_per_train_step(cfg, seq)
+    if ck != want or any(cp.values()):
+        raise RuntimeError(f"rank {rank}: launches with kernels {ck} != "
+                           f"{want}, plain {cp}")
+    errs = leaf_errors(gk, gp)
+    return {"loss": [lk, lp], "loss_rel": abs(lk - lp) / abs(lp),
+            "grad_rel": max(errs), "grad_median": float(np.median(errs)),
+            "leaves": len(errs), "launches": ck, "routes": routes.line(),
+            "local_gb": sum(t.numel() * t.element_size()
+                            for t in tree_leaves(params)) / 1e9,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "s": time.perf_counter() - t_part}
+
+
+def _p16_train_whole(rank: int, cfg, b: int, seq: int) -> dict:
+    """(d), (e): ``cfg`` on (1, PAR_CARDS), each card drawing its own
+    shards, trained by make_train_step (AdamW, remat) on B ``b`` x
+    ``seq``: one warm-up step, P16_STEPS timed steps, each with its
+    launches checked exactly, then one traced on rank 0 (its collectives
+    counted: kind, group, bytes). Returns the times, losses, peak and
+    launches of this rank, and rank 0's trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.parallel import ShardedModel
+    dev = _p11_dev(rank)
+    t_part = time.perf_counter()
+    model = ShardedModel(cfg, make_mesh(1, PAR_CARDS), dev)
+    t0 = time.perf_counter()
+    params = model.init_local(1000)
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "local_gb": sum(t.numel() * t.element_size()
+                           for t in tree_leaves(params)) / 1e9}
+    step = make_train_step(model, opt)
+    data = batches(cfg, b, seq, seed=0)     # the same rows on every rank
+    want = launches_per_train_step(cfg, seq)
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    losses, step_s = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(2 + P16_STEPS):
+        batch = batch_on(next(data), dev)
+        traced = i == 1 + P16_STEPS
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        train_counts(reset=True)
+        model.par.stats.reset()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) \
+            if traced and rank == 0 else contextlib.nullcontext()
+        with prof:
+            t = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        losses.append(float(m["loss"]))
+        if 0 < i <= P16_STEPS:
+            step_s.append(wall)
+        got = train_counts()
+        if got != want:
+            raise RuntimeError(f"rank {rank} step {i}: launches {got} != "
+                               f"{want}")
+        add_counts(total, got)
+    out.update(step_s=step_s, losses=losses, launches=total, want=want,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               collectives={f"{k}/{n}": [c, nb] for (k, n), (c, nb)
+                            in model.par.stats.by_kind.items()})
+    if rank == 0:
+        out["trace"] = _trace_summary(prof, wall * 1e3)
+    del params, state, model
+    out["s"] = time.perf_counter() - t_part
+    return out
+
+
+def p16_configs() -> dict:
+    """Phase 16's configs by part, remat on: (a) granite-moe whole and
+    (b) pixtral-12b cut to P16_PIXTRAL_CUT layers, (c) DeepSeek 1 + 1
+    with MTP, drop-free, f32; (d) pixtral-12b whole, f32; (e) DeepSeek
+    1 + 1 under the dry-run's training policy, and (e32) the same in
+    f32, which the dry-run only traces."""
+    from repro_torch.launch.shapes import ShapeSpec, dryrun_config
+    pix = get_arch("pixtral-12b")
+    ds = deepseek_cut(*PAR_DEEPSEEK_CUT)
+    cut = dataclasses.replace(pix, name=f"{pix.name}-{P16_PIXTRAL_CUT}L",
+                              segments=dense_segments(P16_PIXTRAL_CUT))
+    _, _, b_e, seq_e = P16_WHOLE[1]
+    policy = dryrun_config(ds, ShapeSpec("train", "train", seq_e, b_e),
+                           1)[0]
+    return {k: dataclasses.replace(cfg, remat=True) for k, cfg in {
+        "a": drop_free(get_arch("granite-moe-1b-a400m")), "b": cut,
+        "c": drop_free(ds), "d": pix, "e": policy,
+        "e32": dataclasses.replace(policy, param_dtype="float32",
+                                   compute_dtype="float32")}.items()}
+
+
+def _p16_parts(rank: int) -> dict:
+    """The parts of phase 16 a rank runs, in order; a card's memory is
+    freed between them."""
+    cfgs = p16_configs()
+    runs = {part: functools.partial(_p16_against_one_card, rank, cfgs[part],
+                                    PAR_MESHES, b, seq)
+            for part, _, b, seq in P16_AGAINST}
+    runs["c"] = functools.partial(_p16_against_plain, rank, cfgs["c"],
+                                  *P16_DEEPSEEK_GRAD)
+    for part, _, b, seq in P16_WHOLE:
+        runs[part] = functools.partial(_p16_train_whole, rank, cfgs[part], b,
+                                       seq)
+    res: dict = {}
+    for part, run in runs.items():
+        res[part] = run()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def train_on_four_cards() -> dict:
+    """Phase 16: PAR_CARDS ranks spawned, one a card (NCCL over a
+    FileStore under build/), running P16_AGAINST's (a) and (b), (c), then
+    P16_WHOLE's (d) and (e) in turn; the port's dry-run of (d), (e) and
+    (e) in f32 runs beside them on the host. Logs every part, fails at the end if any
+    part missed its bar; returns the ranks' launches over the sharded
+    steps, summed."""
+    cfgs = p16_configs()
+    whole = {part: (cfgs[part], b, seq) for part, _, b, seq in P16_WHOLE}
+    dry = DryRun([(cfg, train_shape(cfg, b, seq), (1, PAR_CARDS), 0)
+                  for cfg, b, seq in (whole["d"], whole["e"],
+                                      (cfgs["e32"],) + whole["e"][1:])])
+    try:
+        res = _spawn_ranks(16)
+        peaks = [dry.gb(i) for i in range(3)]
+    finally:
+        dry.close()
+    failed = []
+    for part, arch, b, seq in P16_AGAINST:
+        x0 = res[0][part]
+        label = (f"{cfgs[part].name} ({x0['params']} parameters), f32"
+                 f"{', drop-free' if cfgs[part].num_experts else ''}, B {b}"
+                 f" x {seq} tokens"
+                 + (f" + {cfgs[part].num_image_tokens} stub patches"
+                    if cfgs[part].num_image_tokens else ""))
+        for mesh, m in x0["meshes"].items():
+            log(f"  ({part}) {label} on ({mesh.replace('x', ', ')}), one "
+                f"make_train_step with AdamW against one card: loss "
+                f"{m['loss'][0]:.6f} vs {m['loss'][1]:.6f} "
+                f"({m['loss_rel']:.3e}); {m['leaves']} leaves made whole, "
+                f"worst gradient {m['grad_rel']:.3e} (median "
+                f"{m['grad_median']:.3e}) and first moment "
+                f"{m['mu_rel']:.3e} of the leaf's largest entry (bar "
+                f"{STEP_REL}); the sharded step {m['step_s']:.2f} s; "
+                + (f"{m['routes']} on rank 0; " if m["routes"] else "")
+                + f"{m['local_gb']:.2f} GB of shards a card, peak "
+                f"{m['peak_gb']:.2f} GB on rank 0")
+            if not max(m["loss_rel"], m["grad_rel"], m["mu_rel"]) <= \
+                    STEP_REL:
+                failed.append(f"({part}) {mesh}: {m}")
+        log(f"  ({part}) launches a rank over its sharded steps, each "
+            f"exact: {[x[part]['launches'] for x in res]}; "
+            f"{x0['s']:.1f} s in all")
+    b, seq = P16_DEEPSEEK_GRAD
+    c = [x["c"] for x in res]
+    worst = [f"{x['grad_rel']:.3e}" for x in c]
+    log(f"  (c) {cfgs['c'].name} with MTP, f32, drop-free, on (1, "
+        f"{PAR_CARDS}), B {b} x {seq}: each rank's gradients through the "
+        f"kernels ({c[0]['launches']}, exact) against the plain versions "
+        f"on the same cards (no launch): worst leaf a rank {worst} of its "
+        f"largest entry (bar {STEP_REL}), loss {c[0]['loss'][0]:.6f} vs "
+        f"{c[0]['loss'][1]:.6f}; {c[0]['routes']} on rank 0; "
+        f"{c[0]['local_gb']:.2f} GB of shards a card, peak "
+        f"{[round(x['peak_gb'], 2) for x in c]} GB; {c[0]['s']:.1f} s")
+    for x in c:
+        if not max(x["loss_rel"], x["grad_rel"]) <= STEP_REL:
+            failed.append(f"(c): {x}")
+    notes = {"d": "", "e": (f"; f32 is not run: under this policy's f32 "
+                            f"twin the dry-run reckons {peaks[2]:.2f} GB a "
+                            f"card")}
+    for i, (part, arch, b, seq) in enumerate(P16_WHOLE):
+        failed += _p16_report_whole(part, cfgs[part], b, seq,
+                                    [x[part] for x in res], peaks[i],
+                                    notes[part])
+    if failed:
+        raise RuntimeError("phase 16 failed: " + "; ".join(failed))
+    total = dict.fromkeys(TRAIN_COUNTERS, 0)
+    for x in res:
+        for part in "abcde":
+            add_counts(total, x[part]["launches"])
+    return total
+
+
+def _p16_report_whole(part: str, cfg, b: int, seq: int, rows: list,
+                      dry_gb: float, note: str) -> list:
+    """Log (d) or (e) and return what failed: the losses finite and
+    falling on every rank, the same on every rank."""
+    x0 = rows[0]
+    ms = float(np.mean(x0["step_s"])) * 1e3
+    tokens = b * seq
+    pos = positions(cfg, b, seq)
+    n = cfg.active_param_count()
+    log(f"  ({part}) {cfg.name}, {cfg.num_layers} layers, "
+        f"{str(cfg.pdtype)[6:]} parameters and {str(cfg.cdtype)[6:]} "
+        f"compute, remat, on (1, {PAR_CARDS}), B {b} x {seq} tokens"
+        + (f" + {cfg.num_image_tokens} stub patches" if cfg.num_image_tokens
+           else "")
+        + (f", capacity factor {cfg.capacity_factor}" if cfg.num_experts
+           else "")
+        + f": {cfg.param_count()} parameters, {x0['local_gb']:.2f} GB of "
+        f"shards a card (drawn in {x0['init_s']:.1f} s); {P16_STEPS} timed "
+        f"steps after 1 warm-up {ms:.1f} ms a step (min "
+        f"{min(x0['step_s']) * 1e3:.1f}, max {max(x0['step_s']) * 1e3:.1f}),"
+        f" {tokens / (ms / 1e3):.1f} tokens/s, "
+        f"{6 * n * pos / (ms / 1e3) / 1e12:.1f} TFLOP/s of 6 N T over the "
+        f"{PAR_CARDS} cards (N {n}, T {pos}); {x0['s']:.1f} s in all")
+    log(f"  ({part}) peak device memory a card "
+        f"(torch.cuda.max_memory_allocated): "
+        f"{[round(x['peak_gb'], 2) for x in rows]} GB; the dry-run's "
+        f"{dry_gb:.2f} GB{note}")
+    for rank, x in enumerate(rows):
+        log(f"  ({part}) rank {rank} launches {x['launches']}, "
+            f"{x['want']} a step, exact in every step")
+    log(f"  ({part}) collectives of one step on rank 0 [calls, bytes]: "
+        f"{x0['collectives']}")
+    _log_trace(part, x0["trace"])
+    losses = x0["losses"]
+    log(f"  ({part}) losses {[round(v, 4) for v in losses]}")
+    failed = []
+    if any(x["losses"] != losses for x in rows):
+        failed.append(f"({part}): the ranks' losses differ")
+    if not all(np.isfinite(losses)) or not np.mean(losses[-3:]) < losses[0]:
+        failed.append(f"({part}): training did not lower the loss: {losses}")
+    return failed
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA GPU; this script runs the "
@@ -4689,6 +5493,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_rmsnorm(gen)
     check_flash(gen)
+    check_flash_against_f64()
     check_decode(gen)
     check_mamba(gen)
     check_flash_bwd(gen)
@@ -4838,6 +5643,21 @@ def main() -> int:
         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated in this "
         f"one; {nvidia_smi()})")
     examples_on_the_card()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[15] train granite-moe-1b-a400m and whisper-small at published "
+        f"width on one card ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated before; {nvidia_smi()})")
+    families = train_the_families()
+    if torch.cuda.device_count() >= PAR_CARDS:
+        log(f"[16] training sharded on {PAR_CARDS} cards over NCCL "
+            f"({nvidia_smi()})")
+        add_counts(families, train_on_four_cards())
+    else:
+        log(f"[16] not run: it trains over {PAR_CARDS} cards, and torch "
+            f"sees {torch.cuda.device_count()}")
+    for r in records:
+        r["launches"] += families.get(r["name"], 0)
     if not all(r["launches"] > 0 for r in records):
         raise RuntimeError(f"a kernel was not launched: "
                            f"{[(r['name'], r['launches']) for r in records]}")

@@ -63,8 +63,9 @@
 //   way. At DQK 192 / DV 128: f32 (64 + 2 x 32) x 196 x 4 + 2 x 32 x 132
 //   x 4 B = 131 KiB, one CTA an SM (__launch_bounds__ says so); bf16
 //   (64 + 2 x 64) x 200 x 2 + 2 x 64 x 136 x 2 B = 109 KiB, two.
-// - The products are mma.cuh's: S = Q K^T is abt, P V is pb, which feeds
-//   P to the MMA from the score accumulators without a shuffle.
+// - The products are mma.cuh's: S = Q K^T is abt, P V is pb (in f32
+//   pb_into: pb into a zeroed tile, added to O with rounding), which
+//   feeds P to the MMA from the score accumulators without a shuffle.
 // - cudaFuncSetAttribute runs once per template instance and device.
 #include <math.h>
 #include <stdint.h>
@@ -254,8 +255,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l_i[e >> 1] += s[nt][e];
       }
 
+    // f32: through a zeroed tile, added with rounding; straight into acc
+    // the MMAs' truncations pile up over the Sk keys (mma.cuh's
+    // pb_into). bf16 rounds P to 8 bits before the MMA, which is far
+    // more than that pile-up, so it adds straight into acc.
     if constexpr (kF32)
-      pb_f32<DV, BN, LDV>(acc, s, sVs, g, t);
+      pb_into<DV, BN, LDV>(acc, s, sVs, lane);
     else
       pb_bf16<DV, BN, LDV>(acc, s, sVs, lane);
     __syncthreads();  // every warp is done with this stage

@@ -289,6 +289,37 @@ __device__ __forceinline__ void pb(float (&c)[N / 8][4],
     pb_bf16<N, K, LD>(c, p, sb, lane);
 }
 
+// acc += P B (mma.cuh's pb) through tiles of their own: the MMAs add into
+// a zeroed tile, which is then added to acc in f32 with rounding to
+// nearest. The tensor cores' f32 accumulation truncates; adding straight
+// into acc, whose sums run over up to G Sq rows (16384 at the training
+// shape, 3 MMAs a k-step of 8), let those truncations pile up to ~1e-3 of
+// acc, the error of one TF32 pass (the backward's dK and dV); the
+// forward's O, summed over Sk keys, comes out smaller by as much, and
+// the backward's delta = rowsum(dO * O) with it. The tile is acc's row of
+// N columns up to 64, and 32-column chunks above that, so it costs at
+// most 32 registers.
+template <int N, int K, int LD, typename T>
+__device__ __forceinline__ void pb_into(float (&acc)[N / 8][4],
+                                        const float (&p)[K / 8][4],
+                                        const T* sb, int lane) {
+  constexpr int NC = N <= 64 ? N : 32;  // columns a chunk
+  static_assert(N % NC == 0, "whole chunks");
+#pragma unroll
+  for (int c0 = 0; c0 < N; c0 += NC) {
+    float c[NC / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+    pb<NC, K, LD>(c, p, sb + c0, lane);
+#pragma unroll
+    for (int nt = 0; nt < NC / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 / 8 + nt][e] += c[nt][e];
+  }
+}
+
 // Columns [c0, c1) of rows [0, nrows) set to zero by a block of
 // NTHREADS: the head-dim padding, which the tile copies never write.
 template <int NTHREADS, typename T>

@@ -56,6 +56,7 @@ from repro_torch.launch.shapes import (
     batch_specs,
     dryrun_config,
 )
+from repro_torch.models.config import ArchConfig
 from repro_torch.models.kvcache import init_cache
 from repro_torch.models.parallel import ShardedModel
 from repro_torch.models.sharding import MODEL
@@ -175,19 +176,27 @@ def _analytic_bytes_per_device(cfg, shape: ShapeSpec, chips: int,
     return p_bytes / chips + factor * cache_bytes / data_size
 
 
-def lower_one(arch: str, shape: Union[str, ShapeSpec],
+def lower_one(arch: Union[str, ArchConfig], shape: Union[str, ShapeSpec],
               mesh: MeshArg = "single", smax: int = 0,
               verbose: bool = True) -> Dict[str, Any]:
     """Trace one combination on ``meta``; returns the artifact dict.
+    ``arch`` is a registered name, whose config takes the reference's
+    production policy (:func:`dryrun_config`: bf16 parameters and
+    compute, remat for training), or a config of the caller's, traced
+    as it is: its dtypes, remat and routing groups (bf16 moments and
+    microbatches still follow the reference's rule on its size).
     ``shape`` is a name of ``SHAPES`` or a ``ShapeSpec`` of one's own;
     ``smax`` (prefill only) sizes the cache, by default the sequence and
     an image prefix, as the reference's."""
     if isinstance(shape, str):
         shape = SHAPES[shape]
     mesh_name, mesh_shape, axis_names = _mesh_dims(mesh)
+    given = arch if isinstance(arch, ArchConfig) else None
+    if given is not None:
+        arch = given.name
     arch_eff = LONG_CONTEXT_SUBSTITUTE.get(arch, arch) \
-        if shape.name == "long_500k" else arch
-    base = get_arch(arch_eff)
+        if shape.name == "long_500k" and given is None else arch
+    base = given or get_arch(arch_eff)
     head = {"arch": arch, "arch_effective": arch_eff, "shape": shape.name,
             "mesh": mesh_name}
     ok, why = applicable(base, shape)
@@ -199,6 +208,8 @@ def lower_one(arch: str, shape: Union[str, ShapeSpec],
     sizes = dict(zip(axis_names, mesh_shape))
     data_size = chips // sizes[MODEL]
     cfg, big = dryrun_config(base, shape, data_size)
+    if given is not None:
+        cfg = given
     over_data = shape.batch % data_size == 0
     model = ShardedModel(cfg, dmesh, META, batch_over_data=over_data)
     b_local = shape.batch // data_size if over_data else shape.batch
@@ -209,7 +220,7 @@ def lower_one(arch: str, shape: Union[str, ShapeSpec],
     smax = smax or shape.seq + cfg.num_image_tokens
 
     t0 = time.time()
-    params = model.init_local(None)
+    params = model.init_local()
     kept = leaves(params)           # what the step finds resident
     param_bytes = _tree_bytes(params)
     tokens_total = shape.batch * shape.seq

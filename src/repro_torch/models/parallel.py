@@ -105,6 +105,7 @@ the data axes (``shard_seq`` with more than one data rank) raises
 from __future__ import annotations
 
 import copy
+import hashlib
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -553,7 +554,7 @@ class ShardedModel(Model):
     means every data rank gets the whole batch (long_500k's batch of 1).
 
     Entry points, as :class:`Model`'s:
-      init_local(generator)                 -> local params
+      init_local(seed)                      -> local params
       forward(params, batch)                -> (logits (B,S,V/model) f32,
                                                 aux)
       gather_logits(logits)                 -> (B,S,V)
@@ -584,13 +585,27 @@ class ShardedModel(Model):
         self._layouts: Dict[tuple, Any] = {}
 
     # ------------------------------------------------------------ params
-    def init_local(self, generator: Optional[torch.Generator]) -> Params:
+    def init_local(self, seed: int = 0) -> Params:
         """This rank's shards drawn directly, as :meth:`Model.init` draws
-        the full leaves (N(0, 1) times the leaf's scale), from
-        ``generator`` (seed it by rank); the deterministic leaves (norm
-        scales, biases, Mamba's dt, A and skip) are the full leaves'
-        rows. No rank holds the whole tree. On ``meta``, shapes only."""
+        the full leaves (N(0, 1) times the leaf's scale), from ``seed``,
+        the same on every rank: each shard from a generator of its own,
+        seeded by ``seed``, the leaf's path and
+        the shard's index on the axes that split the leaf, so that the
+        ranks holding one shard (a leaf replicated over ``model``, a
+        batch-split mesh's copies) hold the same values and two shards
+        differ. The deterministic leaves (norm scales, biases, Mamba's
+        dt, A and skip) are the full leaves' rows. No rank holds the
+        whole tree. On ``meta``, shapes only."""
         cfg, dev = self.cfg, self.device
+        names, _ = mesh_axes(self.mesh)
+        coords = dict(zip(names, self.mesh.get_coordinate()))
+
+        def shard_generator(path, spec) -> torch.Generator:
+            shard = [coords[a] for entry in spec for a in entry_axes(entry)]
+            key = hashlib.blake2b(repr((seed, path, shard)).encode(),
+                                  digest_size=7).digest()
+            return torch.Generator(device=dev).manual_seed(
+                int.from_bytes(key, "little"))
 
         def leaf(path, full, spec):
             shape = local_shape(full.shape, spec, self.mesh)
@@ -603,6 +618,7 @@ class ShardedModel(Model):
                     row = fill(shape[-1]).to(dev, full.dtype)
                     return row.expand(shape).contiguous()
                 return torch.full(shape, fill, dtype=full.dtype, device=dev)
+            generator = shard_generator(path, spec)
             out = torch.empty(shape, dtype=full.dtype, device=dev)
             # a layer at a time: one layer's f32 draw is all the extra
             # memory (qwen2-72b's FFN stack is 19 GB a card in f32)

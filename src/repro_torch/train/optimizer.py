@@ -75,20 +75,38 @@ class AdamW:
                                           device=t.device), t)
         c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                           device=t.device), t)
-        for p, g, m, v in zip(leaves(params), flat_g, leaves(state.mu),
-                              leaves(state.nu)):
-            if scale is not None:
-                g = g * scale.to(g.dtype)
-            gf = g.float()
-            m_new = b1 * m.float() + (1 - b1) * gf
-            v_new = b2 * v.float() + (1 - b2) * torch.square(gf)
-            delta = (m_new / c1) / (torch.sqrt(v_new / c2) + self.eps)
-            if p.dim() >= 2:  # decoupled decay on matrices only
-                delta = delta + self.weight_decay * p.float()
-            p.copy_(p.float() - self.lr * delta)
-            m.copy_(m_new.to(md))
-            v.copy_(v_new.to(md))
+        for leaf in zip(leaves(params), flat_g, leaves(state.mu),
+                        leaves(state.nu)):
+            decay = leaf[0].dim() >= 2   # decoupled decay on matrices only
+            for p, g, m, v in zip(*_chunks(leaf)):
+                if scale is not None:
+                    g = g * scale.to(g.dtype)
+                gf = g.float()
+                m_new = b1 * m.float() + (1 - b1) * gf
+                v_new = b2 * v.float() + (1 - b2) * torch.square(gf)
+                delta = (m_new / c1) / (torch.sqrt(v_new / c2) + self.eps)
+                if decay:
+                    delta = delta + self.weight_decay * p.float()
+                p.copy_(p.float() - self.lr * delta)
+                m.copy_(m_new.to(md))
+                v.copy_(v_new.to(md))
         return params, state
+
+
+# elements of a leaf that one pass of the update takes: its temporaries
+# (the clipped gradient, both new moments, the step) are each a chunk,
+# not a leaf (DeepSeek's stacked experts are 3.8 GB a leaf a card in f32)
+CHUNK = 1 << 24
+
+
+def _chunks(tensors) -> list:
+    """The same slices of each of ``tensors`` (one leaf's parameter,
+    gradient and moments): views of CHUNK elements at most, written in
+    place through; the whole tensors where one is not contiguous. The
+    update is elementwise, so a slice computes what the leaf would."""
+    if not all(t.is_contiguous() for t in tensors):
+        return [(t,) for t in tensors]
+    return [t.view(-1).split(CHUNK) for t in tensors]
 
 
 def adamw(lr: float = 3e-4, **kw) -> AdamW:

@@ -75,7 +75,7 @@ def check_local_shapes(cfg, data: int, model: int) -> int:
     for coord in itertools.product(range(data), range(model)):
         mesh = StubMesh(data, model, coord)
         sharded = ShardedModel(cfg, mesh, torch.device("meta"))
-        local = sharded.init_local(None)
+        local = sharded.init_local()
         for path, leaf in _walk(local):
             shape = tuple(_at(full, path).shape)
             spec = _at(ref, path)

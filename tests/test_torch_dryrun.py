@@ -257,6 +257,36 @@ def test_meshes_start_their_own_groups():
         assert run.stdout.strip().splitlines()[-1] == line
 
 
+def test_dryrun_traces_a_config_of_the_callers_as_it_is():
+    """lower_one takes a config as well as a registered name: by name it
+    applies the reference's production policy (bf16 parameters), a
+    config keeps its dtypes (here f32: twice the parameter bytes), its
+    remat and its name, on the same (1, 2) mesh and train step."""
+    code = (
+        "import dataclasses, json\n"
+        "from repro_torch.configs import get_arch\n"
+        "from repro_torch.launch.dryrun import lower_one\n"
+        "from repro_torch.launch.shapes import ShapeSpec\n"
+        "shape = ShapeSpec('t', 'train', 256, 2)\n"
+        "cfg = dataclasses.replace(get_arch('llama3.2-1b'), remat=True,\n"
+        "                          name='llama3.2-1b-f32')\n"
+        "a = [lower_one(x, shape, (1, 2), verbose=False)\n"
+        "     for x in ('llama3.2-1b', cfg)]\n"
+        "print(json.dumps([[x['arch'], x['status'],\n"
+        "                   x['param_bytes_per_device'],\n"
+        "                   x['peak_bytes_per_device']] for x in a]))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    run = subprocess.run([sys.executable, "-W", "ignore", "-c", code],
+                         env=env, capture_output=True, text=True,
+                         timeout=TIMEOUT_S)
+    assert run.returncode == 0, run.stderr
+    (name, ok, bf16, _), (given, ok2, f32, peak) = json.loads(
+        run.stdout.strip().splitlines()[-1])
+    assert (name, given, ok, ok2) == ("llama3.2-1b", "llama3.2-1b-f32",
+                                      "ok", "ok")
+    assert f32 == 2 * bf16 and peak > f32
+
+
 @pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_slstm_meta_branch_counts_the_traced_loop(grad, dtype):

@@ -306,46 +306,81 @@ def _flat(tree):
     return [tree]
 
 
+def _chip_smoke():
+    """The repo root's chip_smoke module, whose launch counts the card's
+    training phases hold every step to."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _drop_free(cfg):
+    """Room for every routed assignment (capacity factor E / k), so that
+    no route the card's rounding flips drops a token the CPU keeps."""
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.num_experts_per_tok)
+
+
 @pytest.mark.parametrize("arch,seq", [("llama3.2-1b", 96),
                                       ("llama3.2-1b-sw", 96),
                                       # the hybrid: two scan chunks of 64
-                                      ("jamba-1.5-large-398b", 128)])
+                                      ("jamba-1.5-large-398b", 128),
+                                      # MoE, drop-free; MLA with MTP;
+                                      # an encoder over stub frames and a
+                                      # cross-attention; an image prefix
+                                      ("granite-moe-1b-a400m", 96),
+                                      ("deepseek-v3-671b", 96),
+                                      ("whisper-small", 96),
+                                      ("pixtral-12b", 96)])
 @pytest.mark.parametrize("remat", [False, True])
 def test_loss_backward_reaches_every_leaf_through_the_kernels(gen, arch, seq,
                                                               remat):
-    """One loss.backward() on a smoke model on the card (the llamas, and
-    the hybrid's expert-free smoke Jamba): every leaf gets a finite,
-    nonzero gradient (the kernels carry gradients), the launches are the
-    step's, and the gradients match the CPU's."""
+    """One loss.backward() on a smoke model on the card (the llamas, the
+    hybrid's expert-free smoke Jamba, granite-moe and DeepSeek
+    drop-free, whisper with its stub frames, pixtral with its stub
+    patches): every leaf gets a finite, nonzero gradient (the kernels
+    carry gradients), the launches are the step's, counted from the
+    config (chip_smoke.launches_per_train_step), and the gradients match
+    the CPU's."""
+    chip_smoke = _chip_smoke()
     cfg = get_smoke(arch)
     if cfg.family == "hybrid":
         cfg = without_experts(cfg)
-    cfg = dataclasses.replace(cfg, remat=remat)
+    cfg = dataclasses.replace(_drop_free(cfg), remat=remat)
     cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     params = cpu.init(torch.Generator().manual_seed(0))
     card_params = _to(params, "cuda")
-    tok = torch.randint(0, cfg.vocab_size, (2, seq),
-                        generator=torch.Generator().manual_seed(1))
-    blocks = [b for s in cfg.segments for b in s.blocks
-              for _ in range(s.repeat)]
-    attn = sum(b.kind == "attn" for b in blocks)
-    scans = sum(b.kind == "mamba" for b in blocks) * (seq // cfg.ssm_chunk)
-    norms = 2 * len(blocks) + 1
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, seq),
+                                     generator=g)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn(2, cfg.encoder_max_frames, 128,
+                                      generator=g)
+    if cfg.num_image_tokens:
+        batch["image_feats"] = torch.randn(2, cfg.num_image_tokens, 1024,
+                                           generator=g)
     counters = (rms_mod.counter, fa_mod.counter, fa_mod.bwd_counter,
                 ms_mod.counter, ms_mod.bwd_counter)
     grads = []
-    for model, p, t in ((card, card_params, tok.cuda()), (cpu, params, tok)):
+    for model, p, b in ((card, card_params, _to(batch, "cuda")),
+                        (cpu, params, batch)):
         flat = _flat(p)
         for leaf in flat:
             leaf.requires_grad_(True)
         counts = [c.count for c in counters]
-        model.loss(p, {"tokens": t}).backward()
+        model.loss(p, b).backward()
         if model is card:
             torch.cuda.synchronize()
             # remat runs each layer's forward again in the backward
-            assert [c.count - n for c, n in zip(counters, counts)] == \
-                [norms + remat * (norms - 1), attn * (1 + remat), attn,
-                 scans * (1 + remat), scans]
+            want = chip_smoke.launches_per_train_step(cfg, seq)
+            assert dict(zip(want, (c.count - n for c, n in
+                                   zip(counters, counts)))) == want
         grads.append([leaf.grad for leaf in flat])
     for g, e in zip(*grads):
         assert g is not None and bool(torch.isfinite(g).all())

@@ -171,6 +171,66 @@ def test_flash_3xtf32_split_meets_the_f32_bar(b, sq, sk, h, kv, d, dv,
         (split - exp).abs().max())
 
 
+def _toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """f64 to f32, rounded toward zero: the tensor cores' f32
+    accumulation."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mma_pv(p: torch.Tensor, v: torch.Tensor, tile: int) -> torch.Tensor:
+    """p @ v as the f32 kernels' pb adds it: a k-step of 8 keys at a time,
+    three MMAs a step (the 3xTF32 split's small x big, big x small, big x
+    big), each rounding its sum toward zero into the accumulator. With
+    ``tile``, each tile of that many keys goes through a zeroed
+    accumulator, added to the sum with rounding to nearest (mma.cuh's
+    pb_into); with 0, straight into the sum."""
+    split = []
+    for x in (p, v):
+        big = _tf32(x)
+        split.append((big, ((x - big).contiguous().view(torch.int32)
+                            & ~0x1FFF).view(torch.float32)))
+    (pb, ps), (vb, vs) = split
+    acc = torch.zeros(p.shape[0], v.shape[1])
+    part = torch.zeros_like(acc)
+    for k0 in range(0, p.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        c = part if tile else acc
+        for a, b in ((ps, vb), (pb, vs), (pb, vb)):
+            c = _toward_zero(c.double() + a[:, ks].double() @ b[ks].double())
+        if not tile:
+            acc = c
+        elif (k0 + 8) % tile:
+            part = c
+        else:
+            acc, part = (acc.double() + c.double()).float(), \
+                torch.zeros_like(acc)
+    return acc
+
+
+@pytest.mark.parametrize("sk", [1536, 4096])
+def test_flash_pv_through_a_tile_keeps_f32_accuracy(sk):
+    """Why the forward adds each kv tile's P V through a zeroed tile
+    (pb_into): straight into O, the MMAs' truncations over whisper's
+    1500 frames or a 4096 context shrink O by ~1e-5 of its size, which
+    the backward's delta = rowsum(dO O) carries into dQ and dK (on the
+    card, whisper-small's cross-attention gradients then sat 6.6e-4 from
+    f64 against 7e-6 through the plain versions); through the tile, O
+    stays within 2e-6, f32's order."""
+    rng = np.random.default_rng(0)
+    s = torch.from_numpy(rng.standard_normal((16, sk), dtype=np.float32))
+    p = torch.exp(s - s.amax(-1, keepdim=True))   # unnormalised, as held
+    v = torch.from_numpy(rng.standard_normal((sk, 64), dtype=np.float32))
+    exact = p.double() @ v.double()
+
+    def rel(o):
+        return float((o.double() - exact).abs().max() / exact.abs().max())
+    tiled, straight = rel(_mma_pv(p, v, 64)), rel(_mma_pv(p, v, 0))
+    assert tiled <= 2e-6
+    assert straight >= 10 * tiled
+
+
 def _flash_bwd_tf32(q, k, v, out, lse, do, causal, window, passes):
     """The f32 backward kernel's arithmetic in plain torch: its five
     products (S, dP, dV, dK, dQ) through TF32 products, P = exp(S - lse)

@@ -25,7 +25,8 @@ layers and the cross-attention's heads over ``model``, 16 stub frames
 a row; with a vocabulary of 509, which divides no ``model``, the
 embedding and the head replicated there, as whisper's 51865 are) and
 pixtral-12b (16 stub image features a row, their prefix's rows over
-the data axes with the text's).
+the data axes with the text's; and cut to two stacked layers, as the
+card's four-card training runs it).
 
 Tolerances: logits of the forward, the prefill and every greedy step at
 the port's model bar, f32 atol 1e-4 / rtol 1e-4
@@ -66,7 +67,7 @@ ARCHS = ("llama3.2-1b", "qwen2-72b", "granite-34b", "granite-moe-1b-a400m")
 FAMILIES = ("xlstm-125m", "whisper-small", "pixtral-12b")
 CASES = ARCHS + ("granite-moe-1b-a400m/groups2", "llama3.2-1b-sw/long",
                  "deepseek-v3-671b", "jamba-1.5-large-398b") + FAMILIES + (
-    "xlstm-125m/heads1", "whisper-small/vocab509")
+    "xlstm-125m/heads1", "whisper-small/vocab509", "pixtral-12b/2L")
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "_torch_parallel_ranks.py")
 BATCH, SEQ, PROMPT, SMAX, STEPS = 4, 16, 8, 32, 6
@@ -79,6 +80,9 @@ def _configs(name):
     change = {"groups2": dict(moe_groups=2),
               "heads1": dict(num_heads=1, num_kv_heads=1),
               "vocab509": dict(vocab_size=509)}.get(variant, {})
+    if variant == "2L":     # two stacked layers, as the card's cut runs
+        return tuple(dataclasses.replace(c, segments=(dataclasses.replace(
+            c.segments[0], repeat=2),)) for c in (jcfg, cfg)) + (variant,)
     return (dataclasses.replace(jcfg, **change),
             dataclasses.replace(cfg, **change), variant)
 

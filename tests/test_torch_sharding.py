@@ -408,7 +408,7 @@ def test_mamba_shards_hold_matching_x_and_z_channels():
             return None
 
     model = ShardedModel(cfg, Mesh(), torch.device("cpu"))
-    local = model.init_local(torch.Generator().manual_seed(1))
+    local = model.init_local(1)
     det = ("w_dt", "b_dt", "d_skip", "a_log", "scale")
     n = 0
     for path, leaf in _walk(local):
@@ -419,6 +419,51 @@ def test_mamba_shards_hold_matching_x_and_z_channels():
             assert torch.equal(leaf, want[idx]), path
             n += 1
     assert n == 4 * 7 + 2 * 8 + 1         # 7 Mamba layers, 16 norms, final
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+def test_init_local_gives_ranks_that_hold_one_shard_the_same_values(mesh):
+    """ShardedModel.init_local from one seed on every rank: the ranks
+    that hold the same shard of a leaf (replicated over ``model``, or a
+    copy over ``data``) draw the same values, and two shards of a leaf
+    split over an axis differ. Seeded by rank, as the card's whole-model
+    runs once drew, DeepSeek's replicated router differed from rank to
+    rank, and so did the loss each rank computed. Every leaf is checked
+    at every rank of the mesh, DeepSeek's smoke config with MTP."""
+    from _torch_shards import StubMesh
+    from repro_torch.configs import get_smoke
+    from repro_torch.models.parallel import ShardedModel
+    from repro_torch.models.sharding import entry_axes
+    cfg = get_smoke("deepseek-v3-671b")
+    data, model = mesh
+    ranks = {}
+    for coord in ((d, m) for d in range(data) for m in range(model)):
+        sharded = ShardedModel(cfg, StubMesh(data, model, coord),
+                               torch.device("cpu"))
+        ranks[coord] = (dict(_walk(sharded.init_local(7))), sharded.specs)
+    same = split = 0
+    ref_leaves, specs = ranks[(0, 0)]
+    for path, leaf in ref_leaves.items():
+        axes = {a for entry in _at(specs, path) for a in entry_axes(entry)}
+        for (d, m), (leaves, _) in ranks.items():
+            if (d, m) == (0, 0):
+                continue
+            moved = ({"data"} if d else set()) | ({"model"} if m else set())
+            if moved & axes:
+                split += not torch.equal(leaves[path], ref_leaves[path])
+            else:
+                assert torch.equal(leaves[path], ref_leaves[path]), path
+                same += 1
+    assert same and split
+    # the router is replicated over model, the experts split over it
+    moe = ("segments", 1, 0, "ffn")
+    for (d, m), (leaves, _) in ranks.items():
+        if not d:
+            assert torch.equal(leaves[moe + ("router",)],
+                               ref_leaves[moe + ("router",)])
+        if m:
+            assert not torch.equal(leaves[moe + ("wg",)],
+                                   ref_leaves[moe + ("wg",)])
 
 
 def test_mla_decode_over_a_sequence_split_latent_cache_raises():

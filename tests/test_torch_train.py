@@ -53,11 +53,18 @@ FWD_TOL = dict(atol=3e-5, rtol=3e-5)
 GRAD_TOL = dict(atol=5e-4, rtol=5e-4)
 LEAF_REL = 1e-5
 OPT_TOL = dict(atol=1e-6, rtol=1e-6)
+# deepseek-v3-671b's smoke config is the 1 dense + 1 MoE layer cut, with
+# MTP, that training on four cards runs at full width; pixtral-12b/2L
+# that run's 2-layer cut of pixtral (16 stub patches a row)
 LOSS_ARCHES = ["llama3.2-1b", "llama3.2-1b-sw", "deepseek-v3-671b",
-               "jamba-1.5-large-398b"]
+               "jamba-1.5-large-398b", "granite-moe-1b-a400m",
+               "pixtral-12b/2L"]
 # a length where each config's structure bites: the -sw window of 64 at
-# 80, Jamba's scan in two chunks of its ssm_chunk 64 at 128
-LOSS_SEQ = {"llama3.2-1b-sw": 80, "jamba-1.5-large-398b": 128}
+# 80, Jamba's scan in two chunks of its ssm_chunk 64 at 128, granite-moe's
+# published capacity factor at 256 tokens a group (past the floor of 64
+# at which a group is drop-free): experts overflow and drop assignments
+LOSS_SEQ = {"llama3.2-1b-sw": 80, "jamba-1.5-large-398b": 128,
+            "granite-moe-1b-a400m": 128}
 # Jamba's leaves: the reference's own two scans, its sequential oracle and
 # the associative scan of its XLA path, give gradients more than 5e-6 of
 # the largest entry apart on this config (the dt path's sums over N
@@ -289,21 +296,39 @@ def built():
 
     def get(arch):
         if arch not in cache:
-            jmodel = jax_build_model(jax_get_smoke(arch))
+            jcfg, cfg = _smoke_pair(arch)
+            jmodel = jax_build_model(jcfg)
             jparams = jmodel.init(jax.random.PRNGKey(0))
-            cache[arch] = (jmodel, jparams, build_model(get_smoke(arch),
-                                                        "cpu"),
+            cache[arch] = (jmodel, jparams, build_model(cfg, "cpu"),
                            jax.tree.map(np.asarray, jparams))
         return cache[arch]
     return get
 
 
+def _smoke_pair(name):
+    """Both packages' smoke configs of ``arch`` or ``arch/2L`` (its one
+    segment repeated twice: two layers)."""
+    arch, _, variant = name.partition("/")
+    pair = (jax_get_smoke(arch), get_smoke(arch))
+    if variant == "2L":
+        pair = tuple(dataclasses.replace(c, segments=(dataclasses.replace(
+            c.segments[0], repeat=2),)) for c in pair)
+    return pair
+
+
 def _batch(cfg, seed, b, s, mask: bool):
+    """Tokens, and the stub features the config takes: 24 frames a row
+    for an encoder-decoder, its patches for an image config."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(
         np.int32)}
     if mask:
         out["loss_mask"] = (rng.random((b, s)) > 0.3).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = rng.standard_normal((b, 24, 128), dtype=np.float32)
+    if cfg.num_image_tokens:
+        out["image_feats"] = rng.standard_normal(
+            (b, cfg.num_image_tokens, 1024), dtype=np.float32)
     return out
 
 
@@ -339,7 +364,9 @@ def test_loss_and_every_gradient_match_the_reference(built, arch, mask):
     """Model.loss and its gradient for every leaf; deepseek's aux holds
     its routers' loss and the MTP loss; the -sw config's window 64 bites
     at 80 tokens; Jamba's Mamba layers carry the scan's state and its
-    gradient across two chunks."""
+    gradient across two chunks; granite-moe at its published capacity
+    drops assignments, and the dropped tokens' gradient is the
+    reference's; pixtral's two layers take its stub patches."""
     jmodel, jparams, model, nparams = built(arch)
     seq = LOSS_SEQ.get(arch, 24)
     batch = _batch(model.cfg, 7, 2, seq, mask)
@@ -350,6 +377,14 @@ def test_loss_and_every_gradient_match_the_reference(built, arch, mask):
     np.testing.assert_allclose(float(loss), float(jloss), atol=1e-5,
                                rtol=1e-5)
     _assert_leaves_close(grads, jgrads, LEAF_REL_ARCH.get(arch, LEAF_REL))
+    if arch == "granite-moe-1b-a400m":
+        # the published capacity drops assignments here: drop-free, the
+        # loss is another
+        free = build_model(dataclasses.replace(
+            model.cfg, capacity_factor=model.cfg.num_experts
+            / model.cfg.num_experts_per_tok), "cpu")
+        with torch.no_grad():
+            assert float(free.loss(params, _to_torch(batch))) != float(loss)
     if model.cfg.mtp_depth:
         # the aux carries the MTP loss: its leaves get gradient
         mtp = [g for (k, _), g in zip(flatten_with_path(params), grads)
@@ -444,6 +479,77 @@ def test_adamw_decays_matrices_only():
     torch.testing.assert_close(tree["v"], torch.ones(2))
 
 
+def test_adamw_update_holds_a_chunk_of_temporaries_not_a_leaf():
+    """AdamW.update walks a leaf CHUNK elements at a time, so its
+    temporaries (the clipped gradient, both new moments, the step) are a
+    chunk's, not the leaf's: on ``meta``, under the dry-run's live-bytes
+    tracker, an update of an (8, CHUNK) f32 leaf peaks at the clip's one
+    squared leaf (the norm), where the leaf at once peaked at 6.1 leaves
+    (DeepSeek's stacked experts, 3.8 GB a leaf a card, put 26 GB over
+    its parameters, gradients and moments); the result is the leaf-wise
+    update's (test_adamw_update_matches_the_reference)."""
+    from repro_torch.launch.dryrun import DeviceBytes
+    from repro_torch.train.optimizer import CHUNK
+    meta = torch.device("meta")
+    params = {"w": torch.empty((8, CHUNK), device=meta),
+              "b": torch.empty(CHUNK + 5, device=meta)}
+    grads = {k: torch.empty_like(v) for k, v in params.items()}
+    opt = AdamW()
+    state = opt.init(params)
+    with DeviceBytes(leaves(params) + leaves(grads) + leaves(state)) as mem:
+        opt.update(params, state, grads)
+    assert mem.peak <= 1.25 * 8 * CHUNK * 4
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v3-671b",
+                                  "whisper-small", "pixtral-12b/2L",
+                                  "granite-moe-1b-a400m/2L",
+                                  "jamba-1.5-large-398b"])
+def test_launches_per_train_step_count_what_a_step_calls(arch, remat):
+    """chip_smoke.launches_per_train_step, which the card's training
+    phases hold every step's launches to, against the calls one
+    value_and_grad makes on the CPU, counted at the kernels' entry points
+    (ops.rmsnorm, ops.flash_attention, ops.mamba_chunk; a flash call's
+    backward by a hook on its output): MTP's module, whisper's encoder
+    and cross-attention, an image prefix, two scan chunks; with remat the
+    layers' calls twice, the final norms and MTP's once."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import value_and_grad
+    cfg = dataclasses.replace(_smoke_pair(arch)[1], remat=remat)
+    seq = 128 if cfg.ssm_chunk and cfg.family == "hybrid" else 24
+    n = dict.fromkeys(("rmsnorm", "flash_attention", "flash_attention_bwd",
+                       "mamba_scan", "mamba_scan_bwd"), 0)
+    real = (ops.rmsnorm, ops.flash_attention, ops.mamba_chunk)
+
+    def counted(name, fn, bwd):
+        def call(*args, **kwargs):
+            n[name] += 1
+            out = fn(*args, **kwargs)
+            first = out[0] if isinstance(out, tuple) else out
+            if first.requires_grad:
+                first.register_hook(
+                    lambda g: n.__setitem__(bwd, n[bwd] + 1) if bwd else None)
+            return out
+        return call
+    ops.rmsnorm = counted("rmsnorm", real[0], None)
+    ops.flash_attention = counted("flash_attention", real[1],
+                                  "flash_attention_bwd")
+    ops.mamba_chunk = counted("mamba_scan", real[2], "mamba_scan_bwd")
+    try:
+        model = build_model(cfg, "cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        value_and_grad(model, params, _to_torch(_batch(cfg, 3, 2, seq,
+                                                       mask=False)))
+    finally:
+        ops.rmsnorm, ops.flash_attention, ops.mamba_chunk = real
+    assert n == chip_smoke.launches_per_train_step(cfg, seq)
+
+
 # --------------------------------------------------------------------- step
 
 class _Recording:
@@ -460,9 +566,14 @@ class _Recording:
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_the_reference_loss_and_gradients(built,
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "whisper-small",
+                                  "pixtral-12b"])
+def test_train_step_matches_the_reference_loss_and_gradients(built, arch,
                                                              microbatches):
-    jmodel, jparams, model, nparams = built("llama3.2-1b")
+    """make_train_step's loss and gradients against the reference's, a
+    masked loss, whole and in two microbatches: llama, whisper (its stub
+    frames split with the rows) and pixtral (its stub patches)."""
+    jmodel, jparams, model, nparams = built(arch)
     batch = _batch(model.cfg, 11, 4, 24, mask=True)
     jrec, rec = _Recording(), _Recording()
     _, _, jm = jax_make_train_step(jmodel, jrec, microbatches)(

@@ -41,29 +41,10 @@ import torch.multiprocessing as mp
 from torch.overrides import TorchFunctionMode
 
 ROOT = Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+from chip_smoke import Float64  # noqa: E402
+
 WORLD = 4
-
-
-class Float64(TorchFunctionMode):
-    """Every ``float()`` cast and every ``float32`` argument becomes
-    ``float64``: the model's f32 arithmetic, run in f64."""
-
-    def __init__(self, log: list = None):
-        super().__init__()
-        self.log = log
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is torch.Tensor.float:
-            out = args[0].to(torch.float64)
-        else:
-            def sub(v):
-                return torch.float64 if v is torch.float32 else v
-            out = func(*(sub(a) for a in args),
-                       **{k: sub(v) for k, v in kwargs.items()})
-        if self.log is not None:
-            self.log.append((func, args, out))
-        return out
 
 
 class Ops(TorchFunctionMode):
@@ -184,7 +165,6 @@ def _forward(model, params, batch, par=None, ins: list = None) -> list:
 
 
 def _rank(rank: int, store: str, args) -> None:
-    sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke as c
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
@@ -291,7 +271,6 @@ def main() -> None:
                     help="four processes over gloo, no card")
     args = ap.parse_args()
     if not args.cpu:
-        sys.path[:0] = [str(ROOT / "src")]
         from repro_torch.kernels import _build
         _build.load()
     with tempfile.TemporaryDirectory() as tmp:
